@@ -6,14 +6,19 @@ path.  The search keeps the model on the card and runs, per step,
 **repool → rescore → reduce → compact → cohort → auction → apply**:
 
 * **Candidates**: the top-K priority source replicas × the top-D
-  least-loaded destination brokers (the move grid, scored and ranked per
-  row by the hand-written kernel K1, :func:`ops.grid.grid_top_r`), plus a
-  pruned pool of leadership transfers.
+  least-loaded destination brokers (the move grid: its terms computed by
+  the hand-written kernel K2, scored and ranked per row by K1 —
+  :func:`ops.grid.grid_rescore`), plus a pruned pool of leadership
+  transfers.
 * **Feasibility** (hard goals) and **cost** (soft goals) are the same
   fused mask and exact O(1) cost deltas as the reference.
-* **Selection**: per-source-broker reduction, compaction to the best C
-  rows, a budgeted cohort (water-filling sufficient conditions) and a
-  disjoint auction commit a batch per step.
+* **Selection**: per-source-broker reduction (kernel K3), compaction to
+  the best C rows, a budgeted cohort (water-filling sufficient
+  conditions, K4) and a disjoint auction (K5) commit a batch per step
+  (:mod:`analyzer.step_kernels`, beside the plain twins of K3-K5:
+  ``_reduce_leadership_per_src`` / ``_topq_rows_per_src``,
+  ``_cohort_budgets`` / ``_budget_accept`` and ``_match_batch``, which
+  this module imports under those names).
 * **Host recheck**: every committed action is replayed on the host in f64
   (:class:`_HostEvaluator`, a verbatim copy of the reference's numpy
   evaluator); a rejection resyncs the device model from the host context.
@@ -51,6 +56,22 @@ from cruise_control_tpu_torch.analyzer.goal_optimizer import (
     diff_proposals,
 )
 from cruise_control_tpu_torch.analyzer.goals.base import BalancingConstraint
+# the selection chains' plain twins are imported under their reference
+# names beside the kernel wrappers that replace them on the card
+from cruise_control_tpu_torch.analyzer.step_kernels import (  # noqa: F401
+    _budget_accept,
+    _cohort_budgets,
+    _match_batch,
+    _reduce_leadership_per_src,
+    _scatter_min,
+    _seg_excl_prefix,
+    _seg_prefix_fits,
+    _step_budgets,
+    _topq_rows_per_src,
+    budget_accept,
+    match_batch,
+    per_src_top,
+)
 from cruise_control_tpu_torch.models.cluster_state import ClusterState
 from cruise_control_tpu_torch.models.stats import cluster_stats, stats_summary
 from cruise_control_tpu_torch.ops.cost import (
@@ -62,18 +83,15 @@ from cruise_control_tpu_torch.ops.cost import (
 from cruise_control_tpu_torch.ops.grid import (
     gather_pload as _gather_pload,
     grid_consts,
-    grid_top_r,
-    move_grid_terms,
+    grid_rescore,
+    terms_consts,
 )
 from cruise_control_tpu_torch.ops.pools import (
     pool_prio,
     pool_row_tables,
     pool_row_tables_update,
 )
-from cruise_control_tpu_torch.ops.segment import (
-    segment_excl_prefix_sorted,
-    segment_sum,
-)
+from cruise_control_tpu_torch.ops.segment import segment_sum
 from cruise_control_tpu_torch.utils.device import resolve_device
 from cruise_control_tpu_torch.utils.logging import get_logger
 
@@ -486,14 +504,6 @@ def _leadership_pool(m: DeviceModel, ca, L: int):
 DESTS_PER_SOURCE = 8
 
 
-def _grid_top_r(m, cfg, ca, kp, ks, dest_pool, terms, R: int, consts=None):
-    """Per-row top-R destination selection over the move grid → (score
-    [K, R] ascending, pool index [K, R]).  The grid is never materialized
-    on the card: this is kernel K1 (ops.grid.grid_top_r).  ``topk_mode``
-    has no approximate variant here."""
-    return grid_top_r(m, cfg, ca, kp, ks, dest_pool, terms, R, consts=consts)
-
-
 def _build_pools(m: DeviceModel, cfg, ca, K: int, D: int, tables=None):
     """All P·S-scale candidate-pool selection → (kp, ks, dest_pool, lp,
     lsl)."""
@@ -507,241 +517,10 @@ def _build_pools(m: DeviceModel, cfg, ca, K: int, D: int, tables=None):
 # Per-step reductions and selection
 # ---------------------------------------------------------------------------------
 
-def _scatter_min(n: int, idx, vals, fill):
-    """``out[b] = min(fill, vals[i] for idx[i] == b)`` — exact, so
-    deterministic in any order."""
-    return torch.full((n,), fill, dtype=vals.dtype, device=vals.device) \
-        .scatter_reduce(0, idx.long(), vals, "amin", include_self=True)
-
-
 def _mark(n: int, idx, flags) -> torch.Tensor:
     """bool [n]: ``out[b]`` = any ``flags[i]`` with ``idx[i] == b``."""
     return torch.zeros(n, dtype=torch.int32, device=flags.device) \
         .index_add_(0, idx.long(), flags.to(torch.int32)) > 0
-
-
-def _reduce_leadership_per_src(m: DeviceModel, lp, lsl, l_scores):
-    """Best leadership transfer per current-leader broker → (score [B],
-    p [B], s [B], dst broker [B]); +inf score where a broker leads no pool
-    entry.  Ties to the lowest pool row."""
-    B = m.capacity.shape[0]
-    L = lp.shape[0]
-    lpl = lp.long()
-    lb = torch.gather(m.assignment[lpl], 1,
-                      m.leader_slot[lpl].long()[:, None])[:, 0]
-    lb_c = lb.clamp_min(0).long()
-    seg = _scatter_min(B, lb_c, l_scores, _INF)
-    ar = torch.arange(L, device=lp.device)
-    row = _scatter_min(B, lb_c,
-                       torch.where(l_scores <= seg[lb_c], ar, L), L)
-    ok = row < L
-    row_c = row.clamp(0, L - 1)
-    score = torch.where(ok, l_scores[row_c], _INF)
-    p, s = lp[row_c], lsl[row_c]
-    return score, p, s, m.assignment[p.long(), s.long()].clamp_min(0)
-
-
-def _topq_rows_per_src(sb, row_best, B: int, Q: int):
-    """Top-Q candidate rows per source broker by score → (rows int32
-    [Q, B], scores f32 [Q, B]): the q-th best row index of each broker (K
-    where a broker has fewer than q+1 rows) and that row's score (inf where
-    invalid).  Q sequential scatter-min passes, ties to the lowest row."""
-    K = sb.shape[0]
-    sbl = sb.long()
-    cur = row_best
-    idx = torch.arange(K, device=sb.device)
-    outs, out_scores = [], []
-    for _ in range(Q):
-        seg = _scatter_min(B, sbl, cur, _INF)
-        r = _scatter_min(
-            B, sbl,
-            torch.where(torch.isfinite(cur) & (cur <= seg[sbl]), idx, K), K,
-        )
-        outs.append(r)
-        out_scores.append(torch.where(r < K, seg, _INF))
-        # knock the chosen rows out for the next pass; r == K lands in a
-        # dump slot past the end (the reference's mode="drop")
-        ext = torch.cat([cur, cur.new_full((1,), _INF)])
-        ext[r] = _INF
-        cur = ext[:K]
-    return torch.stack(outs).to(torch.int32), torch.stack(out_scores)
-
-
-def _step_budgets(m: DeviceModel, ca):
-    """Per-broker move budgets for the water-filling cohort → (src_budget,
-    dst_budget), both f32 [B, R+2] over (resources..., replica count,
-    potential NW-out) — plus R capacity-headroom dims with percentile
-    loads.  See the reference's ``_step_budgets`` for the derivation."""
-    B = m.capacity.shape[0]
-    alive_cap = torch.where(m.alive[:, None], m.capacity, 0.0)
-    avg_u = m.broker_load.sum(dim=0) / torch.clamp_min(
-        alive_cap.sum(dim=0), 1e-9)
-    target = avg_u[None, :] * m.capacity
-    pivot = avg_u * alive_cap.sum(dim=0) / torch.clamp_min(
-        (alive_cap * alive_cap).sum(dim=0), 1e-9)
-    quad_target = pivot[None, :] * m.capacity * m.capacity
-    src_res = torch.clamp_min(
-        m.broker_load - torch.maximum(target, quad_target), 0.0)
-    dst_res = torch.where(
-        m.dest_ok[:, None],
-        torch.clamp_min(torch.minimum(target, quad_target) - m.broker_load,
-                        0.0),
-        0.0,
-    )
-    src_rc = torch.clamp_min(m.rcount - ca["avg_rcount"], 0.0)
-    dst_rc = torch.clamp_min(ca["avg_rcount"] - m.rcount, 0.0)
-    thr_pot = (ca["cap_threshold"][Resource.NW_OUT]
-               * m.capacity[:, Resource.NW_OUT])
-    above = m.pot_nwout >= thr_pot
-    dst_pot = torch.where(above, _INF, thr_pot - m.pot_nwout)
-    src_pot = torch.where(above, m.pot_nwout - thr_pot, _INF)
-    src_budget = torch.cat([src_res, src_rc[:, None], src_pot[:, None]], 1)
-    dst_budget = torch.cat([dst_res, dst_rc[:, None], dst_pot[:, None]], 1)
-    if m.broker_cload is not None:
-        cap_head = torch.clamp_min(
-            ca["cap_threshold"][None, :] * m.capacity - m.broker_cload, 0.0)
-        src_budget = torch.cat(
-            [src_budget, torch.full((B, m.capacity.shape[1]), _INF,
-                                    device=src_budget.device)], 1)
-        dst_budget = torch.cat([dst_budget, cap_head], 1)
-    return src_budget, dst_budget
-
-
-def _seg_excl_prefix(ids, vec, eligible):
-    """Per-row EXCLUSIVE prefix sum of ``vec`` within each id segment, rows
-    in caller (score) order.  ids [C], vec [C, NB], eligible [C] bool →
-    [C, NB]; exact integer scan (ops.segment)."""
-    C = ids.shape[0]
-    rank = torch.arange(C, device=ids.device)
-    order = torch.argsort(ids.long() * C + rank, stable=True)
-    sv = torch.where(eligible[:, None], vec, 0.0)[order]
-    sid = ids[order]
-    first = torch.ones(C, dtype=torch.bool, device=ids.device)
-    first[1:] = sid[1:] != sid[:-1]
-    out = torch.zeros_like(vec)
-    out[order] = segment_excl_prefix_sorted(sv, first)
-    return out
-
-
-def _seg_prefix_fits(ids, vec, budget, eligible):
-    """Budget acceptance by segmented prefix sums, in caller row order: a
-    row fits iff every dim of its inclusive per-id prefix fits the id's
-    budget (conservative: a rejected eligible row still counts in later
-    rows' prefixes).  → fits [C] bool (False wherever not eligible)."""
-    ev = torch.where(eligible[:, None], vec, 0.0)
-    incl = _seg_excl_prefix(ids, vec, eligible) + ev
-    ok = (incl <= budget[ids.long()] + 1e-9).all(dim=1)
-    return ok & eligible
-
-
-def _budget_accept(dst_ids, src_ids, vec, dst_budget, src_budget, eligible,
-                   rounds: int = 2):
-    """Budgeted cohort acceptance across both endpoints, in caller order
-    (destination-prefix filter, then source-prefix filter over its
-    survivors; accepted rows draw both budgets down and rows that no longer
-    fit on their own drop out)."""
-    acc = torch.zeros_like(eligible)
-    elig = eligible
-    dl, sl = dst_ids.long(), src_ids.long()
-    for _ in range(rounds):
-        dok = _seg_prefix_fits(dst_ids, vec, dst_budget, elig)
-        a = _seg_prefix_fits(src_ids, vec, src_budget, dok)
-        acc = acc | a
-        dec = torch.where(a[:, None], vec, 0.0)
-        dst_budget = dst_budget - segment_sum(dec, dl, dst_budget.shape[0])
-        src_budget = src_budget - segment_sum(dec, sl, src_budget.shape[0])
-        elig = (
-            elig & ~a
-            & (vec <= dst_budget[dl] + 1e-9).all(dim=1)
-            & (vec <= src_budget[sl] + 1e-9).all(dim=1)
-        )
-    return acc
-
-
-def _match_batch(cand_score, cand_dst, cand_src, cand_p, tol: float, B: int,
-                 P: int, init_used=None, dest_cap: int = 1,
-                 src_cap: int = 1, stack_ratio: float = 0.5,
-                 rounds: int = 0):
-    """Parallel auction matching candidates to disjoint broker/partition
-    sets (see the reference's ``_match_batch``).  Per round every unmatched
-    candidate proposes its current alternate; the lowest score per
-    destination wins, ties to the lowest candidate index on all three
-    conflict tables at once; a loser advances only once its destination is
-    full.  All rounds run: a round that changes nothing is a fixed point
-    the remaining rounds repeat exactly, so the result equals the
-    reference's early exit without a host round-trip per round.
-
-    cand_score/cand_dst [N, A]; cand_src/cand_p [N] (conflict ids < P).
-    → (take [N] bool, win_score [N], win_dst [N])."""
-    N, A = cand_score.shape
-    dev = cand_score.device
-    idx_n = torch.arange(N, device=dev)
-    p_c = cand_p.clamp_min(0).long()
-    if init_used is None:
-        init_used = (
-            torch.zeros(B, dtype=torch.bool, device=dev),
-            torch.zeros(B, dtype=torch.bool, device=dev),
-            torch.zeros(P, dtype=torch.bool, device=dev),
-        )
-    used_src, used_dst, used_p = init_used
-    # packed occupancy: [0, B) dst, [B, 2B) src, [2B, 2B+P) partitions
-    occ = torch.cat([
-        used_dst.long() * dest_cap, used_src.long() * src_cap, used_p.long(),
-    ])
-    ids_src = B + cand_src.long()
-    ids_p = 2 * B + p_c
-    track_bars = dest_cap > 1 or src_cap > 1
-    take = torch.zeros(N, dtype=torch.bool, device=dev)
-    ptr = torch.zeros(N, dtype=torch.long, device=dev)
-    win_score = torch.full((N,), _INF, dtype=cand_score.dtype, device=dev)
-    win_dst = torch.zeros(N, dtype=torch.long, device=dev)
-    dbest = torch.zeros(B, dtype=cand_score.dtype, device=dev)
-    sbest = torch.zeros(B, dtype=cand_score.dtype, device=dev)
-    for _ in range(rounds or A):
-        pa = ptr.clamp(0, A - 1)
-        cur_s = cand_score[idx_n, pa]
-        cur_d = cand_dst[idx_n, pa].clamp_min(0).long()
-        ids3 = torch.cat([cur_d, ids_src, ids_p])
-        occ_d, occ_s, occ_p = occ[ids3].split(N)
-        active = (
-            ~take & (ptr < A) & (cur_s < tol) & (occ_s < src_cap)
-            & (occ_p < 1)
-        )
-        prop = active & (occ_d < dest_cap)
-        if track_bars:
-            active = active & ((occ_s == 0)
-                               | (cur_s <= stack_ratio * sbest[ids_src - B]))
-            prop = active & (occ_d < dest_cap) & (
-                (occ_d == 0) | (cur_s <= stack_ratio * dbest[cur_d]))
-        best = _scatter_min(B, cur_d, torch.where(prop, cur_s, _INF), _INF)
-        win = prop & (cur_s <= best[cur_d])
-        widx = torch.where(win, idx_n, N)
-        fmin = _scatter_min(2 * B + P, ids3, torch.cat([widx, widx, widx]), N)
-        f_d, f_s, f_p = fmin[ids3].split(N)
-        win = win & (idx_n == f_d) & (idx_n == f_s) & (idx_n == f_p)
-        take = take | win
-        if track_bars:
-            dbest = torch.where(
-                occ[:B] == 0,
-                _scatter_min(B, cur_d, torch.where(win, cur_s, 0.0), 0.0),
-                dbest,
-            )
-            sbest = torch.where(
-                occ[B:2 * B] == 0,
-                _scatter_min(B, ids_src - B, torch.where(win, cur_s, 0.0),
-                             0.0),
-                sbest,
-            )
-        wi = win.long()
-        occ = occ.index_add(0, ids3, torch.cat([wi, wi, wi]))
-        win_score = torch.where(win, cur_s, win_score)
-        win_dst = torch.where(win, cur_d, win_dst)
-        blocked = occ[cur_d] >= dest_cap
-        if track_bars:
-            blocked = blocked | (
-                (occ[cur_d] > 0) & (cur_s > stack_ratio * dbest[cur_d]))
-        ptr = ptr + (active & ~win & blocked).long()
-    return take, win_score, win_dst
 
 
 def _set_dropped(arr: torch.Tensor, rows, cols, vals) -> torch.Tensor:
@@ -872,6 +651,7 @@ def _scan_call(m: DeviceModel, cfg: CudaSearchConfig, ca, consts, K: int,
     ci = torch.arange(C, device=dev)
     is_move_all = torch.arange(NROW, device=dev) < Q * B
     inf_tail = torch.full((C, R - 1), _INF, device=dev)
+    tconsts = terms_consts(cfg, ca, dev)
     while not done and t < T and count <= slots - M_run:
         if since_pool >= repool:
             # pool-rebuild diet: refresh only the touched rows when the
@@ -889,11 +669,10 @@ def _scan_call(m: DeviceModel, cfg: CudaSearchConfig, ca, consts, K: int,
         kp, ks, dest_pool, lp, lsl = pools
         L = lp.shape[0]
 
-        # ---- rescore: the move grid's per-row top-R (K1) + leadership ----
-        terms = move_grid_terms(m, cfg, ca, kp, ks)
-        src_term = terms["src_term"]
-        vals, best_d = _grid_top_r(m, cfg, ca, kp, ks, dest_pool, terms, R,
-                                   consts)
+        # ---- rescore: the move grid's terms (K2), per-row top-R (K1) +
+        # leadership
+        src_term, vals, best_d = grid_rescore(m, cfg, ca, kp, ks, dest_pool,
+                                              R, consts, tconsts)
         # the reference carries destination terms and re-adds the source
         # term; the round trip is kept for bit-parity of the row scores
         row_scores = src_term[:, None] + (vals - src_term[:, None])
@@ -902,11 +681,10 @@ def _scan_call(m: DeviceModel, cfg: CudaSearchConfig, ca, consts, K: int,
             lsl, torch.zeros(L, dtype=torch.int32, device=dev),
         )
 
-        # ---- reduce: per-broker best transfer + top-Q move rows ----------
-        bl_score, bl_p, bl_s, bl_dst = _reduce_leadership_per_src(
-            m, lp, lsl, ls)
+        # ---- reduce: per-broker best transfer + top-Q move rows (K3) ----
         sb = m.assignment[kp.long(), ks.long()].clamp_min(0)
-        rows_q2, q_scores = _topq_rows_per_src(sb, row_scores[:, 0], B, Q)
+        (bl_score, bl_p, bl_s, bl_dst), (rows_q2, q_scores) = per_src_top(
+            m, lp, lsl, ls, sb, row_scores[:, 0], B, Q)
         rows_q = rows_q2.reshape(-1).long()
         valid_q = rows_q < K
         mrow = rows_q.clamp(0, K - 1)
@@ -945,14 +723,6 @@ def _scan_call(m: DeviceModel, cfg: CudaSearchConfig, ca, consts, K: int,
         if m.leader_cload is not None:
             mlc = torch.where(lead_move, leadc_c, folc_c)
             move_vec = torch.cat([move_vec, torch.where(imr, mlc, 0.0)], 1)
-        src_budget, dst_budget = _step_budgets(m, ca)
-        if cfg.cohort_budget_slack != 1.0:
-            # relax the soft dims only; capacity-headroom dims stay exact
-            soft = NUM_RESOURCES + 2
-            src_budget = src_budget.clone()
-            dst_budget = dst_budget.clone()
-            src_budget[:, :soft] *= cfg.cohort_budget_slack
-            dst_budget[:, :soft] *= cfg.cohort_budget_slack
         qualified = is_move_row & ~leader_now_q & valid_c
         # compact partition-conflict ids: rows sharing a partition map to
         # one representative row
@@ -969,16 +739,17 @@ def _scan_call(m: DeviceModel, cfg: CudaSearchConfig, ca, consts, K: int,
         fminp = _scatter_min(C, rep, torch.where(qual, ci, C), C)
         qual = qual & (ci == fminp[rep])
         d0 = cand_dst[:, 0].clamp_min(0)
-        acc_b = _budget_accept(d0, cand_src.clamp_min(0), move_vec,
-                               dst_budget, src_budget, qual)
+        # water-filling budgets and two rounds of acceptance (K4)
+        acc_b, _, _ = budget_accept(m, ca, d0, cand_src.clamp_min(0),
+                                    move_vec, qual, cfg.cohort_budget_slack)
 
-        # ---- auction for the rest, disjoint from the cohort --------------
+        # ---- auction for the rest, disjoint from the cohort (K5) --------
         used0 = (
             _mark(B, cand_src.clamp_min(0), acc_b),
             _mark(B, d0, acc_b),
             _mark(C, rep, acc_b),
         )
-        take_d, win_score_d, win_dst_d = _match_batch(
+        take_d, win_score_d, win_dst_d = match_batch(
             cand_score.masked_fill(acc_b[:, None], _INF), cand_dst, cand_src,
             rep, cfg.improvement_tol, B, C, init_used=used0,
             dest_cap=cfg.auction_dest_cap, src_cap=cfg.auction_src_cap,

@@ -1,0 +1,524 @@
+"""The search step's selection chains: their plain twins and the
+hand-written CUDA kernels that replace them on the card.
+
+* K3 :func:`per_src_top` (``csrc/per_src_top.cu``): the best leadership
+  transfer per leader broker and the top-Q move rows per source broker —
+  plain twins :func:`_reduce_leadership_per_src`, :func:`_topq_rows_per_src`.
+* K4 :func:`budget_accept` (``csrc/budget_accept.cu``): the cohort's
+  water-filling budgets and its two rounds of segmented-prefix acceptance
+  — plain twins :func:`_cohort_budgets` (:func:`_step_budgets`) and
+  :func:`_budget_accept`.
+* K5 :func:`match_batch` (``csrc/match_batch.cu``): the disjoint auction —
+  plain twin :func:`_match_batch`.
+
+The plain twins keep the reference's names (``tpu_optimizer.py``) and are
+the specification the CPU tests hold against the JAX reference; the
+search imports them from here (``analyzer/cuda_optimizer.py``).  Each
+wrapper runs its plain twin for tensors that lie on the CPU, and for CUDA
+tensors launches its kernel or raises; there is no fallback.  Each counts
+its launches in ``<wrapper>.launches``.  The kernels are built with
+``nvcc`` at first use (:mod:`ops.kernels`).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from cruise_control_tpu_torch.common.resources import NUM_RESOURCES, Resource
+from cruise_control_tpu_torch.ops import kernels
+from cruise_control_tpu_torch.ops.segment import (
+    segment_excl_prefix_sorted,
+    segment_sum,
+)
+
+#: K4 sorts its n2 keys in shared memory up to this many bytes (the
+#: block's static shared memory takes the rest)
+_SORT_SMEM = 200_000
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_INF = float("inf")
+
+
+def order_key(x: torch.Tensor) -> torch.Tensor:
+    """The order-preserving map K3 and K5 key f32 scores with, in torch:
+    int64 in [0, 2^32) with ``order_key(a) < order_key(b)`` iff ``a < b``
+    (-0.0 and +0.0 map alike; +inf above every finite value)."""
+    x = torch.where(x == 0, torch.zeros_like(x), x).to(torch.float32)
+    u = x.contiguous().view(torch.int32).long() & 0xFFFFFFFF
+    return torch.where(u >= 1 << 31, ~u & 0xFFFFFFFF, u | 1 << 31)
+
+
+# ---------------------------------------------------------------------------------
+# Plain twins
+# ---------------------------------------------------------------------------------
+
+def _scatter_min(n: int, idx, vals, fill):
+    """``out[b] = min(fill, vals[i] for idx[i] == b)`` — exact, so
+    deterministic in any order."""
+    return torch.full((n,), fill, dtype=vals.dtype, device=vals.device) \
+        .scatter_reduce(0, idx.long(), vals, "amin", include_self=True)
+
+
+def _reduce_leadership_per_src(m, lp, lsl, l_scores):
+    """Best leadership transfer per current-leader broker → (score [B],
+    p [B], s [B], dst broker [B]); +inf score where a broker leads no pool
+    entry.  Ties to the lowest pool row."""
+    B = m.capacity.shape[0]
+    L = lp.shape[0]
+    lpl = lp.long()
+    lb = torch.gather(m.assignment[lpl], 1,
+                      m.leader_slot[lpl].long()[:, None])[:, 0]
+    lb_c = lb.clamp_min(0).long()
+    seg = _scatter_min(B, lb_c, l_scores, _INF)
+    ar = torch.arange(L, device=lp.device)
+    row = _scatter_min(B, lb_c,
+                       torch.where(l_scores <= seg[lb_c], ar, L), L)
+    ok = row < L
+    row_c = row.clamp(0, L - 1)
+    score = torch.where(ok, l_scores[row_c], _INF)
+    p, s = lp[row_c], lsl[row_c]
+    return score, p, s, m.assignment[p.long(), s.long()].clamp_min(0)
+
+
+def _topq_rows_per_src(sb, row_best, B: int, Q: int):
+    """Top-Q candidate rows per source broker by score → (rows int32
+    [Q, B], scores f32 [Q, B]): the q-th best row index of each broker (K
+    where a broker has fewer than q+1 rows) and that row's score (inf where
+    invalid).  Q sequential scatter-min passes, ties to the lowest row."""
+    K = sb.shape[0]
+    sbl = sb.long()
+    cur = row_best
+    idx = torch.arange(K, device=sb.device)
+    outs, out_scores = [], []
+    for _ in range(Q):
+        seg = _scatter_min(B, sbl, cur, _INF)
+        r = _scatter_min(
+            B, sbl,
+            torch.where(torch.isfinite(cur) & (cur <= seg[sbl]), idx, K), K,
+        )
+        outs.append(r)
+        out_scores.append(torch.where(r < K, seg, _INF))
+        # knock the chosen rows out for the next pass; r == K lands in a
+        # dump slot past the end (the reference's mode="drop")
+        ext = torch.cat([cur, cur.new_full((1,), _INF)])
+        ext[r] = _INF
+        cur = ext[:K]
+    return torch.stack(outs).to(torch.int32), torch.stack(out_scores)
+
+
+def _colsum(x: torch.Tensor) -> torch.Tensor:
+    """Exact column sums of ``x [N, C]`` (ops.segment's order-free fixed
+    point), rounded once to ``x``'s dtype."""
+    return segment_sum(x, torch.zeros(x.shape[0], dtype=torch.long,
+                                      device=x.device), 1)[0]
+
+
+def _step_budgets(m, ca):
+    """Per-broker move budgets for the water-filling cohort → (src_budget,
+    dst_budget), both f32 [B, R+2] over (resources..., replica count,
+    potential NW-out) — plus R capacity-headroom dims with percentile
+    loads.  See the reference's ``_step_budgets`` for the derivation.
+
+    The column sums are exact (:func:`_colsum`), so kernel K4 computes the
+    same budgets to the bit."""
+    B = m.capacity.shape[0]
+    alive_cap = torch.where(m.alive[:, None], m.capacity, 0.0)
+    cap_sum = _colsum(alive_cap)
+    avg_u = _colsum(m.broker_load) / torch.clamp_min(cap_sum, 1e-9)
+    target = avg_u[None, :] * m.capacity
+    pivot = avg_u * cap_sum / torch.clamp_min(
+        _colsum(alive_cap * alive_cap), 1e-9)
+    quad_target = pivot[None, :] * m.capacity * m.capacity
+    src_res = torch.clamp_min(
+        m.broker_load - torch.maximum(target, quad_target), 0.0)
+    dst_res = torch.where(
+        m.dest_ok[:, None],
+        torch.clamp_min(torch.minimum(target, quad_target) - m.broker_load,
+                        0.0),
+        0.0,
+    )
+    src_rc = torch.clamp_min(m.rcount - ca["avg_rcount"], 0.0)
+    dst_rc = torch.clamp_min(ca["avg_rcount"] - m.rcount, 0.0)
+    thr_pot = (ca["cap_threshold"][Resource.NW_OUT]
+               * m.capacity[:, Resource.NW_OUT])
+    above = m.pot_nwout >= thr_pot
+    dst_pot = torch.where(above, _INF, thr_pot - m.pot_nwout)
+    src_pot = torch.where(above, m.pot_nwout - thr_pot, _INF)
+    src_budget = torch.cat([src_res, src_rc[:, None], src_pot[:, None]], 1)
+    dst_budget = torch.cat([dst_res, dst_rc[:, None], dst_pot[:, None]], 1)
+    if m.broker_cload is not None:
+        cap_head = torch.clamp_min(
+            ca["cap_threshold"][None, :] * m.capacity - m.broker_cload, 0.0)
+        src_budget = torch.cat(
+            [src_budget, torch.full((B, m.capacity.shape[1]), _INF,
+                                    device=src_budget.device)], 1)
+        dst_budget = torch.cat([dst_budget, cap_head], 1)
+    return src_budget, dst_budget
+
+
+def _cohort_budgets(m, ca, slack: float):
+    """The budgets the cohort starts from: :func:`_step_budgets` with the
+    soft dims (resources, replica count, potential NW-out) scaled by
+    ``slack``; capacity-headroom dims stay exact."""
+    src_budget, dst_budget = _step_budgets(m, ca)
+    if slack != 1.0:
+        soft = NUM_RESOURCES + 2
+        src_budget = src_budget.clone()
+        dst_budget = dst_budget.clone()
+        src_budget[:, :soft] *= slack
+        dst_budget[:, :soft] *= slack
+    return src_budget, dst_budget
+
+
+def _seg_excl_prefix(ids, vec, eligible):
+    """Per-row EXCLUSIVE prefix sum of ``vec`` within each id segment, rows
+    in caller (score) order.  ids [C], vec [C, NB], eligible [C] bool →
+    [C, NB]; exact integer scan (ops.segment)."""
+    C = ids.shape[0]
+    rank = torch.arange(C, device=ids.device)
+    order = torch.argsort(ids.long() * C + rank, stable=True)
+    sv = torch.where(eligible[:, None], vec, 0.0)[order]
+    sid = ids[order]
+    first = torch.ones(C, dtype=torch.bool, device=ids.device)
+    first[1:] = sid[1:] != sid[:-1]
+    out = torch.zeros_like(vec)
+    out[order] = segment_excl_prefix_sorted(sv, first)
+    return out
+
+
+def _seg_prefix_fits(ids, vec, budget, eligible):
+    """Budget acceptance by segmented prefix sums, in caller row order: a
+    row fits iff every dim of its inclusive per-id prefix fits the id's
+    budget (conservative: a rejected eligible row still counts in later
+    rows' prefixes).  → fits [C] bool (False wherever not eligible)."""
+    ev = torch.where(eligible[:, None], vec, 0.0)
+    incl = _seg_excl_prefix(ids, vec, eligible) + ev
+    ok = (incl <= budget[ids.long()] + 1e-9).all(dim=1)
+    return ok & eligible
+
+
+def _budget_accept(dst_ids, src_ids, vec, dst_budget, src_budget, eligible,
+                   rounds: int = 2):
+    """Budgeted cohort acceptance across both endpoints, in caller order
+    (destination-prefix filter, then source-prefix filter over its
+    survivors; accepted rows draw both budgets down and rows that no longer
+    fit on their own drop out)."""
+    acc = torch.zeros_like(eligible)
+    elig = eligible
+    dl, sl = dst_ids.long(), src_ids.long()
+    for _ in range(rounds):
+        dok = _seg_prefix_fits(dst_ids, vec, dst_budget, elig)
+        a = _seg_prefix_fits(src_ids, vec, src_budget, dok)
+        acc = acc | a
+        dec = torch.where(a[:, None], vec, 0.0)
+        dst_budget = dst_budget - segment_sum(dec, dl, dst_budget.shape[0])
+        src_budget = src_budget - segment_sum(dec, sl, src_budget.shape[0])
+        elig = (
+            elig & ~a
+            & (vec <= dst_budget[dl] + 1e-9).all(dim=1)
+            & (vec <= src_budget[sl] + 1e-9).all(dim=1)
+        )
+    return acc
+
+
+def _match_batch(cand_score, cand_dst, cand_src, cand_p, tol: float, B: int,
+                 P: int, init_used=None, dest_cap: int = 1,
+                 src_cap: int = 1, stack_ratio: float = 0.5,
+                 rounds: int = 0):
+    """Parallel auction matching candidates to disjoint broker/partition
+    sets (see the reference's ``_match_batch``).  Per round every unmatched
+    candidate proposes its current alternate; the lowest score per
+    destination wins, ties to the lowest candidate index on all three
+    conflict tables at once; a loser advances only once its destination is
+    full.  All rounds run: a round that changes nothing is a fixed point
+    the remaining rounds repeat exactly, so the result equals the
+    reference's early exit without a host round-trip per round.
+
+    cand_score/cand_dst [N, A]; cand_src/cand_p [N] (conflict ids < P).
+    → (take [N] bool, win_score [N], win_dst [N])."""
+    N, A = cand_score.shape
+    dev = cand_score.device
+    idx_n = torch.arange(N, device=dev)
+    p_c = cand_p.clamp_min(0).long()
+    if init_used is None:
+        init_used = (
+            torch.zeros(B, dtype=torch.bool, device=dev),
+            torch.zeros(B, dtype=torch.bool, device=dev),
+            torch.zeros(P, dtype=torch.bool, device=dev),
+        )
+    used_src, used_dst, used_p = init_used
+    # packed occupancy: [0, B) dst, [B, 2B) src, [2B, 2B+P) partitions
+    occ = torch.cat([
+        used_dst.long() * dest_cap, used_src.long() * src_cap, used_p.long(),
+    ])
+    ids_src = B + cand_src.long()
+    ids_p = 2 * B + p_c
+    track_bars = dest_cap > 1 or src_cap > 1
+    take = torch.zeros(N, dtype=torch.bool, device=dev)
+    ptr = torch.zeros(N, dtype=torch.long, device=dev)
+    win_score = torch.full((N,), _INF, dtype=cand_score.dtype, device=dev)
+    win_dst = torch.zeros(N, dtype=torch.long, device=dev)
+    dbest = torch.zeros(B, dtype=cand_score.dtype, device=dev)
+    sbest = torch.zeros(B, dtype=cand_score.dtype, device=dev)
+    for _ in range(rounds or A):
+        pa = ptr.clamp(0, A - 1)
+        cur_s = cand_score[idx_n, pa]
+        cur_d = cand_dst[idx_n, pa].clamp_min(0).long()
+        ids3 = torch.cat([cur_d, ids_src, ids_p])
+        occ_d, occ_s, occ_p = occ[ids3].split(N)
+        active = (
+            ~take & (ptr < A) & (cur_s < tol) & (occ_s < src_cap)
+            & (occ_p < 1)
+        )
+        prop = active & (occ_d < dest_cap)
+        if track_bars:
+            active = active & ((occ_s == 0)
+                               | (cur_s <= stack_ratio * sbest[ids_src - B]))
+            prop = active & (occ_d < dest_cap) & (
+                (occ_d == 0) | (cur_s <= stack_ratio * dbest[cur_d]))
+        best = _scatter_min(B, cur_d, torch.where(prop, cur_s, _INF), _INF)
+        win = prop & (cur_s <= best[cur_d])
+        widx = torch.where(win, idx_n, N)
+        fmin = _scatter_min(2 * B + P, ids3, torch.cat([widx, widx, widx]), N)
+        f_d, f_s, f_p = fmin[ids3].split(N)
+        win = win & (idx_n == f_d) & (idx_n == f_s) & (idx_n == f_p)
+        take = take | win
+        if track_bars:
+            dbest = torch.where(
+                occ[:B] == 0,
+                _scatter_min(B, cur_d, torch.where(win, cur_s, 0.0), 0.0),
+                dbest,
+            )
+            sbest = torch.where(
+                occ[B:2 * B] == 0,
+                _scatter_min(B, ids_src - B, torch.where(win, cur_s, 0.0),
+                             0.0),
+                sbest,
+            )
+        wi = win.long()
+        occ = occ.index_add(0, ids3, torch.cat([wi, wi, wi]))
+        win_score = torch.where(win, cur_s, win_score)
+        win_dst = torch.where(win, cur_d, win_dst)
+        blocked = occ[cur_d] >= dest_cap
+        if track_bars:
+            blocked = blocked | (
+                (occ[cur_d] > 0) & (cur_s > stack_ratio * dbest[cur_d]))
+        ptr = ptr + (active & ~win & blocked).long()
+    return take, win_score, win_dst
+
+
+# ---------------------------------------------------------------------------------
+# K3: per-source-broker reductions
+# ---------------------------------------------------------------------------------
+
+def per_src_top_plain(m, lp, lsl, l_scores, sb, row_best, B: int, Q: int):
+    """Plain twin of K3."""
+    return (_reduce_leadership_per_src(m, lp, lsl, l_scores),
+            _topq_rows_per_src(sb, row_best, B, Q))
+
+
+def per_src_top(m, lp, lsl, l_scores, sb, row_best, B: int, Q: int):
+    """→ ((score f32, p, s, dst int32) [B] of the best leadership transfer
+    per leader broker, (rows int32 [Q, B], scores f32 [Q, B]) of the top-Q
+    move rows per source broker) — the plain twins
+    :func:`_reduce_leadership_per_src` and :func:`_topq_rows_per_src`.
+
+    ``row_best`` may be a strided 1-D view (the rows' best scores, column
+    0 of the [K, R] row scores)."""
+    if l_scores.device.type == "cpu":
+        return per_src_top_plain(m, lp, lsl, l_scores, sb, row_best, B, Q)
+    dev = l_scores.device
+    P, S = m.assignment.shape
+    L, K = lp.shape[0], sb.shape[0]
+    i32, f32 = torch.int32, torch.float32
+    chk = functools.partial(kernels.check, "per_src_top", device=dev)
+    chk("lp", lp, i32, (L,))
+    chk("lsl", lsl, i32, (L,))
+    chk("l_scores", l_scores, f32, (L,))
+    chk("sb", sb, i32, (K,))
+    chk("assignment", m.assignment, i32, (P, S))
+    chk("leader_slot", m.leader_slot, i32, (P,))
+    if row_best.dtype != f32 or tuple(row_best.shape) != (K,) \
+            or row_best.device != dev or row_best.stride(0) < 1:
+        raise ValueError("per_src_top: row_best must be a 1-D f32 tensor "
+                         f"of {K} entries on {dev} with a positive stride")
+    if L < 1 or B != m.capacity.shape[0] or Q < 0:
+        raise ValueError(f"per_src_top: L={L}, B={B}, Q={Q} out of range")
+    out = (torch.empty(B, dtype=f32, device=dev),
+           *(torch.empty(B, dtype=i32, device=dev) for _ in range(3)))
+    rows = torch.empty((Q, B), dtype=i32, device=dev)
+    scores = torch.empty((Q, B), dtype=f32, device=dev)
+    keys = None if 2 * B * 8 <= kernels.SMEM_LIMIT else torch.empty(
+        2 * B, dtype=torch.int64, device=dev)
+    cur = torch.empty(K, dtype=f32, device=dev)
+    lib = kernels.bind("per_src_top", "per_src_top_launch",
+                       [_P, _P, _P, _I, _P, _P, _I, _P, _P, _I, _I, _I, _I]
+                       + [_P] * 9)
+    err = lib.per_src_top_launch(
+        lp.data_ptr(), lsl.data_ptr(), l_scores.data_ptr(), L,
+        m.assignment.data_ptr(), m.leader_slot.data_ptr(), S, sb.data_ptr(),
+        row_best.data_ptr(), row_best.stride(0), K, B, Q,
+        *(t.data_ptr() for t in out), rows.data_ptr(), scores.data_ptr(),
+        None if keys is None else keys.data_ptr(), cur.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    kernels.launched("per_src_top", err)
+    per_src_top.launches += 1
+    return out, (rows, scores)
+
+
+per_src_top.launches = 0
+
+
+# ---------------------------------------------------------------------------------
+# K4: budgeted cohort
+# ---------------------------------------------------------------------------------
+
+def budget_accept_plain(m, ca, dst_ids, src_ids, vec, eligible,
+                        slack: float, rounds: int = 2):
+    """Plain twin of K4."""
+    src_b, dst_b = _cohort_budgets(m, ca, slack)
+    return (_budget_accept(dst_ids, src_ids, vec, dst_b, src_b, eligible,
+                             rounds), src_b, dst_b)
+
+
+def budget_accept(m, ca, dst_ids, src_ids, vec, eligible, slack: float,
+                  rounds: int = 2):
+    """The budgeted cohort → (accepted bool [C], src_budget, dst_budget
+    f32 [B, NB] the cohort started from) — the plain twins
+    :func:`_cohort_budgets` (:func:`_step_budgets` with ``slack``) and
+    :func:`_budget_accept`."""
+    if vec.device.type == "cpu":
+        return budget_accept_plain(m, ca, dst_ids, src_ids, vec, eligible,
+                                   slack, rounds)
+    dev = vec.device
+    B, R = m.capacity.shape
+    Cn = vec.shape[0]
+    has_cap = m.broker_cload is not None
+    NB = (2 * R + 2) if has_cap else (R + 2)
+    f32, b8 = torch.float32, torch.bool
+    chk = functools.partial(kernels.check, "budget_accept", device=dev)
+    if R != NUM_RESOURCES:
+        raise ValueError(f"budget_accept: {R} resources, the kernel takes "
+                         f"{NUM_RESOURCES}")
+    for name, x, dt, shape in (
+        ("capacity", m.capacity, f32, (B, R)),
+        ("broker_load", m.broker_load, f32, (B, R)),
+        ("rcount", m.rcount, f32, (B,)),
+        ("pot_nwout", m.pot_nwout, f32, (B,)),
+        ("alive", m.alive, b8, (B,)),
+        ("dest_ok", m.dest_ok, b8, (B,)),
+        ("cap_threshold", ca["cap_threshold"], f32, (R,)),
+        ("avg_rcount", ca["avg_rcount"], f32, ()),
+        ("dst_ids", dst_ids, torch.int32, (Cn,)),
+        ("src_ids", src_ids, torch.int64, (Cn,)),
+        ("vec", vec, f32, (Cn, NB)),
+        ("eligible", eligible, b8, (Cn,)),
+    ):
+        chk(name, x, dt, shape)
+    if has_cap:
+        chk("broker_cload", m.broker_cload, f32, (B, R))
+    acc = torch.empty(Cn, dtype=b8, device=dev)
+    src_b = torch.empty((B, NB), dtype=f32, device=dev)
+    dst_b = torch.empty((B, NB), dtype=f32, device=dev)
+    i64 = torch.int64
+    n2 = 1 << max(Cn - 1, 0).bit_length()
+    work = torch.empty((2, B, NB), dtype=f32, device=dev)
+    accum = torch.empty((2, B, NB), dtype=i64, device=dev)
+    q = torch.empty((2, Cn, NB), dtype=i64, device=dev)        # q, excl
+    chunk = torch.empty((-(-Cn // 32), NB + 1), dtype=i64, device=dev)
+    order = torch.empty((2, Cn), dtype=torch.int32, device=dev)
+    key = None if n2 * 8 <= _SORT_SMEM else torch.empty(
+        n2, dtype=i64, device=dev)
+    flags = torch.empty((4, Cn), dtype=torch.uint8, device=dev)
+    lib = kernels.bind("budget_accept", "budget_accept_launch",
+                       [_P] * 9 + [_F, _I] + [_P] * 4 + [_I] * 4
+                       + [_P] * 12)
+    err = lib.budget_accept_launch(
+        m.capacity.data_ptr(), m.broker_load.data_ptr(),
+        m.broker_cload.data_ptr() if has_cap else None,
+        m.rcount.data_ptr(), m.pot_nwout.data_ptr(), m.alive.data_ptr(),
+        m.dest_ok.data_ptr(), ca["cap_threshold"].data_ptr(),
+        ca["avg_rcount"].data_ptr(), float(slack), B, dst_ids.data_ptr(),
+        src_ids.data_ptr(), vec.data_ptr(), eligible.data_ptr(), Cn, NB,
+        n2, rounds, acc.data_ptr(), src_b.data_ptr(), dst_b.data_ptr(),
+        work.data_ptr(), accum.data_ptr(), q[0].data_ptr(),
+        q[1].data_ptr(), chunk.data_ptr(), order.data_ptr(),
+        None if key is None else key.data_ptr(), flags.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    kernels.launched("budget_accept", err)
+    budget_accept.launches += 1
+    return acc, src_b, dst_b
+
+
+budget_accept.launches = 0
+
+
+# ---------------------------------------------------------------------------------
+# K5: disjoint auction
+# ---------------------------------------------------------------------------------
+
+def match_batch_plain(*args, **kwargs):
+    """Plain twin of K5: ``_match_batch``."""
+    return _match_batch(*args, **kwargs)
+
+
+def match_batch(cand_score, cand_dst, cand_src, cand_p, tol: float, B: int,
+                P: int, init_used=None, dest_cap: int = 1, src_cap: int = 1,
+                stack_ratio: float = 0.5, rounds: int = 0):
+    """The auction of the plain twin :func:`_match_batch` (same arguments) →
+    (take bool [N], win_score f32 [N], win_dst int64 [N])."""
+    if cand_score.device.type == "cpu":
+        return match_batch_plain(
+            cand_score, cand_dst, cand_src, cand_p, tol, B, P,
+            init_used=init_used, dest_cap=dest_cap, src_cap=src_cap,
+            stack_ratio=stack_ratio, rounds=rounds)
+    dev = cand_score.device
+    N, A = cand_score.shape
+    b8 = torch.bool
+    if init_used is None:
+        init_used = (torch.zeros(B, dtype=b8, device=dev),
+                     torch.zeros(B, dtype=b8, device=dev),
+                     torch.zeros(P, dtype=b8, device=dev))
+    used_src, used_dst, used_p = init_used
+    chk = functools.partial(kernels.check, "match_batch", device=dev)
+    for name, x, dt, shape in (
+        ("cand_score", cand_score, torch.float32, (N, A)),
+        ("cand_dst", cand_dst, torch.int32, (N, A)),
+        ("cand_src", cand_src, torch.int64, (N,)),
+        ("cand_p", cand_p, torch.int64, (N,)),
+        ("used_src", used_src, b8, (B,)),
+        ("used_dst", used_dst, b8, (B,)),
+        ("used_p", used_p, b8, (P,)),
+    ):
+        chk(name, x, dt, shape)
+    if A < 1 or B < 1 or P < 1 or dest_cap < 1 or src_cap < 1:
+        raise ValueError(f"match_batch: A={A}, B={B}, P={P}, caps "
+                         f"({dest_cap}, {src_cap}) out of range")
+    take = torch.empty(N, dtype=b8, device=dev)
+    win_score = torch.empty(N, dtype=torch.float32, device=dev)
+    win_dst = torch.empty(N, dtype=torch.int64, device=dev)
+    lib = kernels.bind("match_batch", "match_batch_launch",
+                       [_P] * 4 + [_I] * 4 + [_F, _I, _I, _F, _I]
+                       + [_P] * 8)
+    words = 2 * (2 * B + P) + 5 * B + 4 * N
+    gws = None if 4 * words <= kernels.SMEM_LIMIT else torch.empty(
+        words, dtype=torch.int32, device=dev)
+    err = lib.match_batch_launch(
+        cand_score.data_ptr(), cand_dst.data_ptr(), cand_src.data_ptr(),
+        cand_p.data_ptr(), N, A, B, P, float(tol), dest_cap, src_cap,
+        float(stack_ratio), rounds or A, used_src.data_ptr(),
+        used_dst.data_ptr(), used_p.data_ptr(), take.data_ptr(),
+        win_score.data_ptr(), win_dst.data_ptr(),
+        None if gws is None else gws.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    kernels.launched("match_batch", err)
+    match_batch.launches += 1
+    return take, win_score, win_dst
+
+
+match_batch.launches = 0

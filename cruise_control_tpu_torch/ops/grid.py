@@ -6,16 +6,25 @@ plain torch — O(K)), per-destination terms once on [D] columns, and each
 (k, d) score is broadcast arithmetic.  The reference lets XLA fuse that
 broadcast into the consuming top-k so [K, D] is never materialized; eager
 PyTorch cannot, so the fused chain is a hand-written CUDA kernel here
-(``csrc/grid_top_r.cu``, kernel K1), reached through :func:`grid_top_r`.
+(``csrc/grid_top_r.cu``, kernel K1), launched by :func:`launch_grid_top_r`.
 
 :func:`move_grid_scores` + a stable sort (:func:`grid_top_r_plain`) is the
 kernel's plain twin: the specification the CPU tests hold against the JAX
 reference, and what the wrapper runs for tensors that lie on the CPU.
+
+K1's inputs are packed per-source and per-destination tables.  On the card
+a second kernel, K2 (``csrc/grid_terms.cu``, :func:`grid_terms`), computes
+:func:`move_grid_terms` and the destination columns and writes them in that
+packed layout directly; its plain twin is :func:`grid_terms_plain`
+(``move_grid_terms`` → ``_pack_sources`` / ``_pack_dests``).
+:func:`grid_rescore` is the step's entry: K2 then K1 on the card, the plain
+twins on the CPU.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -33,6 +42,7 @@ from cruise_control_tpu_torch.ops.cost import (
     pload_rows,
     rcount_terms,
 )
+from cruise_control_tpu_torch.ops import kernels
 
 
 def gather_pload(m, idx):
@@ -215,8 +225,10 @@ _NC = 3 * _NR + 9
 _TOPR = 8
 _MAX_S = 8
 _WARPS = 8
-#: H100 shared memory a block may use (bytes): bounds the staged D
-_SMEM_LIMIT = 232_448
+#: K2's extra constant block (:func:`terms_consts`)
+_NT = 7
+#: src_f column of the source term (K1 layout)
+SRC_TERM_COL = _SF - 1
 
 #: operations per (k, d) cell, counted from the kernel source: the
 #: feasibility test (dest flags, src != dest, lead_ok; three compares per
@@ -304,18 +316,10 @@ def _pack_dests(m, cfg, ca, dest_pool) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def _check(name, x, dtype, shape, device):
-    if x.dtype != dtype or tuple(x.shape) != tuple(shape) \
-            or x.device != device or not x.is_contiguous():
-        raise ValueError(
-            f"grid_top_r: {name} must be a contiguous {dtype} {tuple(shape)} "
-            f"tensor on {device}, got {x.dtype} {tuple(x.shape)} on "
-            f"{x.device}"
-        )
+    kernels.check("grid_top_r", name, x, dtype, shape, device)
 
 
 def _library():
-    from cruise_control_tpu_torch.ops import kernels
-
     lib = kernels.load("grid_top_r")
     if not getattr(lib, "_cc_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
@@ -334,17 +338,23 @@ def _library():
     return lib
 
 
+def _check_widths(S: int, D: int) -> None:
+    if not 1 <= S <= _MAX_S:
+        raise ValueError(f"grid_top_r: replica slots S={S} outside [1, {_MAX_S}]")
+    if (_DF + _DI) * D * 4 > kernels.SMEM_LIMIT:
+        raise ValueError(
+            f"grid_top_r: D={D} destinations need {(_DF + _DI) * D * 4} B "
+            f"of shared memory (limit {kernels.SMEM_LIMIT})")
+
+
 def pack_grid_inputs(m, cfg, ca, dest_pool, terms, consts=None) -> dict:
-    """K1's packed, validated inputs (layout: csrc/grid_top_r.cu)."""
+    """K1's packed, validated inputs (layout: csrc/grid_top_r.cu) from
+    :func:`move_grid_terms`' output — plain torch, the packing half of
+    K2's plain twin."""
     dev = dest_pool.device
     K, D = terms["src"].shape[0], dest_pool.shape[0]
     S = m.assignment.shape[1]
-    if not 1 <= S <= _MAX_S:
-        raise ValueError(f"grid_top_r: replica slots S={S} outside [1, {_MAX_S}]")
-    if (_DF + _DI) * D * 4 > _SMEM_LIMIT:
-        raise ValueError(
-            f"grid_top_r: D={D} destinations need {(_DF + _DI) * D * 4} B "
-            f"of shared memory (limit {_SMEM_LIMIT})")
+    _check_widths(S, D)
     if consts is None:
         consts = grid_consts(cfg, ca, dev)
     src_f, src_i = _pack_sources(terms)
@@ -360,19 +370,32 @@ def pack_grid_inputs(m, cfg, ca, dest_pool, terms, consts=None) -> dict:
 
 
 def launch_grid_top_r(packed: dict, R: int):
-    """Launch K1 on packed inputs → (score, pool index) [K, R].  Not
-    counted: :func:`grid_top_r` is the counted entry point."""
+    """K1's wrapper: launch ``csrc/grid_top_r.cu`` on K2's packed tables
+    (:func:`grid_terms`) → (score f32 [K, R] ascending, pool index int32
+    [K, R]), ties to the lowest pool index.  CUDA tensors only: the step
+    reaches K1 through :func:`grid_rescore`, which runs the plain twin
+    (:func:`grid_top_r_plain`) for CPU tensors.  Counts its launches in
+    ``launch_grid_top_r.launches``."""
     K, D, S = packed["K"], packed["D"], packed["S"]
     if not 1 <= R <= min(_TOPR, D):
         raise ValueError(f"grid_top_r: R={R} outside [1, min({_TOPR}, D={D})]")
     dev = packed["dst_f"].device
+    if dev.type != "cuda":
+        raise ValueError("grid_top_r: K1 takes CUDA tensors; grid_rescore "
+                         "runs the plain twin for CPU tensors")
+    _check_widths(S, D)
+    _check("src_f", packed["src_f"], torch.float32, (K, _SF), dev)
+    _check("src_i", packed["src_i"], torch.int32, (K, 3 * S + 2), dev)
+    _check("dst_f", packed["dst_f"], torch.float32, (D, _DF), dev)
+    _check("dst_i", packed["dst_i"], torch.int32, (D, _DI), dev)
+    _check("consts", packed["consts"], torch.float32, (_NC,), dev)
     out_s = torch.empty((K, R), dtype=torch.float32, device=dev)
     out_i = torch.empty((K, R), dtype=torch.int32, device=dev)
     if K == 0:
         return out_s, out_i
     lib = _library()
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    per_sm = max(1, _SMEM_LIMIT // ((_DF + _DI) * D * 4 + 1024))
+    per_sm = max(1, kernels.SMEM_LIMIT // ((_DF + _DI) * D * 4 + 1024))
     grid = max(1, min(-(-K // _WARPS), sms * per_sm))
     err = lib.grid_top_r_launch(
         packed["src_f"].data_ptr(), packed["src_i"].data_ptr(),
@@ -381,28 +404,152 @@ def launch_grid_top_r(packed: dict, R: int):
         out_s.data_ptr(), out_i.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
-    if err != 0:
-        raise RuntimeError(f"grid_top_r: kernel launch failed (CUDA error {err})")
+    kernels.launched("grid_top_r", err)
+    launch_grid_top_r.launches += 1
     return out_s, out_i
 
 
-def grid_top_r(m, cfg, ca, kp, ks, dest_pool, terms, R: int,
-               consts: Optional[torch.Tensor] = None):
-    """Per-row top-R of the move grid → (score f32 [K, R] ascending, pool
-    index int32 [K, R]), ties to the lowest pool index.
+launch_grid_top_r.launches = 0
 
-    CPU tensors run the plain twin (:func:`grid_top_r_plain`).  CUDA
-    tensors launch K1 (``csrc/grid_top_r.cu``) or raise — there is no
-    fallback.  ``consts`` (:func:`grid_consts`) may be passed in so a
-    search builds it once.  Counts its launches in ``grid_top_r.launches``.
-    """
+
+# ---------------------------------------------------------------------------------
+# K2: the grid's source and destination terms, packed for K1
+# ---------------------------------------------------------------------------------
+
+def terms_consts(cfg, ca, device) -> torch.Tensor:
+    """f32 [_NT] constants K2 needs beyond :func:`grid_consts` (layout:
+    csrc/grid_terms.cu): avg_rcount, rcount_upper, rcount_lower, w_count,
+    max_replicas, avg_disk_cap, w_move_size."""
+    f = torch.float32
+    return torch.stack([
+        ca["avg_rcount"].to(device, f), ca["rcount_upper"].to(device, f),
+        ca["rcount_lower"].to(device, f),
+        torch.tensor(cfg.w_count, dtype=f, device=device),
+        ca["max_replicas"].to(device, f), ca["avg_disk_cap"].to(device, f),
+        torch.tensor(cfg.w_move_size, dtype=f, device=device),
+    ]).contiguous()
+
+
+def grid_terms_plain(m, cfg, ca, kp, ks, dest_pool, consts=None) -> dict:
+    """Plain twin of K2: :func:`move_grid_terms`, then K1's packing."""
+    return pack_grid_inputs(m, cfg, ca, dest_pool,
+                            move_grid_terms(m, cfg, ca, kp, ks), consts)
+
+
+def _terms_library():
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib = kernels.bind("grid_terms", "grid_terms_launch",
+                       [p] * 20 + [i] * 5 + [p] * 5)
+    if not getattr(lib, "_cc_checked", False):
+        lib.grid_terms_layout.argtypes = [ctypes.POINTER(ctypes.c_int)]
+        lib.grid_terms_layout.restype = None
+        layout = (ctypes.c_int * 6)()
+        lib.grid_terms_layout(layout)
+        want = (_SF, _DF, _DI, _NC, _NT, _MAX_S)
+        if tuple(layout) != want:
+            raise RuntimeError(
+                f"grid_terms library layout {tuple(layout)} != {want}")
+        lib._cc_checked = True
+    return lib
+
+
+def grid_terms(m, cfg, ca, kp, ks, dest_pool, consts=None,
+               tconsts=None) -> dict:
+    """K1's packed inputs for source rows (kp, ks) and the destination
+    pool — the dict of :func:`pack_grid_inputs`.
+
+    CPU tensors run the plain twin (:func:`grid_terms_plain`).  CUDA
+    tensors launch K2 (``csrc/grid_terms.cu``) or raise.  Counts its
+    launches in ``grid_terms.launches``."""
     if dest_pool.device.type == "cpu":
-        return grid_top_r_plain(m, cfg, ca, kp, ks, dest_pool, terms, R)
-    packed = pack_grid_inputs(m, cfg, ca, dest_pool, terms, consts)
-    out = launch_grid_top_r(packed, R)
-    if packed["K"]:
-        grid_top_r.launches += 1
-    return out
+        return grid_terms_plain(m, cfg, ca, kp, ks, dest_pool, consts)
+    dev = dest_pool.device
+    P, S = m.assignment.shape
+    B = m.capacity.shape[0]
+    K, D = kp.shape[0], dest_pool.shape[0]
+    _check_widths(S, D)
+    if consts is None:
+        consts = grid_consts(cfg, ca, dev)
+    if tconsts is None:
+        tconsts = terms_consts(cfg, ca, dev)
+    table = m.pload if m.pload is not None else pack_pload(
+        m.leader_load, m.follower_load, m.excluded,
+        m.leader_cload, m.follower_cload)
+    W = table.shape[1]
+    has_cap = m.broker_cload is not None
+    if W not in (2 * _NR + 1, 4 * _NR + 1):
+        raise ValueError(f"grid_terms: partition table width {W} is neither "
+                         f"{2 * _NR + 1} nor {4 * _NR + 1}")
+    i32, f32, b8 = torch.int32, torch.float32, torch.bool
+    chk = functools.partial(kernels.check, "grid_terms", device=dev)
+    for name, x, dt, shape in (
+        ("assignment", m.assignment, i32, (P, S)),
+        ("leader_slot", m.leader_slot, i32, (P,)),
+        ("offline_origin", m.offline_origin, i32, (P, S)),
+        ("must_move", m.must_move, b8, (P, S)),
+        ("pload", table, f32, (P, W)),
+        ("rack", m.rack, i32, (B,)),
+        ("dest_ok", m.dest_ok, b8, (B,)),
+        ("lead_ok", m.lead_ok, b8, (B,)),
+        ("capacity", m.capacity, f32, (B, _NR)),
+        ("broker_load", m.broker_load, f32, (B, _NR)),
+        ("leader_nwin", m.leader_nwin, f32, (B,)),
+        ("pot_nwout", m.pot_nwout, f32, (B,)),
+        ("rcount", m.rcount, f32, (B,)),
+        ("lcount", m.lcount, f32, (B,)),
+        ("kp", kp, i32, (K,)),
+        ("ks", ks, i32, (K,)),
+        ("dest_pool", dest_pool, i32, (D,)),
+        ("consts", consts, f32, (_NC,)),
+        ("tconsts", tconsts, f32, (_NT,)),
+    ):
+        chk(name, x, dt, shape)
+    if has_cap:
+        chk("broker_cload", m.broker_cload, f32, (B, _NR))
+    src_f = torch.empty((K, _SF), dtype=f32, device=dev)
+    src_i = torch.empty((K, 3 * S + 2), dtype=i32, device=dev)
+    dst_f = torch.empty((D, _DF), dtype=f32, device=dev)
+    dst_i = torch.empty((D, _DI), dtype=i32, device=dev)
+    packed = dict(src_f=src_f, src_i=src_i, dst_f=dst_f, dst_i=dst_i,
+                  consts=consts, K=K, D=D, S=S, has_cap=int(has_cap))
+    if K + D == 0:
+        return packed
+    lib = _terms_library()
+    grid = -(-(K + D) // 256)
+    err = lib.grid_terms_launch(
+        m.assignment.data_ptr(), m.leader_slot.data_ptr(),
+        m.offline_origin.data_ptr(), m.must_move.data_ptr(),
+        table.data_ptr(), m.rack.data_ptr(), m.dest_ok.data_ptr(),
+        m.lead_ok.data_ptr(), m.capacity.data_ptr(),
+        m.broker_load.data_ptr(),
+        m.broker_cload.data_ptr() if has_cap else None,
+        m.leader_nwin.data_ptr(), m.pot_nwout.data_ptr(),
+        m.rcount.data_ptr(), m.lcount.data_ptr(), kp.data_ptr(),
+        ks.data_ptr(), dest_pool.data_ptr(), consts.data_ptr(),
+        tconsts.data_ptr(), K, D, S, W, grid, src_f.data_ptr(),
+        src_i.data_ptr(), dst_f.data_ptr(), dst_i.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    kernels.launched("grid_terms", err)
+    grid_terms.launches += 1
+    return packed
 
 
-grid_top_r.launches = 0
+grid_terms.launches = 0
+
+
+def grid_rescore(m, cfg, ca, kp, ks, dest_pool, R: int, consts=None,
+                 tconsts=None):
+    """The step's move rescore → (src_term f32 [K], score f32 [K, R]
+    ascending, pool index int32 [K, R]).
+
+    CPU tensors: :func:`move_grid_terms` and K1's plain twin.  CUDA
+    tensors: K2 writes K1's packed tables, K1 ranks them, and the source
+    term is read back from K2's table."""
+    if dest_pool.device.type == "cpu":
+        terms = move_grid_terms(m, cfg, ca, kp, ks)
+        vals, idx = grid_top_r_plain(m, cfg, ca, kp, ks, dest_pool, terms, R)
+        return terms["src_term"], vals, idx
+    packed = grid_terms(m, cfg, ca, kp, ks, dest_pool, consts, tconsts)
+    vals, idx = launch_grid_top_r(packed, R)
+    return packed["src_f"][:, SRC_TERM_COL], vals, idx

@@ -32,6 +32,9 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
 )
 
+#: H100 shared memory one block may use (bytes), dynamic opt-in included
+SMEM_LIMIT = 232_448
+
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -94,3 +97,33 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build([name])[name]))
             _loaded[name] = lib
         return lib
+
+
+def bind(name: str, fn: str, argtypes) -> ctypes.CDLL:
+    """Kernel ``name``'s library with ``fn`` typed (``restype`` int: the
+    CUDA error code of the launch)."""
+    lib = load(name)
+    f = getattr(lib, fn)
+    if f.argtypes is None:
+        f.argtypes = list(argtypes)
+        f.restype = ctypes.c_int
+    return lib
+
+
+def check(kernel: str, name: str, x, dtype, shape, device) -> None:
+    """Raise unless ``x`` is a contiguous ``dtype`` tensor of ``shape`` on
+    ``device`` — what kernel ``kernel`` takes."""
+    if x.dtype != dtype or tuple(x.shape) != tuple(shape) \
+            or x.device != device or not x.is_contiguous():
+        raise ValueError(
+            f"{kernel}: {name} must be a contiguous {dtype} {tuple(shape)} "
+            f"tensor on {device}, got {x.dtype} {tuple(x.shape)} on "
+            f"{x.device}"
+        )
+
+
+def launched(kernel: str, err: int) -> None:
+    """Raise if a launch returned a CUDA error (a refused launch never
+    runs, and a later synchronize would not report it)."""
+    if err != 0:
+        raise RuntimeError(f"{kernel}: kernel launch failed (CUDA error {err})")

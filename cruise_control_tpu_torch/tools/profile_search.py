@@ -7,8 +7,9 @@ mean utilization 0.35), runs one warm-up
 plan, then one plan under ``torch.profiler`` (CPU + CUDA activities) and
 prints one JSON line: the plan's wall-clock, steps, device-busy time (the
 union of kernel intervals on the card), the idle share, kernel launches
-per step, the kernels that take the most device time and the host ops that
-take the most CPU time.  The profiler's own cost inflates the host side,
+per step, the device time and launches of each hand-written kernel
+(``csrc/*.cu``), the kernels that take the most device time and the host
+ops that take the most CPU time.  The profiler's own cost inflates the host side,
 so the idle share it reports is an upper bound; the un-profiled wall-clock
 of the same plan is printed beside it.  Needs a card.
 """
@@ -18,6 +19,7 @@ from __future__ import annotations
 import collections
 import json
 import time
+from pathlib import Path
 
 import torch
 
@@ -93,6 +95,15 @@ def main() -> int:
         busy_s = _busy_us(intervals) * 1e-6
     n_kernels = sum(c for _, c in kern.values())
 
+    # the hand-written kernels, by their CUDA function names
+    # (csrc/<name>.cu defines <name>_kernel)
+    csrc = Path(__file__).resolve().parents[1] / "csrc"
+    hand = {}
+    for name in sorted(p.stem for p in csrc.glob("*.cu")):
+        rows = [v for k, v in kern.items() if f"{name}_kernel" in k]
+        hand[name] = {"ms": sum(us for us, _ in rows) * 1e-3,
+                      "count": sum(c for _, c in rows)}
+
     def top(table):
         rows = sorted(table.items(), key=lambda kv: -kv[1][0])[:TOP]
         return [{"name": n[:120], "ms": us * 1e-3, "count": c}
@@ -106,6 +117,7 @@ def main() -> int:
         "profiled_wallclock_s": wall_s, "device_busy_s": busy_s,
         "idle_share": 1.0 - busy_s / wall_s,
         "kernels": n_kernels, "kernels_per_step": n_kernels / max(steps, 1),
+        "hand_kernels": hand,
         "top_kernels": top(kern), "top_host_ops": top(cpu),
     }), flush=True)
     return 0

@@ -133,9 +133,9 @@ def test_grid_top_r_plain_matches_reference(case):
     neg, idx_ref = T._grid_top_r(cfg_r, -g_ref, R)
     s_ref, idx_ref = -np.asarray(neg), np.asarray(idx_ref)
     terms = grid.move_grid_terms(pm, cfg, ca, pkp, pks)
-    before = grid.grid_top_r.launches
-    s, idx = grid.grid_top_r(pm, cfg, ca, pkp, pks, pdp, terms, R)
-    assert grid.grid_top_r.launches == before   # CPU tensors: plain path
+    before = grid.launch_grid_top_r.launches
+    s, idx = grid.grid_top_r_plain(pm, cfg, ca, pkp, pks, pdp, terms, R)
+    assert grid.launch_grid_top_r.launches == before
     s, idx = s.numpy(), idx.numpy()
     assert s.shape == (pkp.shape[0], R) and idx.dtype == np.int32
     assert np.array_equal(np.isinf(s), np.isinf(s_ref))
