@@ -9,16 +9,22 @@ path.  The search keeps the model on the card and runs, per step,
   least-loaded destination brokers (the move grid: its terms computed by
   the hand-written kernel K2, scored and ranked per row by K1 —
   :func:`ops.grid.grid_rescore`), plus a pruned pool of leadership
-  transfers.
+  transfers scored by K6 (:mod:`analyzer.score_kernel`).
 * **Feasibility** (hard goals) and **cost** (soft goals) are the same
   fused mask and exact O(1) cost deltas as the reference.
 * **Selection**: per-source-broker reduction (kernel K3), compaction to
-  the best C rows, a budgeted cohort (water-filling sufficient
-  conditions, K4) and a disjoint auction (K5) commit a batch per step
-  (:mod:`analyzer.step_kernels`, beside the plain twins of K3-K5:
-  ``_reduce_leadership_per_src`` / ``_topq_rows_per_src``,
-  ``_cohort_budgets`` / ``_budget_accept`` and ``_match_batch``, which
-  this module imports under those names).
+  the best C rows (K7, :mod:`analyzer.compact_kernel`), a budgeted cohort
+  (water-filling sufficient conditions, K4) and a disjoint auction
+  started from the cohort's footprint (K5) pick a batch per step
+  (:mod:`analyzer.step_kernels`); K8 commits it in score order and
+  applies it to the device model, and K9 rebuilds the aggregates at
+  upload and resync (:mod:`analyzer.commit_kernels`).  Each wrapper sits
+  beside its plain twin, which keeps the reference's name
+  (``_score_candidates``, ``_reduce_leadership_per_src`` /
+  ``_topq_rows_per_src``, ``_cohort_budgets`` / ``_budget_accept``,
+  ``_match_batch``, ``_apply_batch_on_device``,
+  ``_recompute_aggregates``); this module imports them under those
+  names.
 * **Host recheck**: every committed action is replayed on the host in f64
   (:class:`_HostEvaluator`, a verbatim copy of the reference's numpy
   evaluator); a rejection resyncs the device model from the host context.
@@ -56,8 +62,22 @@ from cruise_control_tpu_torch.analyzer.goal_optimizer import (
     diff_proposals,
 )
 from cruise_control_tpu_torch.analyzer.goals.base import BalancingConstraint
-# the selection chains' plain twins are imported under their reference
+# the step's chains: their plain twins are imported under their reference
 # names beside the kernel wrappers that replace them on the card
+from cruise_control_tpu_torch.analyzer.commit_kernels import (  # noqa: F401
+    MUTABLE,
+    _apply_batch_on_device,
+    _recompute_aggregates,
+    commit_batch,
+    recompute_aggregates,
+)
+from cruise_control_tpu_torch.analyzer.compact_kernel import compact_rows
+from cruise_control_tpu_torch.analyzer.score_kernel import (  # noqa: F401
+    KIND_LEADERSHIP,
+    KIND_MOVE,
+    _score_candidates,
+    score_candidates,
+)
 from cruise_control_tpu_torch.analyzer.step_kernels import (  # noqa: F401
     _budget_accept,
     _cohort_budgets,
@@ -74,14 +94,8 @@ from cruise_control_tpu_torch.analyzer.step_kernels import (  # noqa: F401
 )
 from cruise_control_tpu_torch.models.cluster_state import ClusterState
 from cruise_control_tpu_torch.models.stats import cluster_stats, stats_summary
-from cruise_control_tpu_torch.ops.cost import (
-    EVAC_BONUS,
-    RACK_FIX_BONUS,
-    broker_cost,
-    pack_pload,
-)
+from cruise_control_tpu_torch.ops.cost import pack_pload
 from cruise_control_tpu_torch.ops.grid import (
-    gather_pload as _gather_pload,
     grid_consts,
     grid_rescore,
     terms_consts,
@@ -91,14 +105,10 @@ from cruise_control_tpu_torch.ops.pools import (
     pool_row_tables,
     pool_row_tables_update,
 )
-from cruise_control_tpu_torch.ops.segment import segment_sum
 from cruise_control_tpu_torch.utils.device import resolve_device
 from cruise_control_tpu_torch.utils.logging import get_logger
 
 LOG = get_logger("engine")
-
-KIND_MOVE = 0
-KIND_LEADERSHIP = 1
 
 _INF = float("inf")
 
@@ -225,193 +235,6 @@ class DeviceModel:
     pload: Optional[torch.Tensor] = None           # f32 [P, 2R+1 | 4R+1]
 
 
-def _recompute_aggregates(m: DeviceModel) -> DeviceModel:
-    """Rebuild all per-broker aggregates with deterministic segment sums
-    (the device twin of AnalyzerContext._init_aggregates)."""
-    P, S = m.assignment.shape
-    B = m.capacity.shape[0]
-    slot_exists = m.assignment != EMPTY_SLOT
-    ar = torch.arange(S, device=m.assignment.device)
-    is_leader = ar[None, :] == m.leader_slot[:, None]
-    rload = torch.where(
-        is_leader[:, :, None], m.leader_load[:, None, :],
-        m.follower_load[:, None, :],
-    )
-    rload = torch.where(slot_exists[:, :, None], rload, 0.0)
-    ids = torch.where(slot_exists, m.assignment,
-                      torch.full_like(m.assignment, B)).reshape(-1)
-    broker_load = segment_sum(rload.reshape(-1, NUM_RESOURCES), ids, B + 1)[:B]
-    rcount = segment_sum(slot_exists.to(torch.int32).reshape(-1), ids,
-                         B + 1)[:B].to(torch.float32)
-    lb = torch.gather(m.assignment, 1, m.leader_slot.long()[:, None])[:, 0]
-    lids = torch.where(lb >= 0, lb, torch.full_like(lb, B))
-    lcount = segment_sum(torch.ones_like(lids), lids,
-                         B + 1)[:B].to(torch.float32)
-    leader_nwin = segment_sum(m.leader_load[:, Resource.NW_IN], lids,
-                              B + 1)[:B]
-    pot = torch.where(slot_exists, m.leader_load[:, Resource.NW_OUT][:, None],
-                      0.0)
-    pot_nwout = segment_sum(pot.reshape(-1), ids, B + 1)[:B]
-    broker_cload = None
-    if m.leader_cload is not None:
-        crload = torch.where(
-            is_leader[:, :, None], m.leader_cload[:, None, :],
-            m.follower_cload[:, None, :],
-        )
-        crload = torch.where(slot_exists[:, :, None], crload, 0.0)
-        broker_cload = segment_sum(crload.reshape(-1, NUM_RESOURCES), ids,
-                                   B + 1)[:B]
-    return dataclasses.replace(
-        m,
-        broker_load=broker_load,
-        leader_nwin=leader_nwin,
-        pot_nwout=pot_nwout,
-        rcount=rcount,
-        lcount=lcount,
-        broker_cload=broker_cload,
-    )
-
-
-def _broker_cost(m: DeviceModel, cfg, ca, load, leader_nwin, pot_nwout,
-                 rcount, lcount, b, cload=None) -> torch.Tensor:
-    """Per-broker soft-goal cost at broker index ``b`` (ops.cost.broker_cost)."""
-    return broker_cost(
-        cfg, ca, m.capacity[b.long()], load, leader_nwin, pot_nwout, rcount,
-        lcount, cload=cload,
-    )
-
-
-def _score_candidates(m: DeviceModel, cfg, ca, kind, cp, cs, cd):
-    """Returns (delta_cost[N], feasible[N]) for columnar candidates (moves
-    and leadership transfers).  Lower delta = better; infeasible
-    candidates score +inf."""
-    S = m.assignment.shape[1]
-    is_lead = kind == KIND_LEADERSHIP
-    cpl, csl = cp.long(), cs.long()
-    row = m.assignment[cpl]                                   # [N, S]
-    lead_cp, fol_cp, excl_cp, leadc_cp, folc_cp = _gather_pload(m, cp)
-    slot_broker = torch.gather(row, 1, csl[:, None])[:, 0]
-    leader_broker = torch.gather(
-        row, 1, m.leader_slot[cpl].long()[:, None])[:, 0]
-    src = torch.where(is_lead, leader_broker, slot_broker)
-    dst = torch.where(is_lead, slot_broker, cd.to(slot_broker.dtype))
-    dst_c = dst.clamp_min(0).long()
-
-    leader_now = m.leader_slot[cpl] == cs
-    occupied = row != EMPTY_SLOT
-    slot_racks = torch.where(occupied, m.rack[row.clamp_min(0).long()],
-                             torch.full_like(row, -1))
-    my_rack = torch.gather(slot_racks, 1, csl[:, None])[:, 0]
-    ar = torch.arange(S, device=row.device)
-    lower = ar[None, :] < cs[:, None]
-    rack_viol_here = (
-        lower & (slot_racks == my_rack[:, None]) & occupied
-    ).any(dim=1)
-    move_load = torch.where(leader_now[:, None], lead_cp, fol_cp)
-    lead_delta = lead_cp - fol_cp
-    delta_load = torch.where(is_lead[:, None], lead_delta, move_load)
-    has_cap = m.leader_cload is not None
-    if has_cap:
-        cmove_load = torch.where(leader_now[:, None], leadc_cp, folc_cp)
-        clead_delta = leadc_cp - folc_cp
-        cdelta_load = torch.where(is_lead[:, None], clead_delta, cmove_load)
-        b_cload = m.broker_cload
-    else:
-        cdelta_load = delta_load
-        b_cload = m.broker_load
-
-    # ---- feasibility (fused hard-goal mask) -----------------------------------
-    slot_exists = slot_broker != EMPTY_SLOT
-    dup = (row == dst[:, None]).any(dim=1)
-    dup = dup | (m.offline_origin[cpl] == dst[:, None]).any(dim=1)
-    cand_rack = m.rack[dst_c]
-    other_racks = torch.where(
-        occupied & (ar[None, :] != cs[:, None]), slot_racks,
-        torch.full_like(slot_racks, -1),
-    )
-    rack_clash = (other_racks == cand_rack[:, None]).any(dim=1)
-    dst_cload_after = b_cload[dst_c] + cdelta_load
-    cap_ok = (
-        dst_cload_after
-        <= m.capacity[dst_c] * ca["cap_threshold"][None, :] + 1e-6
-    ).all(dim=1)
-    rcount_ok = m.rcount[dst_c] + 1.0 <= ca["max_replicas"]
-    cs_c = cs.clamp(0, S - 1).long()
-    excluded = excl_cp & ~m.must_move[cp.clamp_min(0).long(), cs_c]
-    must_move_here = m.must_move[cpl, cs_c]
-
-    move_ok = (
-        (dst >= 0)
-        & (src != dst)
-        & slot_exists
-        & m.dest_ok[dst_c]
-        & ~dup
-        & ~rack_clash
-        & cap_ok
-        & rcount_ok
-        & ~excluded
-        & (~leader_now | m.lead_ok[dst_c])
-    )
-    lead_feasible = (
-        slot_exists
-        & ~leader_now
-        & m.lead_ok[dst_c]
-        & ~must_move_here
-        & ~excl_cp
-        & cap_ok
-    )
-    feasible = torch.where(is_lead, lead_feasible, move_ok)
-
-    # ---- cost delta -----------------------------------------------------------
-    lead_or_now = is_lead | leader_now
-    l_delta = torch.where(lead_or_now, 1.0, 0.0)
-    r_delta = torch.where(is_lead, 0.0, 1.0)
-    lnwin_delta = torch.where(lead_or_now, lead_cp[:, Resource.NW_IN], 0.0)
-    pot_delta = torch.where(is_lead, 0.0, lead_cp[:, Resource.NW_OUT])
-
-    src_c = src.clamp_min(0).long()
-    f_src_old = _broker_cost(
-        m, cfg, ca, m.broker_load[src_c], m.leader_nwin[src_c],
-        m.pot_nwout[src_c], m.rcount[src_c], m.lcount[src_c], src_c,
-        cload=b_cload[src_c] if has_cap else None,
-    )
-    f_src_new = _broker_cost(
-        m, cfg, ca,
-        m.broker_load[src_c] - delta_load,
-        m.leader_nwin[src_c] - lnwin_delta,
-        m.pot_nwout[src_c] - pot_delta,
-        m.rcount[src_c] - r_delta,
-        m.lcount[src_c] - l_delta,
-        src_c,
-        cload=(b_cload[src_c] - cdelta_load) if has_cap else None,
-    )
-    f_dst_old = _broker_cost(
-        m, cfg, ca, m.broker_load[dst_c], m.leader_nwin[dst_c],
-        m.pot_nwout[dst_c], m.rcount[dst_c], m.lcount[dst_c], dst_c,
-        cload=b_cload[dst_c] if has_cap else None,
-    )
-    f_dst_new = _broker_cost(
-        m, cfg, ca,
-        m.broker_load[dst_c] + delta_load,
-        m.leader_nwin[dst_c] + lnwin_delta,
-        m.pot_nwout[dst_c] + pot_delta,
-        m.rcount[dst_c] + r_delta,
-        m.lcount[dst_c] + l_delta,
-        dst_c,
-        cload=dst_cload_after if has_cap else None,
-    )
-    delta = (f_src_new - f_src_old) + (f_dst_new - f_dst_old)
-    friction = (
-        torch.where(is_lead, 0.0,
-                    move_load[:, Resource.DISK] / ca["avg_disk_cap"])
-        * cfg.w_move_size
-    )
-    evac = torch.where(must_move_here & ~is_lead, EVAC_BONUS, 0.0)
-    rack_fix = torch.where(rack_viol_here & ~is_lead, RACK_FIX_BONUS, 0.0)
-    delta = delta + friction + evac + rack_fix
-    return delta.masked_fill(~feasible, _INF), feasible
-
-
 # ---------------------------------------------------------------------------------
 # Candidate pools
 # ---------------------------------------------------------------------------------
@@ -517,77 +340,6 @@ def _build_pools(m: DeviceModel, cfg, ca, K: int, D: int, tables=None):
 # Per-step reductions and selection
 # ---------------------------------------------------------------------------------
 
-def _mark(n: int, idx, flags) -> torch.Tensor:
-    """bool [n]: ``out[b]`` = any ``flags[i]`` with ``idx[i] == b``."""
-    return torch.zeros(n, dtype=torch.int32, device=flags.device) \
-        .index_add_(0, idx.long(), flags.to(torch.int32)) > 0
-
-
-def _set_dropped(arr: torch.Tensor, rows, cols, vals) -> torch.Tensor:
-    """Copy of ``arr`` with ``arr[rows, cols] = vals`` where ``rows`` equal
-    to ``arr.shape[0]`` are dropped (the reference's ``mode="drop"``
-    scatter): they land in a dump row that is sliced off."""
-    n = arr.shape[0]
-    ext = torch.cat([arr, arr[:1]])
-    if cols is None:
-        ext[rows.long()] = vals.to(arr.dtype)
-    else:
-        ext[rows.long(), cols.long()] = vals.to(arr.dtype) \
-            if isinstance(vals, torch.Tensor) else vals
-    return ext[:n]
-
-
-def _apply_batch_on_device(m: DeviceModel, take, is_move, p, s, d, src,
-                           dst) -> DeviceModel:
-    """Commit a disjoint batch to the device model: the aggregate updates
-    are deterministic segment sums; placement updates drop unselected
-    rows."""
-    P, S = m.assignment.shape
-    B = m.capacity.shape[0]
-    lslot = m.leader_slot[p.long()]
-    leader_now = lslot == s
-    lead_p, fol_p, _excl_p, leadc_p, folc_p = _gather_pload(m, p)
-    lnwin_p = lead_p[:, Resource.NW_IN]
-    nwout_p = lead_p[:, Resource.NW_OUT]
-    move_load = torch.where(leader_now[:, None], lead_p, fol_p)
-    lead_delta = lead_p - fol_p
-
-    gate = take.to(torch.float32)
-    mv_follower = is_move & ~leader_now
-    dload = torch.where(is_move[:, None], move_load, lead_delta) * gate[:, None]
-    dlnwin = torch.where(mv_follower, 0.0, lnwin_p) * gate
-    dpot = torch.where(is_move, nwout_p, 0.0) * gate
-    drc = torch.where(is_move, 1.0, 0.0) * gate
-    dlc = torch.where(mv_follower, 0.0, 1.0) * gate
-
-    ids = torch.cat([src.clamp_min(0), dst.clamp_min(0)])
-
-    def seg(contrib):
-        return segment_sum(torch.cat([-contrib, contrib]), ids, B)
-
-    broker_cload = m.broker_cload
-    if m.leader_cload is not None:
-        cmove = torch.where(leader_now[:, None], leadc_p, folc_p)
-        clead = leadc_p - folc_p
-        dcload = torch.where(is_move[:, None], cmove, clead) * gate[:, None]
-        broker_cload = m.broker_cload + seg(dcload)
-    full_p = torch.full_like(p, P)
-    pm = torch.where(take & is_move, p, full_p)
-    pl = torch.where(take & ~is_move, p, full_p)
-    return dataclasses.replace(
-        m,
-        assignment=_set_dropped(m.assignment, pm, s, d),
-        leader_slot=_set_dropped(m.leader_slot, pl, None, s),
-        must_move=_set_dropped(m.must_move, pm, s, False),
-        broker_load=m.broker_load + seg(dload),
-        leader_nwin=m.leader_nwin + seg(dlnwin),
-        pot_nwout=m.pot_nwout + seg(dpot),
-        rcount=m.rcount + seg(drc),
-        lcount=m.lcount + seg(dlc),
-        broker_cload=broker_cload,
-    )
-
-
 # ---------------------------------------------------------------------------------
 # The device-resident step loop (one "scan call")
 # ---------------------------------------------------------------------------------
@@ -604,6 +356,15 @@ class ScanResult:
     step_counts: np.ndarray   # int64 [steps run]
     done: bool
     diag: dict
+
+
+def _resolve_batch(cfg: CudaSearchConfig, B: int) -> CudaSearchConfig:
+    """``cfg`` with the step's commit batch set: ``device_batch_per_step=0``
+    (auto) scales it with the broker count."""
+    if cfg.device_batch_per_step:
+        return cfg
+    return dataclasses.replace(
+        cfg, device_batch_per_step=int(np.clip(B // 2, 32, 2048)))
 
 
 def _cold_tables(m: DeviceModel):
@@ -641,6 +402,11 @@ def _scan_call(m: DeviceModel, cfg: CudaSearchConfig, ca, consts, K: int,
     R = min(DESTS_PER_SOURCE, D)
     size_t, base_t, tpp, pt_valid = tables
 
+    # the commit (K8) updates the model in place on the card: the loop
+    # works on its own copy of the mutable tensors, the caller's stays
+    m = dataclasses.replace(m, **{
+        f: getattr(m, f).clone() for f in MUTABLE
+        if getattr(m, f) is not None})
     out = torch.full((4, slots), -1.0, device=dev)
     counts: List[int] = []
     diag_rows: List[Tuple[int, int, int]] = []
@@ -648,10 +414,11 @@ def _scan_call(m: DeviceModel, cfg: CudaSearchConfig, ca, consts, K: int,
     t = count = n_incr = 0
     since_pool = repool
     pools = None
-    ci = torch.arange(C, device=dev)
-    is_move_all = torch.arange(NROW, device=dev) < Q * B
-    inf_tail = torch.full((C, R - 1), _INF, device=dev)
     tconsts = terms_consts(cfg, ca, dev)
+    # the leadership candidates' kinds and (unused) destinations for K6
+    L = _leadership_pool_size(P, S, K)
+    kind_l = torch.full((L,), KIND_LEADERSHIP, dtype=torch.int32, device=dev)
+    cd_l = torch.zeros(L, dtype=torch.int32, device=dev)
     while not done and t < T and count <= slots - M_run:
         if since_pool >= repool:
             # pool-rebuild diet: refresh only the touched rows when the
@@ -663,128 +430,63 @@ def _scan_call(m: DeviceModel, cfg: CudaSearchConfig, ca, consts, K: int,
             else:
                 size_t, base_t = pool_row_tables(m)
             pools = _build_pools(m, cfg, ca, K, D, tables=(size_t, base_t))
+            kp, ks, dest_pool, lp, lsl = pools
+            # the flat [P·S] index of each move row's slot
+            slot_of_row = kp.long() * S + ks.long()
             pt_valid = True
             tpp = torch.zeros(P, dtype=torch.bool, device=dev)
             since_pool = 0
-        kp, ks, dest_pool, lp, lsl = pools
-        L = lp.shape[0]
+        # every step's tensors keep the types and shapes of the first: the
+        # wrappers check their inputs once a call
+        checked = t > 0
 
-        # ---- rescore: the move grid's terms (K2), per-row top-R (K1) +
-        # leadership
+        # ---- rescore: the move grid's terms (K2), per-row top-R (K1) and
+        # the leadership pool (K6)
         src_term, vals, best_d = grid_rescore(m, cfg, ca, kp, ks, dest_pool,
                                               R, consts, tconsts)
-        # the reference carries destination terms and re-adds the source
-        # term; the round trip is kept for bit-parity of the row scores
-        row_scores = src_term[:, None] + (vals - src_term[:, None])
-        ls, _ = _score_candidates(
-            m, cfg, ca, torch.ones(L, dtype=torch.int32, device=dev), lp,
-            lsl, torch.zeros(L, dtype=torch.int32, device=dev),
-        )
+        ls, _ = score_candidates(m, cfg, ca, kind_l, lp, lsl, cd_l, consts,
+                                 tconsts, checked=checked)
 
-        # ---- reduce: per-broker best transfer + top-Q move rows (K3) ----
-        sb = m.assignment[kp.long(), ks.long()].clamp_min(0)
-        (bl_score, bl_p, bl_s, bl_dst), (rows_q2, q_scores) = per_src_top(
-            m, lp, lsl, ls, sb, row_scores[:, 0], B, Q)
-        rows_q = rows_q2.reshape(-1).long()
-        valid_q = rows_q < K
-        mrow = rows_q.clamp(0, K - 1)
+        # ---- reduce: per-broker best transfer + top-Q move rows (K3); the
+        # rows' best scores re-add the carried destination terms to the
+        # source term, as the reference does (bit-parity of the row scores)
+        sb = m.assignment.view(-1)[slot_of_row].clamp_min(0)
+        row_best = src_term + (vals[:, 0] - src_term)
+        bl, (rows_q, q_scores) = per_src_top(m, lp, lsl, ls, sb, row_best,
+                                             B, Q)
 
-        # ---- compact to the best C rows ---------------------------------
-        key_all = torch.cat([q_scores.reshape(-1), bl_score])
-        crow = torch.sort(key_all, stable=True).indices[:C]
-        is_move_row = is_move_all[crow]
-        qrow = crow.clamp(0, Q * B - 1)
-        mr_c = mrow[qrow]
-        valid_c = valid_q[qrow]
-        lrow_c = (crow - Q * B).clamp(0, B - 1)
-        imr = is_move_row[:, None]
-        cand_score = torch.where(
-            imr,
-            torch.where(valid_c[:, None], row_scores[mr_c], _INF),
-            torch.cat([bl_score[lrow_c][:, None], inf_tail], dim=1),
-        )                                                   # [C, R]
-        bd_c = best_d[mr_c].long()
-        move_dst = torch.where(bd_c >= 0, dest_pool[bd_c.clamp_min(0)], -1)
-        cand_dst = torch.where(imr, move_dst, bl_dst[lrow_c][:, None])
-        cand_src = torch.where(is_move_row, sb[mr_c].long(), lrow_c)
-        cand_p = torch.where(is_move_row, kp[mr_c], bl_p[lrow_c])
-        cand_s = torch.where(is_move_row, ks[mr_c], bl_s[lrow_c])
+        # ---- compact to the best C rows and the cohort's inputs (K7) -----
+        c = compact_rows(m, q_scores, rows_q, bl, src_term, vals, best_d,
+                         dest_pool, kp, ks, sb, C, cfg.improvement_tol,
+                         checked=checked)
 
-        # ---- cohort: water-filling budgets -------------------------------
-        leader_now_q = m.leader_slot[cand_p.long()] == cand_s
-        lead_c, fol_c, _excl_c, leadc_c, folc_c = _gather_pload(m, cand_p)
-        lead_move = leader_now_q[:, None] & imr
-        ml = torch.where(imr, torch.where(lead_move, lead_c, fol_c), 0.0)
-        move_vec = torch.cat([
-            ml,
-            is_move_row.to(torch.float32)[:, None],
-            torch.where(is_move_row, lead_c[:, Resource.NW_OUT], 0.0)[:, None],
-        ], dim=1)
-        if m.leader_cload is not None:
-            mlc = torch.where(lead_move, leadc_c, folc_c)
-            move_vec = torch.cat([move_vec, torch.where(imr, mlc, 0.0)], 1)
-        qualified = is_move_row & ~leader_now_q & valid_c
-        # compact partition-conflict ids: rows sharing a partition map to
-        # one representative row
-        order_pc = torch.argsort(cand_p, stable=True)
-        sorted_p = cand_p[order_pc]
-        firstp = torch.ones(C, dtype=torch.bool, device=dev)
-        firstp[1:] = sorted_p[1:] != sorted_p[:-1]
-        start_pos = torch.cummax(torch.where(firstp, ci, -1), dim=0).values
-        rep = torch.empty_like(ci)
-        rep[order_pc] = order_pc[start_pos]
-        improving = cand_score[:, 0] < cfg.improvement_tol
-        qual = qualified & improving
-        # one row per partition (best first — rows are in score order)
-        fminp = _scatter_min(C, rep, torch.where(qual, ci, C), C)
-        qual = qual & (ci == fminp[rep])
-        d0 = cand_dst[:, 0].clamp_min(0)
-        # water-filling budgets and two rounds of acceptance (K4)
-        acc_b, _, _ = budget_accept(m, ca, d0, cand_src.clamp_min(0),
-                                    move_vec, qual, cfg.cohort_budget_slack)
+        # ---- cohort: water-filling budgets, two rounds of acceptance (K4)
+        acc_b, _, _ = budget_accept(m, ca, c.d0, c.cand_src, c.move_vec,
+                                    c.qual, cfg.cohort_budget_slack)
 
         # ---- auction for the rest, disjoint from the cohort (K5) --------
-        used0 = (
-            _mark(B, cand_src.clamp_min(0), acc_b),
-            _mark(B, d0, acc_b),
-            _mark(C, rep, acc_b),
-        )
         take_d, win_score_d, win_dst_d = match_batch(
-            cand_score.masked_fill(acc_b[:, None], _INF), cand_dst, cand_src,
-            rep, cfg.improvement_tol, B, C, init_used=used0,
-            dest_cap=cfg.auction_dest_cap, src_cap=cfg.auction_src_cap,
+            c.cand_score, c.cand_dst, c.cand_src, c.rep, cfg.improvement_tol,
+            B, C, dest_cap=cfg.auction_dest_cap, src_cap=cfg.auction_src_cap,
             stack_ratio=cfg.auction_stack_ratio, rounds=cfg.auction_rounds,
+            acc=acc_b,
         )
-        take = acc_b | take_d
-        win_score = torch.where(acc_b, cand_score[:, 0], win_score_d)
-        win_dst = torch.where(acc_b, d0.long(), win_dst_d)
 
-        # ---- apply the M_step best; commit order = score order -----------
-        vals_all, order_all = torch.sort(
-            torch.where(take, win_score, _INF), stable=True)
-        order = order_all[:M_step]
-        sel_ok = torch.isfinite(vals_all[:M_step])
-        take_f = torch.zeros(C, dtype=torch.bool, device=dev)
-        take_f[order] = sel_ok
-        m = _apply_batch_on_device(m, take_f, is_move_row, cand_p, cand_s,
-                                   win_dst, cand_src, win_dst)
-        out[:, count:count + M_step] = torch.stack([
-            torch.where(is_move_row[order], KIND_MOVE, KIND_LEADERSHIP)
-            .to(torch.float32),
-            cand_p[order].to(torch.float32),
-            cand_s[order].to(torch.float32),
-            win_dst[order].to(torch.float32),
-        ])
-        tpp = tpp | _mark(P, cand_p.clamp_min(0), take_f)
+        # ---- commit the M_step best in score order (K8) -----------------
+        m, tpp, c_dev = commit_batch(
+            m, acc_b, take_d, win_score_d, win_dst_d, c.cand_score, c.d0,
+            c.is_move_row, c.cand_p, c.cand_s, c.cand_src, M_step, out,
+            count, tpp, checked=checked)
         if cfg.step_diagnostics:
-            diag_t = torch.stack([
-                improving.sum(), acc_b.sum(), (take & ~acc_b).sum(),
-                sel_ok.sum(),
+            diag_t = torch.cat([
+                torch.stack([c.improving.sum(), acc_b.sum(),
+                             (take_d & ~acc_b).sum()]),
+                c_dev.long(),
             ]).tolist()
             diag_rows.append(tuple(diag_t[:3]))
             c_step = int(diag_t[3])
         else:
-            c_step = int(sel_ok.sum())          # the step's one host sync
+            c_step = int(c_dev)                 # the step's one host sync
         counts.append(c_step)
         # zero commits on fresh pools = converged; on stale pools = force a
         # repool next step and keep going
@@ -817,7 +519,7 @@ def _resync_device_model(m: DeviceModel, ctx: AnalyzerContext) -> DeviceModel:
         leader_slot=torch.tensor(ctx.leader_slot, device=dev),
         must_move=torch.tensor(ctx.replica_offline, device=dev),
     )
-    return _recompute_aggregates(m)
+    return recompute_aggregates(m)
 
 
 # ---------------------------------------------------------------------------------
@@ -1379,7 +1081,7 @@ class CudaGoalOptimizer:
             m.leader_load, m.follower_load, m.excluded,
             m.leader_cload, m.follower_cload,
         ))
-        return _recompute_aggregates(m)
+        return recompute_aggregates(m)
 
     def _pool_sizes(self, P: int, S: int, B: int) -> Tuple[int, int]:
         cfg = self.config
@@ -1438,11 +1140,7 @@ class CudaGoalOptimizer:
         actions: List[BalancingAction] = []
         pass_summaries: List[dict] = []
 
-        if cfg.device_batch_per_step == 0:
-            # auto: the useful batch scales with broker count
-            cfg = dataclasses.replace(
-                cfg, device_batch_per_step=int(np.clip(B // 2, 32, 2048))
-            )
+        cfg = _resolve_batch(cfg, B)
         T = cfg.steps_per_call
         # the bound preserves the score-only path's total action budget
         # counted in steps (evacuations commit one per step)

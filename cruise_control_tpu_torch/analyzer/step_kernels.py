@@ -8,8 +8,9 @@ hand-written CUDA kernels that replace them on the card.
   water-filling budgets and its two rounds of segmented-prefix acceptance
   — plain twins :func:`_cohort_budgets` (:func:`_step_budgets`) and
   :func:`_budget_accept`.
-* K5 :func:`match_batch` (``csrc/match_batch.cu``): the disjoint auction —
-  plain twin :func:`_match_batch`.
+* K5 :func:`match_batch` (``csrc/match_batch.cu``): the disjoint auction,
+  started from the budgeted cohort's footprint — plain twins
+  :func:`_match_batch` and :func:`_cohort_footprint`.
 
 The plain twins keep the reference's names (``tpu_optimizer.py``) and are
 the specification the CPU tests hold against the JAX reference; the
@@ -42,7 +43,8 @@ _INF = float("inf")
 
 
 def order_key(x: torch.Tensor) -> torch.Tensor:
-    """The order-preserving map K3 and K5 key f32 scores with, in torch:
+    """The order-preserving map K3, K5, K7 and K8 key f32 scores with
+    (``csrc/step_common.cuh: ord32``), in torch:
     int64 in [0, 2^32) with ``order_key(a) < order_key(b)`` iff ``a < b``
     (-0.0 and +0.0 map alike; +inf above every finite value)."""
     x = torch.where(x == 0, torch.zeros_like(x), x).to(torch.float32)
@@ -59,6 +61,12 @@ def _scatter_min(n: int, idx, vals, fill):
     deterministic in any order."""
     return torch.full((n,), fill, dtype=vals.dtype, device=vals.device) \
         .scatter_reduce(0, idx.long(), vals, "amin", include_self=True)
+
+
+def _mark(n: int, idx, flags) -> torch.Tensor:
+    """bool [n]: ``out[b]`` = any ``flags[i]`` with ``idx[i] == b``."""
+    return torch.zeros(n, dtype=torch.int32, device=flags.device) \
+        .index_add_(0, idx.long(), flags.to(torch.int32)) > 0
 
 
 def _reduce_leadership_per_src(m, lp, lsl, l_scores):
@@ -327,7 +335,7 @@ def per_src_top(m, lp, lsl, l_scores, sb, row_best, B: int, Q: int):
 
     ``row_best`` may be a strided 1-D view (the rows' best scores, column
     0 of the [K, R] row scores)."""
-    if l_scores.device.type == "cpu":
+    if kernels.on_cpu(l_scores):
         return per_src_top_plain(m, lp, lsl, l_scores, sb, row_best, B, Q)
     dev = l_scores.device
     P, S = m.assignment.shape
@@ -362,7 +370,7 @@ def per_src_top(m, lp, lsl, l_scores, sb, row_best, B: int, Q: int):
         row_best.data_ptr(), row_best.stride(0), K, B, Q,
         *(t.data_ptr() for t in out), rows.data_ptr(), scores.data_ptr(),
         None if keys is None else keys.data_ptr(), cur.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
+        kernels.stream(dev),
     )
     kernels.launched("per_src_top", err)
     per_src_top.launches += 1
@@ -390,7 +398,7 @@ def budget_accept(m, ca, dst_ids, src_ids, vec, eligible, slack: float,
     f32 [B, NB] the cohort started from) — the plain twins
     :func:`_cohort_budgets` (:func:`_step_budgets` with ``slack``) and
     :func:`_budget_accept`."""
-    if vec.device.type == "cpu":
+    if kernels.on_cpu(vec):
         return budget_accept_plain(m, ca, dst_ids, src_ids, vec, eligible,
                                    slack, rounds)
     dev = vec.device
@@ -447,7 +455,7 @@ def budget_accept(m, ca, dst_ids, src_ids, vec, eligible, slack: float,
         work.data_ptr(), accum.data_ptr(), q[0].data_ptr(),
         q[1].data_ptr(), chunk.data_ptr(), order.data_ptr(),
         None if key is None else key.data_ptr(), flags.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
+        kernels.stream(dev),
     )
     kernels.launched("budget_accept", err)
     budget_accept.launches += 1
@@ -461,38 +469,65 @@ budget_accept.launches = 0
 # K5: disjoint auction
 # ---------------------------------------------------------------------------------
 
-def match_batch_plain(*args, **kwargs):
-    """Plain twin of K5: ``_match_batch``."""
-    return _match_batch(*args, **kwargs)
+def _cohort_footprint(acc, cand_dst, cand_src, cand_p, B: int, P: int):
+    """The auction's starting occupancy (used_src, used_dst, used_p) from
+    the cohort's accepted rows ``acc``: their source brokers, best
+    destinations and partition ids (reference step ``:1322-1326``)."""
+    return (_mark(B, cand_src.clamp_min(0), acc),
+            _mark(B, cand_dst[:, 0].clamp_min(0), acc),
+            _mark(P, cand_p, acc))
+
+
+def match_batch_plain(cand_score, cand_dst, cand_src, cand_p, tol: float,
+                      B: int, P: int, init_used=None, dest_cap: int = 1,
+                      src_cap: int = 1, stack_ratio: float = 0.5,
+                      rounds: int = 0, acc=None):
+    """Plain twin of K5: ``_match_batch``; with ``acc`` (the cohort's
+    accepted rows) the auction starts from their footprint and their
+    scores count as +inf (reference step ``:1322-1334``)."""
+    if acc is not None:
+        if init_used is not None:
+            raise ValueError("match_batch: pass init_used or acc, not both")
+        init_used = _cohort_footprint(acc, cand_dst, cand_src, cand_p, B, P)
+        cand_score = cand_score.masked_fill(acc[:, None], _INF)
+    return _match_batch(cand_score, cand_dst, cand_src, cand_p, tol, B, P,
+                        init_used=init_used, dest_cap=dest_cap,
+                        src_cap=src_cap, stack_ratio=stack_ratio,
+                        rounds=rounds)
 
 
 def match_batch(cand_score, cand_dst, cand_src, cand_p, tol: float, B: int,
                 P: int, init_used=None, dest_cap: int = 1, src_cap: int = 1,
-                stack_ratio: float = 0.5, rounds: int = 0):
-    """The auction of the plain twin :func:`_match_batch` (same arguments) →
-    (take bool [N], win_score f32 [N], win_dst int64 [N])."""
-    if cand_score.device.type == "cpu":
+                stack_ratio: float = 0.5, rounds: int = 0, acc=None):
+    """The auction of the plain twin :func:`match_batch_plain` (same
+    arguments) → (take bool [N], win_score f32 [N], win_dst int64 [N]).
+    With ``acc`` (bool [N], the cohort's accepted rows) the kernel builds
+    the starting occupancy and the score mask itself."""
+    if kernels.on_cpu(cand_score):
         return match_batch_plain(
             cand_score, cand_dst, cand_src, cand_p, tol, B, P,
             init_used=init_used, dest_cap=dest_cap, src_cap=src_cap,
-            stack_ratio=stack_ratio, rounds=rounds)
+            stack_ratio=stack_ratio, rounds=rounds, acc=acc)
     dev = cand_score.device
     N, A = cand_score.shape
     b8 = torch.bool
-    if init_used is None:
+    if acc is not None and init_used is not None:
+        raise ValueError("match_batch: pass init_used or acc, not both")
+    if acc is None and init_used is None:
         init_used = (torch.zeros(B, dtype=b8, device=dev),
                      torch.zeros(B, dtype=b8, device=dev),
                      torch.zeros(P, dtype=b8, device=dev))
-    used_src, used_dst, used_p = init_used
+    used_src, used_dst, used_p = init_used or (None, None, None)
     chk = functools.partial(kernels.check, "match_batch", device=dev)
     for name, x, dt, shape in (
         ("cand_score", cand_score, torch.float32, (N, A)),
         ("cand_dst", cand_dst, torch.int32, (N, A)),
         ("cand_src", cand_src, torch.int64, (N,)),
         ("cand_p", cand_p, torch.int64, (N,)),
-        ("used_src", used_src, b8, (B,)),
-        ("used_dst", used_dst, b8, (B,)),
-        ("used_p", used_p, b8, (P,)),
+        *((("acc", acc, b8, (N,)),) if acc is not None else (
+            ("used_src", used_src, b8, (B,)),
+            ("used_dst", used_dst, b8, (B,)),
+            ("used_p", used_p, b8, (P,)))),
     ):
         chk(name, x, dt, shape)
     if A < 1 or B < 1 or P < 1 or dest_cap < 1 or src_cap < 1:
@@ -503,18 +538,18 @@ def match_batch(cand_score, cand_dst, cand_src, cand_p, tol: float, B: int,
     win_dst = torch.empty(N, dtype=torch.int64, device=dev)
     lib = kernels.bind("match_batch", "match_batch_launch",
                        [_P] * 4 + [_I] * 4 + [_F, _I, _I, _F, _I]
-                       + [_P] * 8)
+                       + [_P] * 9)
     words = 2 * (2 * B + P) + 5 * B + 4 * N
     gws = None if 4 * words <= kernels.SMEM_LIMIT else torch.empty(
         words, dtype=torch.int32, device=dev)
     err = lib.match_batch_launch(
         cand_score.data_ptr(), cand_dst.data_ptr(), cand_src.data_ptr(),
         cand_p.data_ptr(), N, A, B, P, float(tol), dest_cap, src_cap,
-        float(stack_ratio), rounds or A, used_src.data_ptr(),
-        used_dst.data_ptr(), used_p.data_ptr(), take.data_ptr(),
-        win_score.data_ptr(), win_dst.data_ptr(),
-        None if gws is None else gws.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
+        float(stack_ratio), rounds or A,
+        *(None if u is None else u.data_ptr()
+          for u in (used_src, used_dst, used_p, acc)),
+        take.data_ptr(), win_score.data_ptr(), win_dst.data_ptr(),
+        None if gws is None else gws.data_ptr(), kernels.stream(dev),
     )
     kernels.launched("match_batch", err)
     match_batch.launches += 1

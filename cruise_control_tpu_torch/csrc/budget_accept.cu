@@ -51,14 +51,17 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "step_common.cuh"
+
 namespace {
+
+using namespace cc_step;
 
 constexpr int NR = 4;            // resources (common/resources.py)
 constexpr int NW_OUT = 2;
 constexpr int MAX_NB = 2 * NR + 2;
 constexpr int NSUM = 3 * NR;     // budget column sums: load, cap, cap²
 constexpr int THREADS = 1024;
-constexpr int FP_BITS = 60;      // ops/segment.py: _FP_BITS
 constexpr unsigned FULL = 0xffffffffu;
 
 template <int N>
@@ -77,18 +80,6 @@ __device__ __forceinline__ void warp_sum(long long (&v)[N]) {
 #pragma unroll
     for (int c = 0; c < N; ++c) v[c] += __shfl_xor_sync(FULL, v[c], off);
   }
-}
-
-__device__ __forceinline__ int ceil_log2(int n) {
-  return n <= 1 ? 0 : 32 - __clz(n - 1);
-}
-
-// ops/segment.py: _to_fixed — 2^(60 - e) with e from the exact
-// column max and the row count
-__device__ __forceinline__ double fixed_scale(float maxabs, int n) {
-  int ex;
-  frexp((double)maxabs, &ex);
-  return exp2((double)(FP_BITS - (ex + ceil_log2(n))));
 }
 
 __device__ __forceinline__ float from_fixed(long long acc, double scale) {
@@ -135,20 +126,7 @@ __device__ void sort_rows(const I* ids, int C, int n2,
     key[x] = x < C ? ((unsigned long long)ids[x] << 32) | (unsigned)x : ~0ull;
   }
   __syncthreads();
-  for (int size = 2; size <= n2; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int t = tid; t < n2 / 2; t += nt) {
-        const int lo = 2 * t - (t & (stride - 1));
-        const int hi = lo + stride;
-        const unsigned long long a = key[lo], b = key[hi];
-        if ((a > b) == ((lo & size) == 0)) {
-          key[lo] = b;
-          key[hi] = a;
-        }
-      }
-      __syncthreads();
-    }
-  }
+  bitonic_sort(key, n2);
   for (int p = tid; p < C; p += nt) order[p] = (int)(key[p] & 0xffffffffu);
   __syncthreads();
 }

@@ -21,6 +21,14 @@
 // tables — both exact and order free.  Scores are only compared, never
 // summed, and `stack_ratio * best` is one f32 product, as in torch.
 //
+// The cohort's footprint.  The step decides its budgeted cohort (K4) first
+// and passes its accepted rows as `acc`; the kernel then starts from the
+// cohort's occupancy — each accepted row's source broker, best destination
+// (`cand_dst[:, 0]` clamped at 0) and partition representative taken —
+// and treats the accepted rows' scores as +inf, which is what
+// tpu_optimizer.py:1322-1334 build with three scatters and a mask before
+// the auction.  With `acc` null it starts from the `used_*` tables.
+//
 // What bounds it.  It reads the N·A alternates once (8 B each) and the
 // N candidates' ids and the initial occupancy, and writes 13 B a
 // candidate: ~0.1 MB at N = 1 024, A = 8, B = 1 000 — bound by bytes
@@ -41,19 +49,14 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "step_common.cuh"
+
 namespace {
+
+using namespace cc_step;
 
 constexpr int THREADS = 1024;
 constexpr int ACTIVE = 1, PROP = 2, WIN = 4;
-
-__device__ __forceinline__ unsigned int ord32(float x) {
-  const unsigned int u = __float_as_uint(x == 0.0f ? 0.0f : x);
-  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-}
-
-__device__ __forceinline__ float from_ord32(unsigned int k) {
-  return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
-}
 
 __global__ void __launch_bounds__(THREADS)
 match_batch_kernel(const float* __restrict__ score,
@@ -65,6 +68,7 @@ match_batch_kernel(const float* __restrict__ score,
                    const uint8_t* __restrict__ used_src,
                    const uint8_t* __restrict__ used_dst,
                    const uint8_t* __restrict__ used_p,
+                   const uint8_t* __restrict__ acc,
                    uint8_t* __restrict__ take, float* __restrict__ win_score,
                    long long* __restrict__ win_dst, int* gws) {
   extern __shared__ int sws[];
@@ -86,9 +90,10 @@ match_batch_kernel(const float* __restrict__ score,
   const unsigned int zero_key = ord32(0.0f);
 
   for (int x = tid; x < T; x += nt) {
-    occ[x] = x < B       ? used_dst[x] * dest_cap
-             : x < 2 * B ? used_src[x - B] * src_cap
-                         : used_p[x - 2 * B];
+    occ[x] = acc != nullptr ? 0
+             : x < B        ? used_dst[x] * dest_cap
+             : x < 2 * B    ? used_src[x - B] * src_cap
+                            : used_p[x - 2 * B];
     fmin[x] = N;
   }
   for (int b = tid; b < B; b += nt) {
@@ -103,12 +108,24 @@ match_batch_kernel(const float* __restrict__ score,
     win_dst[n] = 0;
   }
   __syncthreads();
+  if (acc != nullptr) {
+    // the cohort's footprint (plain writes of one value: order free)
+    for (int n = tid; n < N; n += nt) {
+      if (acc[n]) {
+        occ[max(dst[(size_t)n * A], 0)] = dest_cap;
+        occ[B + (int)max(cand_src[n], 0ll)] = src_cap;
+        occ[2 * B + (int)max(cand_p[n], 0ll)] = 1;
+      }
+    }
+    __syncthreads();
+  }
 
   for (int round = 0; round < rounds; ++round) {
     // ---- propose; per-destination score minimum ------------------------
     for (int n = tid; n < N; n += nt) {
       const int pa = min(max(ptr[n], 0), A - 1);
-      const float s = score[(size_t)n * A + pa];
+      const float s =
+          (acc != nullptr && acc[n]) ? INFINITY : score[(size_t)n * A + pa];
       const int d = max(dst[(size_t)n * A + pa], 0);
       const int src = (int)cand_src[n];
       const int p = (int)max(cand_p[n], 0ll);
@@ -198,16 +215,21 @@ long long match_batch_workspace_words(int N, int B, int P) {
   return 2ll * (2ll * B + P) + 5ll * B + 4ll * N;
 }
 
-// Launches K5 on `stream` (one block); returns the CUDA error code.
+// Launches K5 on `stream` (one block): from the cohort `acc` when it is
+// not null, else from the three `used_*` tables.  Returns the CUDA error
+// code.
 int match_batch_launch(const float* score, const int* dst,
                        const long long* cand_src, const long long* cand_p,
                        int N, int A, int B, int P, float tol, int dest_cap,
                        int src_cap, float stack_ratio, int rounds,
                        const uint8_t* used_src, const uint8_t* used_dst,
-                       const uint8_t* used_p, uint8_t* take, float* win_score,
-                       long long* win_dst, int* gws, void* stream) {
+                       const uint8_t* used_p, const uint8_t* acc,
+                       uint8_t* take, float* win_score, long long* win_dst,
+                       int* gws, void* stream) {
   if (N < 0 || A < 1 || B < 1 || P < 1 || rounds < 0 || dest_cap < 1 ||
-      src_cap < 1) {
+      src_cap < 1 ||
+      (acc == nullptr) == (used_src == nullptr || used_dst == nullptr ||
+                           used_p == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   const long long bytes = 4 * match_batch_workspace_words(N, B, P);
@@ -217,7 +239,7 @@ int match_batch_launch(const float* score, const int* dst,
   if (e != cudaSuccess) return (int)e;
   match_batch_kernel<<<1, THREADS, smem, (cudaStream_t)stream>>>(
       score, dst, cand_src, cand_p, N, A, B, P, tol, dest_cap, src_cap,
-      stack_ratio, rounds, used_src, used_dst, used_p, take, win_score,
+      stack_ratio, rounds, used_src, used_dst, used_p, acc, take, win_score,
       win_dst, gws);
   return (int)cudaGetLastError();
 }

@@ -35,15 +35,14 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "step_common.cuh"
+
 namespace {
+
+using namespace cc_step;
 
 constexpr int THREADS = 1024;
 constexpr unsigned long long NONE = ~0ull;
-
-__device__ __forceinline__ unsigned int ord32(float x) {
-  const unsigned int u = __float_as_uint(x == 0.0f ? 0.0f : x);
-  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-}
 
 __device__ __forceinline__ unsigned long long key64(float x, int i) {
   return ((unsigned long long)ord32(x) << 32) | (unsigned int)i;

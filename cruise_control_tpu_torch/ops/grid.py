@@ -380,7 +380,7 @@ def launch_grid_top_r(packed: dict, R: int):
     if not 1 <= R <= min(_TOPR, D):
         raise ValueError(f"grid_top_r: R={R} outside [1, min({_TOPR}, D={D})]")
     dev = packed["dst_f"].device
-    if dev.type != "cuda":
+    if kernels.on_cpu(packed["dst_f"]):
         raise ValueError("grid_top_r: K1 takes CUDA tensors; grid_rescore "
                          "runs the plain twin for CPU tensors")
     _check_widths(S, D)
@@ -394,7 +394,7 @@ def launch_grid_top_r(packed: dict, R: int):
     if K == 0:
         return out_s, out_i
     lib = _library()
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    sms = kernels.sm_count(dev)
     per_sm = max(1, kernels.SMEM_LIMIT // ((_DF + _DI) * D * 4 + 1024))
     grid = max(1, min(-(-K // _WARPS), sms * per_sm))
     err = lib.grid_top_r_launch(
@@ -402,7 +402,7 @@ def launch_grid_top_r(packed: dict, R: int):
         packed["dst_f"].data_ptr(), packed["dst_i"].data_ptr(),
         packed["consts"].data_ptr(), K, D, S, R, packed["has_cap"], grid,
         out_s.data_ptr(), out_i.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
+        kernels.stream(dev),
     )
     kernels.launched("grid_top_r", err)
     launch_grid_top_r.launches += 1
@@ -461,7 +461,7 @@ def grid_terms(m, cfg, ca, kp, ks, dest_pool, consts=None,
     CPU tensors run the plain twin (:func:`grid_terms_plain`).  CUDA
     tensors launch K2 (``csrc/grid_terms.cu``) or raise.  Counts its
     launches in ``grid_terms.launches``."""
-    if dest_pool.device.type == "cpu":
+    if kernels.on_cpu(dest_pool):
         return grid_terms_plain(m, cfg, ca, kp, ks, dest_pool, consts)
     dev = dest_pool.device
     P, S = m.assignment.shape
@@ -528,7 +528,7 @@ def grid_terms(m, cfg, ca, kp, ks, dest_pool, consts=None,
         ks.data_ptr(), dest_pool.data_ptr(), consts.data_ptr(),
         tconsts.data_ptr(), K, D, S, W, grid, src_f.data_ptr(),
         src_i.data_ptr(), dst_f.data_ptr(), dst_i.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
+        kernels.stream(dev),
     )
     kernels.launched("grid_terms", err)
     grid_terms.launches += 1
@@ -546,7 +546,7 @@ def grid_rescore(m, cfg, ca, kp, ks, dest_pool, R: int, consts=None,
     CPU tensors: :func:`move_grid_terms` and K1's plain twin.  CUDA
     tensors: K2 writes K1's packed tables, K1 ranks them, and the source
     term is read back from K2's table."""
-    if dest_pool.device.type == "cpu":
+    if kernels.on_cpu(dest_pool):
         terms = move_grid_terms(m, cfg, ca, kp, ks)
         vals, idx = grid_top_r_plain(m, cfg, ca, kp, ks, dest_pool, terms, R)
         return terms["src_term"], vals, idx

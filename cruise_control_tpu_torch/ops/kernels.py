@@ -3,8 +3,9 @@
 Each source has a plain C interface; it is compiled with ``nvcc`` for
 Hopper (``sm_90a``) into a shared library at first use and loaded with
 ``ctypes``.  Builds go to ``build/torch_kernels/`` at the root of the
-checkout (listed in ``.gitignore``), keyed by a hash of the source, so an
-edited kernel never loads a stale library.  Nothing here runs at import:
+checkout (listed in ``.gitignore``), keyed by a hash of the source and of
+the shared headers (``csrc/*.cuh``), so an edited kernel or header never
+loads a stale library.  Nothing here runs at import:
 the CPU tests import every module of the package without a compiler.
 """
 
@@ -18,6 +19,8 @@ import subprocess
 import threading
 from pathlib import Path
 from typing import Dict, Iterable
+
+import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -51,11 +54,14 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """Where kernel ``name``'s library is built: keyed by a hash of its
+    source, every shared header (``csrc/*.cuh``, so an edited header
+    rebuilds each kernel) and the compiler flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: Iterable[str]) -> Dict[str, Path]:
@@ -127,3 +133,21 @@ def launched(kernel: str, err: int) -> None:
     runs, and a later synchronize would not report it)."""
     if err != 0:
         raise RuntimeError(f"{kernel}: kernel launch failed (CUDA error {err})")
+
+
+def on_cpu(x: torch.Tensor) -> bool:
+    """Whether a wrapper handed ``x`` runs its kernel's plain twin: exactly
+    when ``x`` lies on the CPU.  A CUDA tensor launches the kernel or
+    raises; there is no fallback."""
+    return x.device.type == "cpu"
+
+
+def stream(device) -> int:
+    """The handle of PyTorch's current CUDA stream on ``device``, which
+    every launch takes."""
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def sm_count(device) -> int:
+    """Streaming multiprocessors of the card ``device`` names."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
