@@ -3,9 +3,10 @@ and the hand-written CUDA kernels that replace them on the card.
 
 * K8 :func:`commit_batch` (``csrc/commit_batch.cu``): the merge of the
   cohort with the auction, the commit-order sort that keeps the step's M
-  best, their output rows, the touched-partition mark and the batch
-  applied to the device model — plain twin :func:`commit_batch_plain`
-  (reference step ``tpu_optimizer.py:1335-1391``) around
+  best, their output rows, the touched-partition mark, the batch applied
+  to the device model and the step loop's carry advanced
+  (:mod:`analyzer.step_state`) — plain twin :func:`commit_batch_plain`
+  (reference step ``tpu_optimizer.py:1335-1395``) around
   :func:`_apply_batch_on_device` (``:751``).
 * K9 :func:`recompute_aggregates` (``csrc/recompute_aggregates.cu``): the
   full per-broker aggregate rebuild — plain twin
@@ -16,7 +17,7 @@ hold against JAX.  Each wrapper runs its plain twin for tensors that lie
 on the CPU, and for CUDA tensors launches its kernel or raises; there is
 no fallback.  Each counts its launches in ``<wrapper>.launches``.  K8
 updates the model's tensors in place (the plain twin returns new ones):
-the step loop works on its own copy of the mutable tensors
+the step loop works on its own static copy of the mutable tensors
 (:data:`MUTABLE`).
 """
 
@@ -32,6 +33,7 @@ from cruise_control_tpu_torch.analyzer.score_kernel import (
     KIND_LEADERSHIP,
     KIND_MOVE,
 )
+from cruise_control_tpu_torch.analyzer import step_state as SS
 from cruise_control_tpu_torch.analyzer.step_kernels import _mark
 from cruise_control_tpu_torch.common.resources import (
     EMPTY_SLOT,
@@ -167,15 +169,21 @@ def _apply_batch_on_device(m, take, is_move, p, s, d, src, dst):
 
 def commit_batch_plain(m, acc, take_d, win_score_d, win_dst_d, cand_score,
                        d0, is_move_row, cand_p, cand_s, cand_src,
-                       M_step: int, out, count: int, tpp):
-    """Plain twin of K8 (reference step ``:1335-1391``): the cohort rows
-    ``acc`` merged with the auction's winners, the M_step best by score
-    (ties to the lowest row) committed — their (kind, p, s, destination)
-    rows written into ``out [4, slots]`` at column ``count``, their
-    partitions marked in ``tpp [P]`` and the batch applied to the model
-    (:func:`_apply_batch_on_device`) → (model, tpp, commits int32 [1])."""
+                       M_step: int, out, tpp, improving, st):
+    """Plain twin of K8 (reference step ``:1335-1395``): unless the carry
+    ``st`` (:class:`analyzer.step_state.StepState`) says the step is
+    inactive, the cohort rows ``acc`` merged with the auction's winners,
+    the M_step best by score (ties to the lowest row) committed — their
+    (kind, p, s, destination) rows written into ``out [4, slots]`` at the
+    carry's count, their partitions marked in ``tpp [P]``, the batch
+    applied to the model (:func:`_apply_batch_on_device`) and the carry
+    advanced (:func:`analyzer.step_state.advance`; ``improving`` [C] feeds
+    the diagnostics) → (model, tpp, commits int32 [1])."""
     C = acc.shape[0]
     P = m.assignment.shape[0]
+    if not int(st.state[SS.ACTIVE]):
+        return m, tpp, torch.zeros(1, dtype=torch.int32, device=acc.device)
+    count = int(st.state[SS.COUNT])
     take = acc | take_d
     win_score = torch.where(acc, cand_score[:, 0], win_score_d)
     win_dst = torch.where(acc, d0.long(), win_dst_d)
@@ -195,21 +203,25 @@ def commit_batch_plain(m, acc, take_d, win_score_d, win_dst_d, cand_score,
         win_dst[order].to(torch.float32),
     ])
     tpp = tpp | _mark(P, cand_p.clamp_min(0), take_f)
-    return m, tpp, sel_ok.sum(dtype=torch.int32).reshape(1)
+    c_step = sel_ok.sum(dtype=torch.int32).reshape(1)
+    SS.advance(st, int(c_step), int(improving.sum()), int(acc.sum()),
+               int((take_d & ~acc).sum()))
+    return m, tpp, c_step
 
 
 def commit_batch(m, acc, take_d, win_score_d, win_dst_d, cand_score, d0,
                  is_move_row, cand_p, cand_s, cand_src, M_step: int, out,
-                 count: int, tpp, checked: bool = False):
+                 tpp, improving, st, checked: bool = False):
     """The step's commit of the plain twin :func:`commit_batch_plain`
     (same arguments and results).  On the card the model's :data:`MUTABLE`
-    tensors, ``out`` and ``tpp`` are updated in place and returned.
-    ``checked=True`` skips the input checks (the step loop checks once per
-    call)."""
+    tensors, ``out``, ``tpp`` and the carry ``st`` are updated in place,
+    with no host read, and returned.  ``checked=True`` skips the input
+    checks (the step loop checks once per call)."""
     if kernels.on_cpu(acc):
         return commit_batch_plain(m, acc, take_d, win_score_d, win_dst_d,
                                   cand_score, d0, is_move_row, cand_p,
-                                  cand_s, cand_src, M_step, out, count, tpp)
+                                  cand_s, cand_src, M_step, out, tpp,
+                                  improving, st)
     dev = acc.device
     C, R = cand_score.shape
     P, S = m.assignment.shape
@@ -243,17 +255,23 @@ def commit_batch(m, acc, take_d, win_score_d, win_dst_d, cand_score, d0,
             ("lcount", m.lcount, f32, (B,)),
             ("out", out, f32, (4, slots)),
             ("tpp", tpp, b8, (P,)),
+            ("improving", improving, b8, (C,)),
+            ("state", st.state, i32, (SS.NSTATE,)),
+            ("counts", st.counts, i32, (4, st.steps)),
             *((("broker_cload", m.broker_cload, f32, (B, NR)),)
               if has_cap else ()),
         ):
             chk(name, x, dt, shape)
-        if not 0 <= M_step <= C or not 0 <= count <= slots - M_step \
+        if not 0 <= M_step <= C \
+                or not 0 <= st.slot_limit <= slots - M_step \
                 or W != (4 * NR + 1 if has_cap else 2 * NR + 1):
-            raise ValueError(f"commit_batch: M_step={M_step}, count={count}, "
-                             f"slots={slots}, table width {W} out of range")
+            raise ValueError(f"commit_batch: M_step={M_step}, slot limit "
+                             f"{st.slot_limit}, slots={slots}, table width "
+                             f"{W} out of range")
     lib = kernels.bind("commit_batch", "commit_batch_launch",
                        [_P] * 5 + [_I] + [_P] * 5 + [_I] * 3 + [_P] * 10
-                       + [_I] * 3 + [_P, _I, _I] + [_P] * 5)
+                       + [_I] * 3 + [_P, _I] + [_P] * 3 + [_I] * 3
+                       + [_P] * 5)
     n2 = 1 << max(C - 1, 0).bit_length()
     ncol = 2 * NR + 4 if has_cap else NR + 4
     sums = torch.empty((B, ncol), dtype=torch.int64, device=dev)
@@ -270,7 +288,9 @@ def commit_batch(m, acc, take_d, win_score_d, win_dst_d, cand_score, d0,
         m.broker_load.data_ptr(), m.leader_nwin.data_ptr(),
         m.pot_nwout.data_ptr(), m.rcount.data_ptr(), m.lcount.data_ptr(),
         m.broker_cload.data_ptr() if has_cap else None, B, S, W,
-        out.data_ptr(), slots, count, tpp.data_ptr(), sums.data_ptr(),
+        out.data_ptr(), slots, st.state.data_ptr(), st.counts.data_ptr(),
+        improving.data_ptr(), st.steps, st.repool, st.slot_limit,
+        tpp.data_ptr(), sums.data_ptr(),
         c_step.data_ptr(), None if gws is None else gws.data_ptr(),
         kernels.stream(dev),
     )

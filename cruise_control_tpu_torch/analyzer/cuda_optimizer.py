@@ -29,18 +29,26 @@ path.  The search keeps the model on the card and runs, per step,
   (:class:`_HostEvaluator`, a verbatim copy of the reference's numpy
   evaluator); a rejection resyncs the device model from the host context.
 
-The reference's ``lax.while_loop`` becomes a Python loop over steps: each
-step reads its commit count back to the host (one small sync per step) to
-drive the loop; the committed actions stay on the card until the call's
-packed prefix is fetched.  Every selection that feeds a discrete choice
-uses stable sorts or (score, index) scatter-mins, so ties go to the lowest
-index as in XLA; every float segment sum is exact and deterministic
-(:mod:`ops.segment`), so plans repeat run to run.
+The reference's ``lax.while_loop`` becomes chunks of masked steps: the
+loop's carry (done flag, step, commit count, repool bookkeeping) lives in
+a small device vector (:mod:`analyzer.step_state`) that K8 advances and
+K10 / K11 read, so a step past the end of the loop does nothing.  On the
+card a chunk of steps is captured once per optimizer and shape as a CUDA
+graph and replayed (:mod:`analyzer.step_graph`); the host reads the carry
+once a chunk and fetches the call's packed prefix once.  The repool is
+kernels too: K10 builds the tables and priorities and decides the
+incremental diet on the device, K11 selects the pools
+(:mod:`analyzer.pool_kernels`).  Every selection that feeds a discrete
+choice uses stable sorts or (score, index) scatter-mins, so ties go to
+the lowest index as in XLA; every float segment sum is exact and
+deterministic (:mod:`ops.segment`), so plans repeat run to run.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
+import threading
 import time
 from typing import Dict, List, Optional, Tuple
 
@@ -71,7 +79,13 @@ from cruise_control_tpu_torch.analyzer.commit_kernels import (  # noqa: F401
     commit_batch,
     recompute_aggregates,
 )
+from cruise_control_tpu_torch.analyzer import step_state as SS
 from cruise_control_tpu_torch.analyzer.compact_kernel import compact_rows
+from cruise_control_tpu_torch.analyzer.pool_kernels import (
+    PoolBuffers,
+    pool_tables,
+    top_select,
+)
 from cruise_control_tpu_torch.analyzer.score_kernel import (  # noqa: F401
     KIND_LEADERSHIP,
     KIND_MOVE,
@@ -92,25 +106,22 @@ from cruise_control_tpu_torch.analyzer.step_kernels import (  # noqa: F401
     match_batch,
     per_src_top,
 )
+from cruise_control_tpu_torch.analyzer.step_graph import STEP_CHUNK, StepChunk
+from cruise_control_tpu_torch.analyzer.step_state import StepState
 from cruise_control_tpu_torch.models.cluster_state import ClusterState
 from cruise_control_tpu_torch.models.stats import cluster_stats, stats_summary
 from cruise_control_tpu_torch.ops.cost import pack_pload
 from cruise_control_tpu_torch.ops.grid import (
     grid_consts,
     grid_rescore,
+    grid_terms,
+    launch_grid_top_r,
     terms_consts,
-)
-from cruise_control_tpu_torch.ops.pools import (
-    pool_prio,
-    pool_row_tables,
-    pool_row_tables_update,
 )
 from cruise_control_tpu_torch.utils.device import resolve_device
 from cruise_control_tpu_torch.utils.logging import get_logger
 
 LOG = get_logger("engine")
-
-_INF = float("inf")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -239,87 +250,10 @@ class DeviceModel:
 # Candidate pools
 # ---------------------------------------------------------------------------------
 
-def _top_desc(x: torch.Tensor, k: int) -> torch.Tensor:
-    """Indices of the k largest entries, ties to the lowest index (XLA
-    ``top_k`` order): a stable descending sort."""
-    return torch.sort(x, descending=True, stable=True).indices[:k]
-
-
-def _build_round_pools(m: DeviceModel, ca, K: int, D: int, tables=None):
-    """Device-side candidate pruning for one round → (kp[K], ks[K],
-    dest[D]): top-K replicas by priority, top-D least-loaded eligible
-    brokers.  ``tables`` = stored move-pool row tables (ops.pools);
-    ``None`` recomputes them."""
-    size, base = tables if tables is not None else pool_row_tables(m)
-    prio = pool_prio(m, ca, size, base)
-    return _select_round_pools(m, K, D, prio)
-
-
-def _select_round_pools(m: DeviceModel, K: int, D: int, prio):
-    """Pool selection over a full [P, S] priority.  Exact top-k always (the
-    reference switches to approx_max_k off forced candidates on TPU only)."""
-    S = m.assignment.shape[1]
-    flat_idx = _top_desc(prio.reshape(-1), K)
-    kp = (flat_idx // S).to(torch.int32)
-    ks = (flat_idx % S).to(torch.int32)
-    util = m.broker_load / torch.clamp_min(m.capacity, 1e-9)
-    dest_score = util.max(dim=1).values + torch.where(m.dest_ok, 0.0, _INF)
-    dest_pool = _top_desc(-dest_score, D).to(torch.int32)
-    return kp, ks, dest_pool
-
-
 def _leadership_pool_size(P: int, S: int, K: int) -> int:
     """Static leadership-pool size: full grid for small models, pruned to
     the move-pool scale for large ones."""
     return min(P * S, max(K, 4096))
-
-
-def _leadership_prio_terms(m: DeviceModel, ca):
-    """[B]-scale terms of the leadership-pool priority → (stress [B],
-    ltab [B, 2])."""
-    cap = torch.clamp_min(m.capacity, 1e-9)
-    util = m.broker_load / cap
-    lc_over = torch.clamp_min(m.lcount - ca["lcount_upper"], 0.0) / \
-        torch.clamp_min(ca["lcount_upper"], 1.0)
-    lc_need = torch.clamp_min(ca["lcount_lower"] - m.lcount, 0.0) / \
-        torch.clamp_min(ca["lcount_lower"], 1.0)
-    stress = (
-        util.max(dim=1).values + m.leader_nwin / cap[:, Resource.NW_IN]
-        + lc_over
-    )
-    ltab = torch.stack([lc_need, m.lead_ok.to(torch.float32)], dim=1)
-    return stress, ltab
-
-
-def _leadership_prio_rows(stress, ltab, row, lslot, must, excl):
-    """[N, S] leadership-pool priority (-inf = invalid) for the given
-    partition rows."""
-    S = row.shape[1]
-    lb = torch.gather(row, 1, lslot.long()[:, None])[:, 0]
-    lb_c = lb.clamp_min(0).long()
-    g2 = ltab[row.clamp_min(0).long()]                       # [N, S, 2]
-    prio = stress[lb_c][:, None] + g2[..., 0]
-    ar = torch.arange(S, device=row.device)
-    valid = (
-        (row != EMPTY_SLOT)
-        & (ar[None, :] != lslot[:, None])
-        & ~excl[:, None]
-        & ~must
-        & (g2[..., 1] > 0.0)
-    )
-    return prio.masked_fill(~valid, -_INF)
-
-
-def _leadership_pool(m: DeviceModel, ca, L: int):
-    """Top-L leadership candidates (p, s) by the current leader broker's
-    stress."""
-    S = m.assignment.shape[1]
-    stress, ltab = _leadership_prio_terms(m, ca)
-    flat = _leadership_prio_rows(
-        stress, ltab, m.assignment, m.leader_slot, m.must_move, m.excluded
-    ).reshape(-1)
-    idx = _top_desc(flat, L)
-    return (idx // S).to(torch.int32), (idx % S).to(torch.int32)
 
 
 #: alternate destinations kept per source row (fallbacks tried by the
@@ -327,18 +261,38 @@ def _leadership_pool(m: DeviceModel, ca, L: int):
 DESTS_PER_SOURCE = 8
 
 
+def _repool(m: DeviceModel, ca, pb: PoolBuffers, state, rows_budget: int,
+            checked: bool = False) -> None:
+    """One repool into ``pb`` when the carry ``state`` asks for it: the
+    tables and priorities (K10), then top-K move slots, top-D destinations
+    and top-L leadership slots (K11) — the reference's ``rebuild_pools``
+    under ``lax.cond`` (:1016) with ``_select_round_pools`` (:688) and
+    ``_leadership_pool`` (:2173): five launches on the card."""
+    S = m.assignment.shape[1]
+    ws = pb.select_ws
+    pool_tables(m, ca, pb, state, rows_budget, checked=checked)
+    top_select(pb.prio.view(-1), pb.kp, pb.ks, pb.slot, S=S, state=state,
+               ws=ws)
+    top_select(pb.dneg, pb.dest_pool, state=state, ws=ws)
+    top_select(pb.lprio.view(-1), pb.lp, pb.lsl, S=S, state=state, ws=ws)
+
+
 def _build_pools(m: DeviceModel, cfg, ca, K: int, D: int, tables=None):
     """All P·S-scale candidate-pool selection → (kp, ks, dest_pool, lp,
-    lsl)."""
+    lsl): one repool into fresh buffers.  ``tables`` = stored move-pool row
+    tables (ops.pools), used as they are; ``None`` recomputes them."""
     P, S = m.assignment.shape
-    kp, ks, dest_pool = _build_round_pools(m, ca, K, D, tables=tables)
-    lp, lsl = _leadership_pool(m, ca, _leadership_pool_size(P, S, K))
-    return kp, ks, dest_pool, lp, lsl
+    dev = m.assignment.device
+    pb = PoolBuffers.empty(P, S, m.capacity.shape[0], K, D,
+                           _leadership_pool_size(P, S, K), dev)
+    st = StepState.empty(1, 1, 0, dev)
+    st.state.copy_(st.initial(pt_valid=tables is not None))
+    if tables is not None:
+        pb.size.copy_(tables[0])
+        pb.base.copy_(tables[1])
+    _repool(m, ca, pb, st.state, P if tables is not None else -1)
+    return pb.kp, pb.ks, pb.dest_pool, pb.lp, pb.lsl
 
-
-# ---------------------------------------------------------------------------------
-# Per-step reductions and selection
-# ---------------------------------------------------------------------------------
 
 # ---------------------------------------------------------------------------------
 # The device-resident step loop (one "scan call")
@@ -376,135 +330,209 @@ def _cold_tables(m: DeviceModel):
             torch.zeros(P, dtype=torch.bool, device=dev), False)
 
 
+#: the kernel wrappers a step launches (their ``.launches`` count replays)
+STEP_KERNELS = (pool_tables, top_select, grid_terms, launch_grid_top_r,
+                score_candidates, per_src_top, compact_rows, budget_accept,
+                match_batch, commit_batch)
+
+
+class _StepLoop:
+    """The step loop's static buffers — every tensor a step reads or
+    writes: the model, the constraint constants, the pool buffers, the
+    device carry, the per-step meta and the output — and, on the card, the
+    captured chunk of steps.  A search copies its model's fixed tensors and
+    its constants in (:meth:`bind`), each scan call its placement,
+    aggregates and row tables (:meth:`load`); the optimizer keeps the loop
+    for its next search of the same shape, which then replays the chunk
+    without capturing it again."""
+
+    def __init__(self, m: DeviceModel, cfg: CudaSearchConfig, ca, consts,
+                 K: int, D: int, T: int, chunk: int = STEP_CHUNK):
+        P, S = m.assignment.shape
+        B = m.capacity.shape[0]
+        dev = m.assignment.device
+        self.cfg = cfg
+        self.m = dataclasses.replace(m, **{
+            f.name: getattr(m, f.name).clone() for f in dataclasses.fields(m)
+            if getattr(m, f.name) is not None})
+        self.ca = {k: v.clone() for k, v in ca.items()}
+        self.consts = consts.clone()
+        self.tconsts = terms_consts(cfg, ca, dev)
+        self.B = B
+        self.Q = max(1, cfg.moves_per_src)
+        NROW = (self.Q + 1) * B
+        M_run = min(cfg.device_batch_per_step, NROW)
+        self.C = min(cfg.selection_rows, NROW)
+        self.M_step = min(M_run, self.C)
+        repool = max(1, cfg.repool_steps)
+        slots = min(T, repool) * M_run
+        RB_POOL = min(P, cfg.repool_rows_budget)
+        # the pool-rebuild diet: refresh only the touched rows when the
+        # carried tables are valid and the touched set fits the budget
+        # (decided on the device); off when the budget covers every row
+        self.rows_budget = (RB_POOL if cfg.repool_incremental and RB_POOL < P
+                            else -1)
+        self.R = min(DESTS_PER_SOURCE, D)
+        L = _leadership_pool_size(P, S, K)
+        self.pools = PoolBuffers.empty(P, S, B, K, D, L, dev)
+        self.st = StepState.empty(T, repool, slots - M_run, dev)
+        self.initial = {v: self.st.initial(v).to(dev) for v in (False, True)}
+        self.out = torch.full((4, slots), -1.0, device=dev)
+        # the leadership candidates' kinds and (unused) destinations for K6
+        self.kind_l = torch.full((L,), KIND_LEADERSHIP, dtype=torch.int32,
+                                 device=dev)
+        self.cd_l = torch.zeros(L, dtype=torch.int32, device=dev)
+        self.chunk = StepChunk(functools.partial(_step, self), chunk,
+                               list(STEP_KERNELS))
+
+    def bind(self, m: DeviceModel, ca, consts) -> None:
+        """Copy a search's fixed model tensors and constants in."""
+        for f in dataclasses.fields(m):
+            if f.name not in MUTABLE:
+                _copy_in(getattr(m, f.name), getattr(self.m, f.name))
+        for k, v in self.ca.items():
+            v.copy_(ca[k])
+        self.consts.copy_(consts)
+        self.tconsts.copy_(terms_consts(self.cfg, ca, self.consts.device))
+
+    def load(self, m: DeviceModel, tables) -> None:
+        """Copy the call's placement, aggregates and row-table carry into
+        the static buffers and reset the carry (no host read)."""
+        for f in MUTABLE:
+            _copy_in(getattr(m, f), getattr(self.m, f))
+        size, base, tpp, pt_valid = tables
+        pb = self.pools
+        for src, dst in ((size, pb.size), (base, pb.base), (tpp, pb.tpp)):
+            if src is not dst:
+                dst.copy_(src)
+        self.st.state.copy_(self.initial[bool(pt_valid)])
+
+
+def _copy_in(src, dst) -> None:
+    if (src is None) != (dst is None):
+        raise ValueError("step loop: the model's capacity loads are not "
+                         "those the loop was built for")
+    if src is not None and src is not dst:
+        dst.copy_(src)
+
+
+def _step(lp: _StepLoop, checked: bool) -> None:
+    """One masked step (repool → rescore → reduce → compact → cohort →
+    auction → apply) on the loop's static buffers — the reference's
+    ``step`` (:941).  Every kernel reads the device carry or writes only
+    scratch; the commit (K8) does nothing on an inactive step and advances
+    the carry on an active one.  ``checked=True`` skips the wrappers'
+    input checks (done on a call's first step)."""
+    m, cfg, ca, pb = lp.m, lp.cfg, lp.ca, lp.pools
+    _repool(m, ca, pb, lp.st.state, lp.rows_budget, checked)
+
+    # ---- rescore: the move grid's terms (K2), per-row top-R (K1) and the
+    # leadership pool (K6)
+    src_term, vals, best_d = grid_rescore(m, cfg, ca, pb.kp, pb.ks,
+                                          pb.dest_pool, lp.R, lp.consts,
+                                          lp.tconsts)
+    ls, _ = score_candidates(m, cfg, ca, lp.kind_l, pb.lp, pb.lsl, lp.cd_l,
+                             lp.consts, lp.tconsts, checked=checked)
+
+    # ---- reduce: per-broker best transfer + top-Q move rows (K3); the rows'
+    # best scores re-add the carried destination terms to the source term,
+    # as the reference does (bit-parity of the row scores)
+    sb = m.assignment.view(-1)[pb.slot].clamp_min(0)
+    row_best = src_term + (vals[:, 0] - src_term)
+    bl, (rows_q, q_scores) = per_src_top(m, pb.lp, pb.lsl, ls, sb, row_best,
+                                         lp.B, lp.Q)
+
+    # ---- compact to the best C rows and the cohort's inputs (K7) ---------
+    c = compact_rows(m, q_scores, rows_q, bl, src_term, vals, best_d,
+                     pb.dest_pool, pb.kp, pb.ks, sb, lp.C,
+                     cfg.improvement_tol, checked=checked)
+
+    # ---- cohort: water-filling budgets, two rounds of acceptance (K4) ----
+    acc_b, _, _ = budget_accept(m, ca, c.d0, c.cand_src, c.move_vec, c.qual,
+                                cfg.cohort_budget_slack)
+
+    # ---- auction for the rest, disjoint from the cohort (K5) ------------
+    take_d, win_score_d, win_dst_d = match_batch(
+        c.cand_score, c.cand_dst, c.cand_src, c.rep, cfg.improvement_tol,
+        lp.B, lp.C, dest_cap=cfg.auction_dest_cap,
+        src_cap=cfg.auction_src_cap, stack_ratio=cfg.auction_stack_ratio,
+        rounds=cfg.auction_rounds, acc=acc_b,
+    )
+
+    # ---- commit the M_step best in score order; advance the carry (K8) ---
+    lp.m, pb.tpp, _ = commit_batch(
+        m, acc_b, take_d, win_score_d, win_dst_d, c.cand_score, c.d0,
+        c.is_move_row, c.cand_p, c.cand_s, c.cand_src, lp.M_step, lp.out,
+        pb.tpp, c.improving, lp.st, checked=checked)
+
+
 def _scan_call(m: DeviceModel, cfg: CudaSearchConfig, ca, consts, K: int,
-               D: int, T: int, tables):
+               D: int, T: int, tables, loop: Optional[_StepLoop] = None,
+               chunk: Optional[int] = None, capture: Optional[bool] = None):
     """Up to T (repool → rescore → reduce → compact → cohort → auction →
     apply) steps on the device — the port of the reference's
     ``_cached_scan_fn`` body on its default single-device branch.
+
+    The steps run in chunks of ``chunk`` (the loop's, or :data:`STEP_CHUNK`
+    for a new loop), masked on the device (:func:`_step`);
+    the host reads the device carry once a chunk.  On the card
+    (``capture`` defaults to True there) the search's first call runs one
+    step eagerly, records a chunk as a CUDA graph and replays it; on the
+    CPU, or with ``capture=False``, the chunks run eagerly.  ``loop`` holds
+    the search's static buffers (a fresh one is built when None).
 
     Returns (ScanResult, updated model, (size, base, touched) row-table
     carry).  The loop ends on convergence (a step on freshly built pools
     commits nothing), after T steps, or when the next step could overflow
     the slot budget (the host just calls again)."""
-    P, S = m.assignment.shape
-    B = m.capacity.shape[0]
-    dev = m.assignment.device
-    M = cfg.device_batch_per_step
-    repool = max(1, cfg.repool_steps)
-    Q = max(1, cfg.moves_per_src)
-    NROW = (Q + 1) * B
-    M_run = min(M, NROW)
-    C = min(cfg.selection_rows, NROW)
-    M_step = min(M_run, C)
-    slots = min(T, repool) * M_run
-    RB_POOL = min(P, cfg.repool_rows_budget)
-    incr_repool = cfg.repool_incremental and RB_POOL < P
-    R = min(DESTS_PER_SOURCE, D)
-    size_t, base_t, tpp, pt_valid = tables
-
-    # the commit (K8) updates the model in place on the card: the loop
-    # works on its own copy of the mutable tensors, the caller's stays
-    m = dataclasses.replace(m, **{
-        f: getattr(m, f).clone() for f in MUTABLE
-        if getattr(m, f) is not None})
-    out = torch.full((4, slots), -1.0, device=dev)
-    counts: List[int] = []
-    diag_rows: List[Tuple[int, int, int]] = []
-    done = False
-    t = count = n_incr = 0
-    since_pool = repool
-    pools = None
-    tconsts = terms_consts(cfg, ca, dev)
-    # the leadership candidates' kinds and (unused) destinations for K6
-    L = _leadership_pool_size(P, S, K)
-    kind_l = torch.full((L,), KIND_LEADERSHIP, dtype=torch.int32, device=dev)
-    cd_l = torch.zeros(L, dtype=torch.int32, device=dev)
-    while not done and t < T and count <= slots - M_run:
-        if since_pool >= repool:
-            # pool-rebuild diet: refresh only the touched rows when the
-            # carried tables are valid and the touched set fits the budget
-            if incr_repool and pt_valid and int(tpp.sum()) <= RB_POOL:
-                size_t, base_t = pool_row_tables_update(
-                    m, size_t, base_t, tpp, RB_POOL)
-                n_incr += 1
-            else:
-                size_t, base_t = pool_row_tables(m)
-            pools = _build_pools(m, cfg, ca, K, D, tables=(size_t, base_t))
-            kp, ks, dest_pool, lp, lsl = pools
-            # the flat [P·S] index of each move row's slot
-            slot_of_row = kp.long() * S + ks.long()
-            pt_valid = True
-            tpp = torch.zeros(P, dtype=torch.bool, device=dev)
-            since_pool = 0
-        # every step's tensors keep the types and shapes of the first: the
-        # wrappers check their inputs once a call
-        checked = t > 0
-
-        # ---- rescore: the move grid's terms (K2), per-row top-R (K1) and
-        # the leadership pool (K6)
-        src_term, vals, best_d = grid_rescore(m, cfg, ca, kp, ks, dest_pool,
-                                              R, consts, tconsts)
-        ls, _ = score_candidates(m, cfg, ca, kind_l, lp, lsl, cd_l, consts,
-                                 tconsts, checked=checked)
-
-        # ---- reduce: per-broker best transfer + top-Q move rows (K3); the
-        # rows' best scores re-add the carried destination terms to the
-        # source term, as the reference does (bit-parity of the row scores)
-        sb = m.assignment.view(-1)[slot_of_row].clamp_min(0)
-        row_best = src_term + (vals[:, 0] - src_term)
-        bl, (rows_q, q_scores) = per_src_top(m, lp, lsl, ls, sb, row_best,
-                                             B, Q)
-
-        # ---- compact to the best C rows and the cohort's inputs (K7) -----
-        c = compact_rows(m, q_scores, rows_q, bl, src_term, vals, best_d,
-                         dest_pool, kp, ks, sb, C, cfg.improvement_tol,
-                         checked=checked)
-
-        # ---- cohort: water-filling budgets, two rounds of acceptance (K4)
-        acc_b, _, _ = budget_accept(m, ca, c.d0, c.cand_src, c.move_vec,
-                                    c.qual, cfg.cohort_budget_slack)
-
-        # ---- auction for the rest, disjoint from the cohort (K5) --------
-        take_d, win_score_d, win_dst_d = match_batch(
-            c.cand_score, c.cand_dst, c.cand_src, c.rep, cfg.improvement_tol,
-            B, C, dest_cap=cfg.auction_dest_cap, src_cap=cfg.auction_src_cap,
-            stack_ratio=cfg.auction_stack_ratio, rounds=cfg.auction_rounds,
-            acc=acc_b,
-        )
-
-        # ---- commit the M_step best in score order (K8) -----------------
-        m, tpp, c_dev = commit_batch(
-            m, acc_b, take_d, win_score_d, win_dst_d, c.cand_score, c.d0,
-            c.is_move_row, c.cand_p, c.cand_s, c.cand_src, M_step, out,
-            count, tpp, checked=checked)
-        if cfg.step_diagnostics:
-            diag_t = torch.cat([
-                torch.stack([c.improving.sum(), acc_b.sum(),
-                             (take_d & ~acc_b).sum()]),
-                c_dev.long(),
-            ]).tolist()
-            diag_rows.append(tuple(diag_t[:3]))
-            c_step = int(diag_t[3])
+    lp = loop if loop is not None else _StepLoop(
+        m, cfg, ca, consts, K, D, T, chunk or STEP_CHUNK)
+    if chunk is not None and lp.chunk.n != chunk:
+        raise ValueError(f"step loop runs chunks of {lp.chunk.n}, not {chunk}")
+    lp.load(m, tables)
+    if capture is None:
+        capture = lp.out.device.type == "cuda"
+    syncs = replays = 0
+    checked = False
+    if capture and lp.chunk.graph is None:
+        # one eager step checks every wrapper's inputs and loads every
+        # kernel before the capture
+        _step(lp, False)
+        lp.chunk.capture()
+    while True:
+        if capture:
+            lp.chunk.replay()
+            replays += 1
         else:
-            c_step = int(c_dev)                 # the step's one host sync
-        counts.append(c_step)
-        # zero commits on fresh pools = converged; on stale pools = force a
-        # repool next step and keep going
-        done = c_step == 0 and since_pool == 0
-        since_pool = repool if c_step == 0 else since_pool + 1
-        count += c_step
-        t += 1
+            lp.chunk.run_eager(checked)
+            checked = True
+        state = lp.st.state.cpu()               # the chunk's one host read
+        syncs += 1
+        if not state[SS.ACTIVE]:
+            break
 
     t_fetch = time.perf_counter()
-    body = out[:, :count].cpu().numpy().astype(np.int32)
-    diag = {"steps_run": t, "n_incremental_repool": n_incr,
+    t, count = int(state[SS.STEP]), int(state[SS.COUNT])
+    packed = torch.cat([
+        lp.out[:, :count].reshape(-1),
+        lp.st.counts[:, :t].reshape(-1).to(torch.float32),
+    ]).cpu().numpy()
+    syncs += 1
+    body = packed[:4 * count].reshape(4, count).astype(np.int32)
+    meta = packed[4 * count:].reshape(4, t).astype(np.int64)
+    diag = {"steps_run": t, "n_incremental_repool": int(state[SS.N_INCR]),
+            "repools": int(state[SS.N_REPOOL]), "host_syncs": syncs,
+            "graph_replays": replays,
             "fetch_s": time.perf_counter() - t_fetch}
     if cfg.step_diagnostics:
-        d3 = np.asarray(diag_rows, np.int64).reshape(-1, 3)
-        diag.update(improving=d3[:, 0], cohort=d3[:, 1], auction=d3[:, 2])
-    res = ScanResult(body[0], body[1], body[2], body[3],
-                     np.asarray(counts, np.int64), done, diag)
-    return res, m, (size_t, base_t, tpp)
+        diag.update(improving=meta[1], cohort=meta[2], auction=meta[3])
+    res = ScanResult(body[0], body[1], body[2], body[3], meta[0],
+                     bool(state[SS.DONE]), diag)
+    pb = lp.pools
+    m_out = dataclasses.replace(lp.m, **{
+        f: getattr(lp.m, f).clone() for f in MUTABLE
+        if getattr(lp.m, f) is not None})
+    return res, m_out, (pb.size.clone(), pb.base.clone(), pb.tpp.clone())
 
 
 def _resync_device_model(m: DeviceModel, ctx: AnalyzerContext) -> DeviceModel:
@@ -999,6 +1027,10 @@ class CudaGoalOptimizer:
         self.config = config or CudaSearchConfig()
         _check_config(self.config)
         self.device = resolve_device(device)
+        #: (shape key, step loop) of the last search; searches on one
+        #: optimizer run one at a time, as they share the loop's buffers
+        self._loop: Optional[Tuple[tuple, _StepLoop]] = None
+        self._lock = threading.Lock()
 
     # ---- constraint tensors ---------------------------------------------------
     def _constraint_arrays_np(self, ctx: AnalyzerContext) -> Dict[str, np.ndarray]:
@@ -1117,11 +1149,12 @@ class CudaGoalOptimizer:
         goals = make_goals(constraint=self.constraint)
         violations_before = {g.name: g.violations(ctx) for g in goals}
         stats_before = stats_summary(cluster_stats(state))
-        return self._search(
-            state, ctx, goals, violations_before, stats_before,
-            initial_assignment, initial_leader_slot, initial_replica_disk,
-            t0, self.config,
-        )
+        with self._lock:
+            return self._search(
+                state, ctx, goals, violations_before, stats_before,
+                initial_assignment, initial_leader_slot,
+                initial_replica_disk, t0, self.config,
+            )
 
     def _search(
         self, state, ctx, goals, violations_before, stats_before,
@@ -1149,15 +1182,27 @@ class CudaGoalOptimizer:
             -(cfg.max_rounds * cfg.max_moves_per_round) // -T,
         )
         n_calls = n_committed = n_rejected = n_steps = 0
+        device_loop = {"host_syncs": 0, "graph_replays": 0, "repools": 0}
         tab = _cold_tables(m)
+        # the static buffers (and, on the card, the captured step chunk)
+        # every call steps on: kept for the next search of the same shape
+        key = (P, S, B, K, D, T, cfg, m.pload.shape[1], STEP_CHUNK)
+        if self._loop is None or self._loop[0] != key:
+            self._loop = (key, _StepLoop(m, cfg, ca, consts, K, D, T,
+                                         STEP_CHUNK))
+        loop = self._loop[1]
+        loop.bind(m, ca, consts)
         # host wall-clock by phase: upload (model + aggregates), device
-        # (the step loop, whose per-step count read waits for the card),
+        # (the step loop, whose carry read a chunk waits for the card),
         # fetch (the packed prefix), recheck (exact f64 replay), resync
         timing = {"upload": time.perf_counter() - t_up, "device": 0.0,
                   "fetch": 0.0, "recheck": 0.0, "resync": 0.0}
         while n_calls < calls_budget:
             t_call = time.perf_counter()
-            res, m_new, tab_new = _scan_call(m, cfg, ca, consts, K, D, T, tab)
+            res, m_new, tab_new = _scan_call(m, cfg, ca, consts, K, D, T, tab,
+                                             loop)
+            for k in device_loop:
+                device_loop[k] += res.diag[k]
             timing["fetch"] += res.diag["fetch_s"]
             timing["device"] += (time.perf_counter() - t_call
                                  - res.diag["fetch_s"])
@@ -1217,6 +1262,9 @@ class CudaGoalOptimizer:
             "rounds": int(n_calls),
             "steps": int(n_steps),
             "timing_s": timing,
+            # device-to-host reads of the step loop (carry reads and
+            # fetches), captured-chunk replays and repools run
+            **device_loop,
         })
 
         # Host swap-repair pass: when hard violations survive the search,

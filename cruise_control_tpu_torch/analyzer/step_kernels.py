@@ -31,6 +31,7 @@ import torch
 from cruise_control_tpu_torch.common.resources import NUM_RESOURCES, Resource
 from cruise_control_tpu_torch.ops import kernels
 from cruise_control_tpu_torch.ops.segment import (
+    column_sum as _colsum,
     segment_excl_prefix_sorted,
     segment_sum,
 )
@@ -114,13 +115,6 @@ def _topq_rows_per_src(sb, row_best, B: int, Q: int):
         ext[r] = _INF
         cur = ext[:K]
     return torch.stack(outs).to(torch.int32), torch.stack(out_scores)
-
-
-def _colsum(x: torch.Tensor) -> torch.Tensor:
-    """Exact column sums of ``x [N, C]`` (ops.segment's order-free fixed
-    point), rounded once to ``x``'s dtype."""
-    return segment_sum(x, torch.zeros(x.shape[0], dtype=torch.long,
-                                      device=x.device), 1)[0]
 
 
 def _step_budgets(m, ca):

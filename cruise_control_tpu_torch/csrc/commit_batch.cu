@@ -14,10 +14,18 @@
 // (and percentile capacity load) over its source and destination brokers,
 // and the drop-mode scatters into `assignment`, `leader_slot` and
 // `must_move`.  The eager port ran it as ~160 small torch ops a step.
-// This kernel is all of it, in one launch; it also writes the step's
-// commit count to the device, which the host reads in the step's one
-// synchronisation.  It updates the model in place (the step loop owns a
-// copy of the mutable tensors).
+// This kernel is all of it, in one launch.  It updates the model in place
+// (the step loop owns static copies of the mutable tensors).
+//
+// The loop's carry.  The kernel reads the running offset `count` from the
+// step loop's device carry (csrc/step_common.cuh: cc_state) and commits
+// nothing unless the carry says the step is active.  Its one-thread tail
+// is the reference's meta and loop bookkeeping (:1368-1378, :1394-1395,
+// `cond_fn` :1400): the step's commits and its three diagnostic counts
+// into `counts[:, t]`, `done |= c == 0 && since_pool == 0`, the
+// `since_pool` update, `count += c`, `t += 1`, and the next step's
+// `active` and `need_pool`.  So a captured chunk of steps runs without a
+// host read: steps past the end of the search do nothing.
 //
 // Exactness.  The plain twin (analyzer/commit_kernels.py:
 // _apply_batch_on_device) sums through ops/segment.py: each column of
@@ -133,10 +141,19 @@ __device__ __forceinline__ float* column(const Model& m, int b, int col) {
   return m.cload + (size_t)b * NR + (col - NR - 4);
 }
 
+struct Loop {
+  int* state;                  // [NSTATE] the step loop's carry
+  int* counts;                 // [4, T] commits and diagnostics a step
+  const uint8_t* improving;    // [C] rows that improve (K7)
+  int T;                       // steps a call
+  int repool;                  // repool_steps
+  int slot_limit;              // the slot budget less one step's commits
+};
+
 __global__ void __launch_bounds__(THREADS)
 commit_batch_kernel(Rows c, Model m, int C, int n2, int M_step, int B,
                     int S, int W, float* __restrict__ out, int slots,
-                    int count, uint8_t* __restrict__ tpp,
+                    Loop lp, uint8_t* __restrict__ tpp,
                     long long* __restrict__ sums, int* __restrict__ c_step,
                     void* gws) {
   extern __shared__ unsigned long long sws[];
@@ -144,9 +161,14 @@ commit_batch_kernel(Rows c, Model m, int C, int n2, int M_step, int B,
   uint8_t* take_f = (uint8_t*)(key + n2);                          // [C]
   __shared__ unsigned colmax[MAX_COL];
   __shared__ double scale[MAX_COL];
-  __shared__ int s_count;
+  __shared__ int s_count, s_improving, s_cohort, s_auction;
   const int tid = threadIdx.x, nt = blockDim.x;
   const int ncol = m.cload != nullptr ? MAX_COL : NR + 4;
+  if (!lp.state[cc_state::ACTIVE]) {
+    if (tid == 0) *c_step = 0;
+    return;
+  }
+  const int count = lp.state[cc_state::COUNT];
 
   // ---- merge the cohort and the auction; key the merged scores ----------
   for (int x = tid; x < B * ncol; x += nt) sums[x] = 0;
@@ -163,8 +185,22 @@ commit_batch_kernel(Rows c, Model m, int C, int n2, int M_step, int B,
     key[x] = k;
   }
   if (tid < MAX_COL) colmax[tid] = 0u;
-  if (tid == 0) s_count = 0;
+  if (tid == 0) {
+    s_count = 0;
+    s_improving = 0;
+    s_cohort = 0;
+    s_auction = 0;
+  }
   __syncthreads();
+  // the step's diagnostics (the reference's meta rows 1-3)
+  for (int x = tid; x < C; x += nt) {
+    if (lp.improving[x]) atomicAdd(&s_improving, 1);
+    if (c.acc[x]) {
+      atomicAdd(&s_cohort, 1);
+    } else if (c.take_d[x]) {
+      atomicAdd(&s_auction, 1);
+    }
+  }
 
   // ---- the M best in score order: output rows, commit flags, count ------
   bitonic_sort(key, n2);
@@ -229,7 +265,26 @@ commit_batch_kernel(Rows c, Model m, int C, int n2, int M_step, int B,
       m.leader_slot[p] = s;
     }
   }
-  if (tid == 0) *c_step = s_count;
+  if (tid == 0) {
+    // ---- the loop's carry: meta, done, since_pool, count, t, next step -
+    using namespace cc_state;
+    int* st = lp.state;
+    const int cs = s_count, t = st[STEP];
+    *c_step = cs;
+    lp.counts[t] = cs;
+    lp.counts[lp.T + t] = s_improving;
+    lp.counts[2 * lp.T + t] = s_cohort;
+    lp.counts[3 * lp.T + t] = s_auction;
+    const int done = st[DONE] | (cs == 0 && st[SINCE_POOL] == 0 ? 1 : 0);
+    const int since = cs == 0 ? lp.repool : st[SINCE_POOL] + 1;
+    const int total = count + cs;
+    st[DONE] = done;
+    st[SINCE_POOL] = since;
+    st[COUNT] = total;
+    st[STEP] = t + 1;
+    st[ACTIVE] = !done && t + 1 < lp.T && total <= lp.slot_limit ? 1 : 0;
+    st[NEED_POOL] = since >= lp.repool ? 1 : 0;
+  }
 }
 
 }  // namespace
@@ -245,7 +300,9 @@ long long commit_batch_workspace_bytes(int C) {
 }
 
 // Launches K8 on `stream` (one block); `sums` is a [B, ncol] int64 scratch.
-// Returns the CUDA error code.
+// `state` is the step loop's carry (the write offset is its count),
+// `counts` its [4, T] meta; `slot_limit + M_step <= slots` keeps every
+// active step's rows inside `out`.  Returns the CUDA error code.
 int commit_batch_launch(const uint8_t* acc, const uint8_t* take_d,
                         const float* win_score_d, const long long* win_dst_d,
                         const float* cand_score, int R, const int* d0,
@@ -255,11 +312,13 @@ int commit_batch_launch(const uint8_t* acc, const uint8_t* take_d,
                         uint8_t* must_move, const float* pload, float* load,
                         float* leader_nwin, float* pot_nwout, float* rcount,
                         float* lcount, float* cload, int B, int S, int W,
-                        float* out, int slots, int count, uint8_t* tpp,
-                        long long* sums, int* c_step, void* gws,
-                        void* stream) {
+                        float* out, int slots, int* state, int* counts,
+                        const uint8_t* improving, int T, int repool,
+                        int slot_limit, uint8_t* tpp, long long* sums,
+                        int* c_step, void* gws, void* stream) {
   if (C < 1 || R < 1 || n2 < C || (n2 & (n2 - 1)) != 0 || M_step < 0 ||
-      M_step > C || B < 1 || S < 1 || count < 0 || count + M_step > slots ||
+      M_step > C || B < 1 || S < 1 || T < 1 || repool < 1 ||
+      slot_limit < 0 || slot_limit + M_step > slots ||
       W != (cload != nullptr ? 4 * NR + 1 : 2 * NR + 1)) {
     return (int)cudaErrorInvalidValue;
   }
@@ -267,13 +326,13 @@ int commit_batch_launch(const uint8_t* acc, const uint8_t* take_d,
          cand_p, cand_s, cand_src};
   Model m{assignment, leader_slot, must_move, pload, load, leader_nwin,
           pot_nwout, rcount, lcount, cload};
+  Loop lp{state, counts, improving, T, repool, slot_limit};
   const int smem = gws == nullptr ? (int)commit_batch_workspace_bytes(C) : 0;
   cudaError_t e = cudaFuncSetAttribute(
       commit_batch_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   commit_batch_kernel<<<1, THREADS, smem, (cudaStream_t)stream>>>(
-      c, m, C, n2, M_step, B, S, W, out, slots, count, tpp, sums, c_step,
-      gws);
+      c, m, C, n2, M_step, B, S, W, out, slots, lp, tpp, sums, c_step, gws);
   return (int)cudaGetLastError();
 }
 

@@ -1,8 +1,8 @@
 // Helpers the step's kernels share: the order-preserving key of an f32
-// score, the order-free fixed-point scale of ops/segment.py, and a
-// bitonic sort inside one block.  One copy, so the kernels that must agree
-// on an order or on a sum's bits (K3, K4, K5, K7, K8, K9) cannot drift
-// apart.
+// score, the order-free fixed-point scale of ops/segment.py, a bitonic
+// sort inside one block and the layout of the step loop's device carry.
+// One copy, so the kernels that must agree on an order or on a sum's bits
+// (K3, K4, K5, K7, K8, K9, K10, K11) cannot drift apart.
 
 #ifndef CRUISE_CONTROL_STEP_COMMON_CUH_
 #define CRUISE_CONTROL_STEP_COMMON_CUH_
@@ -62,5 +62,17 @@ __device__ void bitonic_sort(unsigned long long* key, int n2) {
 }
 
 }  // namespace cc_step
+
+// The step loop's carry on the device: indices into the int32 state vector
+// (analyzer/step_state.py holds the same layout).  K8 advances it after each
+// step's commit; K10 and K11 act only when it asks for a repool.
+namespace cc_state {
+
+constexpr int DONE = 0, STEP = 1, COUNT = 2, SINCE_POOL = 3, PT_VALID = 4;
+constexpr int N_INCR = 5, ACTIVE = 6, NEED_POOL = 7, REPOOL = 8, FULL = 9;
+constexpr int N_REPOOL = 10;
+constexpr int NSTATE = 16;
+
+}  // namespace cc_state
 
 #endif  // CRUISE_CONTROL_STEP_COMMON_CUH_

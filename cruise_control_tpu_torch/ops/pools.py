@@ -13,7 +13,11 @@ Keeping the row tables across steps and refreshing ONLY the partitions the
 applied batches touched (:func:`pool_row_tables_update`) gives tables
 bit-identical to a full recompute: every per-row value is elementwise in
 that row (sums over the slot and resource axes are written out in a fixed
-order), and loads are immutable during a search.
+order), and loads are immutable during a search.  The sums over the broker
+axis (the mean capacity, the cluster's load and alive capacity) are exact
+(:func:`ops.segment.column_sum`), so they do not depend on the order a
+device adds in, and kernel K10 (``csrc/pool_tables.cu``) reproduces every
+table to the bit.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ import torch
 
 from cruise_control_tpu_torch.common.resources import EMPTY_SLOT
 from cruise_control_tpu_torch.ops.cost import rsum
+from cruise_control_tpu_torch.ops.segment import column_sum
 
 #: forced-priority bonuses: offline (must-move) replicas and rack-violating
 #: replicas repair hard goals, so they outrank every balance-driven candidate
@@ -45,8 +50,11 @@ def _row_tables(
     rload = torch.where(
         is_leader[:, :, None], lead[:, None, :], fol[:, None, :]
     )
-    cap = torch.clamp_min(m.capacity, 1e-9)
-    size = rsum(rload / cap.mean(dim=0))                        # [N, S]
+    cap_sum = column_sum(torch.clamp_min(m.capacity, 1e-9))
+    # a tensor divisor: PyTorch's CUDA division by a CPU scalar multiplies
+    # by its reciprocal, which may round apart from the division
+    cap_mean = cap_sum / torch.full_like(cap_sum, m.capacity.shape[0])
+    size = rsum(rload / cap_mean)                               # [N, S]
     # rack-violating replicas (lower-indexed slot of same partition shares
     # the rack — the canonical-holder rule) must enter the pool for repair
     racks = torch.where(slot_exists, m.rack[row.clamp_min(0).long()],
@@ -111,8 +119,8 @@ def pool_broker_terms(m, ca) -> torch.Tensor:
             torch.clamp_min(cutil - ca["cap_threshold"], 0.0)
         )
     alive_cap = torch.where(m.alive[:, None], m.capacity, 0.0)
-    avg_u = m.broker_load.sum(dim=0) / torch.clamp_min(
-        alive_cap.sum(dim=0), 1e-9
+    avg_u = column_sum(m.broker_load) / torch.clamp_min(
+        column_sum(alive_cap), 1e-9
     )
     stress = rsum(torch.clamp_min(util - avg_u[None, :], 0.0))
     return torch.stack([overage, stress], dim=1)                 # [B, 2]

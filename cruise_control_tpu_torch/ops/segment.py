@@ -57,6 +57,14 @@ def segment_sum(values: torch.Tensor, ids: torch.Tensor,
     return (acc.double() / scale).to(values.dtype).reshape(shape)
 
 
+def column_sum(x: torch.Tensor) -> torch.Tensor:
+    """Exact column sums of ``x [N, C]`` (the order-free fixed point of
+    :func:`segment_sum`), rounded once to ``x``'s dtype: the kernels that
+    need a broker-axis sum (K4, K10) reproduce it bit for bit."""
+    return segment_sum(x, torch.zeros(x.shape[0], dtype=torch.long,
+                                      device=x.device), 1)[0]
+
+
 def segment_excl_prefix_sorted(sv: torch.Tensor,
                                first: torch.Tensor) -> torch.Tensor:
     """Exclusive prefix sum of ``sv [N, C]`` (float) restarted at every row

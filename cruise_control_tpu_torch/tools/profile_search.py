@@ -8,8 +8,9 @@ plan, then one plan under ``torch.profiler`` (CPU + CUDA activities) and
 prints one JSON line: the plan's wall-clock, steps, device-busy time (the
 union of kernel intervals on the card), the idle share, kernel launches
 per step, the device time and launches of each hand-written kernel
-(``csrc/*.cu``), the kernels that take the most device time and the host
-ops that take the most CPU time.  The profiler's own cost inflates the host side,
+(``csrc/*.cu``), the step loop's device-to-host reads and captured-chunk
+replays (CUDA graph launches) per plan, the kernels that take the most
+device time and the host ops that take the most CPU time.  The profiler's own cost inflates the host side,
 so the idle share it reports is an upper bound; the un-profiled wall-clock
 of the same plan is printed beside it.  Needs a card.
 """
@@ -96,11 +97,12 @@ def main() -> int:
     n_kernels = sum(c for _, c in kern.values())
 
     # the hand-written kernels, by their CUDA function names
-    # (csrc/<name>.cu defines <name>_kernel)
+    # (csrc/<name>.cu defines <name>_kernel or <name>_<part>_kernel)
     csrc = Path(__file__).resolve().parents[1] / "csrc"
     hand = {}
     for name in sorted(p.stem for p in csrc.glob("*.cu")):
-        rows = [v for k, v in kern.items() if f"{name}_kernel" in k]
+        rows = [v for k, v in kern.items()
+                if f"{name}_" in k and "_kernel" in k]
         hand[name] = {"ms": sum(us for us, _ in rows) * 1e-3,
                       "count": sum(c for _, c in rows)}
 
@@ -109,11 +111,17 @@ def main() -> int:
         return [{"name": n[:120], "ms": us * 1e-3, "count": c}
                 for n, (us, c) in rows]
 
+    summ = plain.goal_summaries[0]
     print(json.dumps({
         "phase": "profile_search", "device": torch.cuda.get_device_name(0),
         "fixture": FIXTURE, "steps": steps,
         "plain_wallclock_s": plain_s,
-        "plain_timing_s": plain.goal_summaries[0]["timing_s"],
+        "plain_timing_s": summ["timing_s"],
+        # the step loop's reads of the card (carry reads and prefix
+        # fetches), captured-chunk replays and repools, un-profiled plan
+        "host_syncs": summ["host_syncs"], "scan_calls": summ["rounds"],
+        "graph_replays": summ["graph_replays"], "repools": summ["repools"],
+        "profiled_graph_launches": cpu["cudaGraphLaunch"][1],
         "profiled_wallclock_s": wall_s, "device_busy_s": busy_s,
         "idle_share": 1.0 - busy_s / wall_s,
         "kernels": n_kernels, "kernels_per_step": n_kernels / max(steps, 1),

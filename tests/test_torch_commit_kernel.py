@@ -24,6 +24,7 @@ import torch
 
 from cruise_control_tpu.analyzer import tpu_optimizer as T
 from cruise_control_tpu_torch.analyzer import commit_kernels as K89
+from cruise_control_tpu_torch.analyzer import step_state as SS
 from cruise_control_tpu_torch.analyzer import cuda_optimizer as C
 from cruise_control_tpu_torch.analyzer.context import AnalyzerContext
 from cruise_control_tpu_torch.models.generators import random_cluster
@@ -131,10 +132,16 @@ def test_commit_batch_matches_reference(cload):
     conv = lambda x: jnp.asarray(  # noqa: E731
         x.numpy().astype(np.int32) if x.dtype == torch.int64 else x.numpy())
     rest = [conv(x) for x in args[1:11]]
-    M_, out, count, tpp = args[11], args[12], args[13], args[14]
+    M_, out, tpp, st = args[11], args[12], args[13], args[15]
+    count = int(st.state[SS.COUNT])
     rm, rtpp, rc, rout = ref_commit(to_ref_model(pm), *rest, M_,
                                     conv(out), count, conv(tpp))
     assert int(rc) == int(c1[0]) > 1              # real commits
+    # the loop's carry advanced past the step's commits
+    after = plain[15]
+    assert int(after.state[SS.COUNT]) == count + int(rc)
+    assert int(after.state[SS.STEP]) == int(st.state[SS.STEP]) + 1
+    assert int(after.counts[0, int(st.state[SS.STEP])]) == int(rc)
     assert np.array_equal(tpp1.numpy(), np.asarray(rtpp))
     assert np.array_equal(plain[12].numpy(), np.asarray(rout))
     for f in ("assignment", "leader_slot", "must_move"):

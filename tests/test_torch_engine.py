@@ -26,6 +26,7 @@ from cruise_control_tpu.analyzer.verifier import (
 )
 from cruise_control_tpu.models import generators as ref_gen
 from cruise_control_tpu_torch.analyzer import cuda_optimizer as C
+from cruise_control_tpu_torch.analyzer import pool_kernels as PK
 from cruise_control_tpu_torch.analyzer.context import OptimizationOptions
 from cruise_control_tpu_torch.analyzer.cuda_optimizer import (
     CudaGoalOptimizer,
@@ -207,11 +208,13 @@ def test_leadership_scoring_and_reduction_match_reference():
     P, S = ctx.num_partitions, ctx.max_rf
     L = T._leadership_pool_size(P, S, 256)
     lp_r, lsl_r = T._leadership_pool(m, ca_r, L)
-    lp, lsl = C._leadership_pool(pm, ca, L)
+    lp, lsl = C._build_pools(pm, CudaSearchConfig(), ca, 256, 8)[3:]
+    assert set(zip(lp.tolist(), lsl.tolist())) == set(
+        zip(np.asarray(lp_r).tolist(), np.asarray(lsl_r).tolist()))
     prio_r = T._leadership_prio_rows(*T._leadership_prio_terms(m, ca_r),
                                      m.assignment, m.leader_slot,
                                      m.must_move, m.excluded)
-    prio = C._leadership_prio_rows(*C._leadership_prio_terms(pm, ca),
+    prio = PK._leadership_prio_rows(*PK._leadership_prio_terms(pm, ca),
                                    pm.assignment, pm.leader_slot,
                                    pm.must_move, pm.excluded)
     np.testing.assert_allclose(prio.numpy(), np.asarray(prio_r), rtol=1e-6)

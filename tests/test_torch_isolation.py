@@ -36,9 +36,11 @@ def test_import_pulls_in_no_jax_and_no_reference():
     )
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["bad"] == [], res["bad"]
-    # the probe really walked the package
-    assert "cruise_control_tpu_torch.analyzer.cuda_optimizer" in res["modules"]
-    assert "cruise_control_tpu_torch.ops.grid" in res["modules"]
+    # the probe really walked the package, the repool and step-loop
+    # modules included
+    for mod in ("analyzer.cuda_optimizer", "ops.grid", "analyzer.pool_kernels",
+                "analyzer.step_graph", "analyzer.step_state"):
+        assert f"cruise_control_tpu_torch.{mod}" in res["modules"], mod
 
 
 def test_default_device_without_card_raises(monkeypatch):
