@@ -1,4 +1,5 @@
-"""Drive the PyTorch port's rebalance-plan search on one NVIDIA card.
+"""Drive the PyTorch port's rebalance-plan search and what-if engine on
+one NVIDIA card.
 
 Run from the root of a checkout, with no arguments:
 
@@ -29,10 +30,23 @@ Phases, each printing one JSON line; any failure exits non-zero:
    with every kernel's launch count from the second run (each must be
    > 0), the launches that acted (from the device carry: K8 on active
    steps, K10 and K11 on repools; each must be > 0, and the plan must
-   repool), the host reads per scan call and the graph replays.
+   repool), the host reads per scan call and the graph replays;
+7. what-if: the verdict kernel (K12) against its plain version, bit for
+   bit on every output, at 50 brokers / 1 000 partitions × 64 futures,
+   1 000 / 20 000 × 64 and × 256 (the futures cap), on the ragged case and
+   at the north star's 10 000 brokers / 1 000 000 partitions × 64, with
+   the same times and bounds as phase 3; the engine on the card against
+   the engine on the CPU at 50 / 1 000; the host compile, the upload of
+   the multipliers and the batched call timed; then the what-if path, the
+   artifact's batched sweep (``whatif.artifact.measure_batch``), end to
+   end at 50 / 1 000 and at 1 000 / 20 000 (the path read for launches),
+   against the reference's gates: one dispatch, ≥ 64 futures, wall under
+   2× one plan search.
 
-The last two lines are the ``{"kernels": [...]}`` summary and the
-``{"ok": true, "device": ...}`` verdict.  Nothing here imports JAX.
+Every kernel of a path must have launched on that path's run (the plan
+path: K1-K11, the what-if path: K12).  The last two lines are the
+``{"kernels": [...]}`` summary and the ``{"ok": true, "device": ...}``
+verdict.  Nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -40,6 +54,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -67,8 +82,9 @@ PEAK_BYTES = 3.35e12
 
 _REF = "cruise_control_tpu/analyzer/tpu_optimizer.py"
 #: every hand-written kernel (``cruise_control_tpu_torch/csrc/<name>.cu``)
-#: → the reference code it replaces: phase 2 builds these, phase 3 checks
-#: each, phases 4-5 count each, and the kernels line lists each
+#: → the reference code it replaces: phase 2 builds these, phases 3 and 7
+#: check each, the runs of their paths count each, and the kernels line
+#: lists each
 KERNELS = {
     "grid_top_r": "cruise_control_tpu/ops/grid.py:140 move_grid_scores + "
                   f"{_REF}:2194 _grid_top_r",
@@ -94,7 +110,18 @@ KERNELS = {
                    "predicates",
     "top_select": f"{_REF}:688 _select_round_pools (top_k over P·S and B) + "
                   f"{_REF}:2173 _leadership_pool (top-L)",
+    "whatif_verdict": "cruise_control_tpu/whatif/engine.py:39 _verdict_one "
+                      "under jax.vmap (_EVALUATE :140)",
 }
+#: the what-if path's kernels (phase 7); the rest are the plan search's
+WHATIF_PATH = ("whatif_verdict",)
+#: each path the script drives → the kernels its run must launch
+PATHS = {"plan": tuple(n for n in KERNELS if n not in WHATIF_PATH),
+         "whatif": WHATIF_PATH}
+#: the what-if sweep's size: the artifact's floor, and the futures cap
+#: (``whatif.max.futures``)
+WHATIF_FUTURES = 64
+WHATIF_MAX_FUTURES = 256
 #: why no single PyTorch call computes each kernel's function
 LIBRARY_NOTES = {
     "grid_top_r": "no single PyTorch call computes a masked grid score "
@@ -121,6 +148,10 @@ LIBRARY_NOTES = {
                   "orders ties in no fixed way on CUDA; torch.sort(stable="
                   "True) (library_sort_ms) gives the same order by sorting "
                   "all N",
+    "whatif_verdict": "index_add_ of the futures' slot loads into [N·(B+1), "
+                      "R] (library_ms) sums the hosted load with float "
+                      "atomics, not exactly; no single PyTorch call gives "
+                      "the verdicts",
 }
 
 
@@ -136,10 +167,18 @@ def nvidia_smi() -> str:
     ).stdout.strip()
 
 
-def device_ms(fn, tag: str, reps: int = 10):
+def kernel_name(name: str) -> str:
+    """A profiled kernel's name without its namespace and arguments."""
+    m = re.search(r"(\w+)\(", name)
+    return m.group(1) if m else name
+
+
+def device_ms(fn, tag: str, reps: int = 10, by_name: bool = False):
     """Milliseconds of device time a call of ``fn`` spends in kernels whose
     name holds ``tag``, from ``torch.profiler`` over ``reps`` calls; None
-    if the profiler shows no such kernel."""
+    if the profiler shows no such kernel.  With ``by_name`` a dict of the
+    milliseconds a call by kernel name (its name up to the argument
+    list)."""
     fn()
     torch.cuda.synchronize()
     with torch.profiler.profile(
@@ -147,10 +186,16 @@ def device_ms(fn, tag: str, reps: int = 10):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = [e.time_range.elapsed_us() for e in prof.events()
+    us = [(kernel_name(e.name), e.time_range.elapsed_us())
+          for e in prof.events()
           if e.device_type == torch.autograd.DeviceType.CUDA
           and tag in e.name]
-    return sum(us) * 1e-3 / reps if us else None
+    if by_name:
+        names = {}
+        for n, t in us:
+            names[n] = names.get(n, 0.0) + t * 1e-3 / reps
+        return names
+    return sum(t for _, t in us) * 1e-3 / reps if us else None
 
 
 def cuda_ms(fn, reps: int = 25, warmup: int = 3) -> float:
@@ -265,6 +310,7 @@ def counters():
     from cruise_control_tpu_torch.analyzer import score_kernel as K6
 
     from cruise_control_tpu_torch.analyzer import pool_kernels as PK
+    from cruise_control_tpu_torch.whatif import verdict_kernels as VK
 
     return {"grid_top_r": G.launch_grid_top_r, "grid_terms": G.grid_terms,
             "per_src_top": SK.per_src_top,
@@ -274,7 +320,8 @@ def counters():
             "compact_rows": K7.compact_rows,
             "commit_batch": K89.commit_batch,
             "recompute_aggregates": K89.recompute_aggregates,
-            "pool_tables": PK.pool_tables, "top_select": PK.top_select}
+            "pool_tables": PK.pool_tables, "top_select": PK.top_select,
+            "whatif_verdict": VK.whatif_verdict}
 
 
 def with_percentile(state, seed: int = 3):
@@ -1003,6 +1050,267 @@ def actions_of(res):
              a.dest_broker, a.dest_slot) for a in res.actions]
 
 
+def whatif_north_star(dev, N=WHATIF_FUTURES, racks=100, seed=19):
+    """K12's inputs at the north star's scale: :func:`north_star_placement`
+    (10 000 brokers, 1 000 000 partitions, 3 M slots), capacities drawn
+    around a mean utilization of ~0.35, 100 racks, the last 20 brokers dead,
+    and N futures: rack losses, single-broker losses, traffic multipliers
+    ×1.05 … and hot partitions (1 % of them ×3)."""
+    m = north_star_placement(dev)
+    P, S = m.assignment.shape
+    B = m.capacity.shape[0]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    # a broker hosts ~P·S / B = 300 slots, ~100 leaders (mean load 2.5)
+    # and ~200 followers (1.25): ~500 a resource
+    cap = (500.0 / 0.35) * (0.8 + 0.4 * torch.rand(
+        (B, 4), generator=g, device=dev))
+    rack = (torch.arange(B, device=dev) % racks).to(torch.int32)
+    alive0 = torch.ones(B, dtype=torch.bool, device=dev)
+    alive0[-20:] = False
+    dead = torch.zeros((N, B), dtype=torch.bool, device=dev)
+    scale = torch.ones((N, P), device=dev)
+    q = N // 4
+    for i in range(N):
+        if i < q:
+            dead[i] = rack == i % racks
+        elif i < 2 * q:
+            dead[i, (i * 211) % B] = True
+        elif i < 3 * q:
+            scale[i] = 1.0 + 0.05 * (i - 2 * q + 1)
+        else:
+            hot = torch.rand(P, generator=g, device=dev) < 0.01
+            scale[i, hot] = 3.0
+    return (m.assignment, m.leader_slot, m.leader_load.contiguous(),
+            m.follower_load.contiguous(), cap.contiguous(), rack, alive0,
+            dead, scale)
+
+
+def whatif_slot_loads(args):
+    """Every future's slot loads ``[N·P·S, R]`` and their segment ids into
+    ``[N·(B+1)]`` (dead and empty slots to each future's dump row B): the
+    input of the one ``index_add_`` timed beside K12."""
+    a, ls, ll, fl, cap, _, alive0, dead, scale = args
+    N, P = scale.shape
+    S = a.shape[1]
+    B, R = cap.shape
+    dev = a.device
+    mask = torch.tensor((1.0, 1.0, 1.0, 0.0), device=dev)
+    lscale = 1.0 + (scale[:, :, None] - 1.0) * mask
+    is_lead = torch.arange(S, device=dev)[None, :] == ls[:, None]
+    rows = torch.where(is_lead[None, :, :, None],
+                       (ll[None] * lscale)[:, :, None],
+                       (fl[None] * lscale)[:, :, None])
+    rows = (rows * (a >= 0)[None, :, :, None]).reshape(-1, R).contiguous()
+    alive = alive0[None, :] & ~dead
+    bid = a.clamp_min(0).long().reshape(-1)
+    ok = (a >= 0).reshape(-1)[None, :] & alive[:, bid]
+    ids = torch.where(ok, bid[None, :], B) \
+        + (B + 1) * torch.arange(N, device=dev)[:, None]
+    return rows, ids.reshape(-1)
+
+
+def check_whatif_verdict(label, args, plain_reps=10, library=True):
+    """K12 against ``verdict_plain`` on the card, bit for bit on all 13
+    outputs (floats compared by their bits) → the emitted record, with
+    both times, K12's device time, the bound and one ``index_add_`` of the
+    slot loads beside it."""
+    from cruise_control_tpu_torch.whatif import verdict_kernels as VK
+
+    got = VK.whatif_verdict(*args)
+    torch.cuda.synchronize()
+    want = VK.verdict_plain(*args)
+    err = 0.0
+    for k in VK.KEYS:
+        a, b = got[k].cpu(), want[k].cpu()
+        if a.dtype != b.dtype or a.shape != b.shape:
+            raise AssertionError(f"{label} whatif_verdict {k}: {a.dtype} "
+                                 f"{tuple(a.shape)} vs plain {b.dtype} "
+                                 f"{tuple(b.shape)}")
+        if a.is_floating_point():
+            err = max(err, float((a - b).abs().max()))
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        if not torch.equal(a, b):
+            raise AssertionError(f"{label} whatif_verdict: {k} differs from "
+                                 f"the plain twin in {int((a != b).sum())} "
+                                 "entries")
+    a, dead, scale = args[0], args[7], args[8]
+    N, P = scale.shape
+    S = a.shape[1]
+    B, R = args[4].shape
+    fn = lambda: VK.whatif_verdict(*args)  # noqa: E731
+    phases = device_ms(fn, "verdict_", by_name=True)
+    rec = {
+        "phase": "kernel", "case": label, "name": "whatif_verdict",
+        "N": N, "P": P, "S": S, "B": B,
+        "dead_base": int((~args[6]).sum()),
+        "offline_slots": int(want["movesRequired"].sum()),
+        "survivable": int(want["survivable"].sum()),
+        "max_abs_err": err, "ms": cuda_ms(fn),
+        "device_ms": sum(phases.values()) if phases else None,
+        "device_ms_by_phase": phases,
+        "plain_ms": cuda_ms(lambda: VK.verdict_plain(*args), reps=plain_reps,
+                            warmup=1),
+        # each input once: the placement, leader slots and two load rows
+        # a partition; capacity, rack and liveness a broker; each future's
+        # dead row and multipliers; 82 bytes of verdict a future out.
+        # Operations a future: ~20 a partition (its rated load rows) and
+        # ~16 a slot (select and mask its row, add it to its broker's and
+        # the total, compare)
+        **bound(P * S * 4 + P * 4 + 2 * P * R * 4 + B * (R * 4 + 5)
+                + N * B + N * P * 4 + N * 82,
+                N * (P * 5 * R + P * S * 4 * R)),
+        "library_ms": None, "library_note": LIBRARY_NOTES["whatif_verdict"],
+    }
+    if library:
+        rows, ids = whatif_slot_loads(args)
+        rec["library_ms"] = cuda_ms(lambda: torch.zeros(
+            (N * (B + 1), R), device=a.device).index_add_(0, ids, rows))
+        del rows, ids
+    emit(rec)
+    return rec
+
+
+def whatif_timing(label, state, n_futures, dev, against_cpu=False):
+    """The batched call's parts at one size → the emitted record: the host
+    compile of the futures, the upload of the multipliers, the whole
+    ``evaluate_batch`` (best of 5) and K12's device time; with
+    ``against_cpu`` the engine's raw verdicts on the card must equal its
+    verdicts on the CPU (the plain twin), every key, bit for bit."""
+    import numpy as np
+
+    from cruise_control_tpu_torch.whatif import artifact as A
+    from cruise_control_tpu_torch.whatif import verdict_kernels as VK
+    from cruise_control_tpu_torch.whatif.compiler import compile_futures
+    from cruise_control_tpu_torch.whatif.engine import (
+        evaluate_batch,
+        verdict_inputs,
+        verdicts,
+    )
+
+    futures = A.artifact_futures(state, n_futures)
+    compile_s = A._best_of(3, lambda: compile_futures(state, futures))
+    batch = compile_futures(state, futures)
+    raw = evaluate_batch(state, batch, device=dev)
+    wall_s = A._best_of(5, lambda: evaluate_batch(state, batch, device=dev))
+    args = verdict_inputs(state, batch, device=dev)
+    rows = verdicts(batch, raw)
+    rec = {"phase": "whatif_timing", "case": label,
+           "futures": len(futures), "batch": batch.padded_size,
+           "compile_futures_s": compile_s, "evaluate_batch_s": wall_s,
+           "h2d_scale_ms": cuda_ms(
+               lambda: torch.from_numpy(batch.scale).to(dev)),
+           "h2d_scale_bytes": batch.scale.nbytes,
+           "k12_device_ms": device_ms(lambda: VK.whatif_verdict(*args),
+                                      "verdict_"),
+           "survivable": sum(v["survivable"] for v in rows),
+           "goal_violations": sum(v["goalViolations"] for v in rows)}
+    if against_cpu:
+        cpu = evaluate_batch(state, batch, device="cpu")
+        for k, v in raw.items():
+            w = cpu[k]
+            same = (v.dtype == w.dtype and v.shape == w.shape
+                    and np.array_equal(v.view(np.uint8), w.view(np.uint8)))
+            if not same:
+                raise AssertionError(f"{label}: evaluate_batch {k} on the "
+                                     "card differs from the CPU")
+        rec["equal_to_cpu"] = True
+    for v in rows:
+        if not (np.isfinite(v["dataMoveMB"])
+                and np.isfinite(v["maxBrokerUtilization"])):
+            raise AssertionError(f"{label}: non-finite verdict {v}")
+    emit(rec)
+    return rec
+
+
+def whatif_path(label, kw, dev):
+    """The what-if path end to end, as the artifact runs it: the batched
+    sweep of ``WHATIF_FUTURES`` futures (``whatif.artifact.measure_batch``:
+    compile, one ``evaluate_batch`` a sweep, verdicts) timed against one
+    plan search on the same model.  Every kernel counter is zeroed just
+    before and read just after → (record, launches)."""
+    from cruise_control_tpu_torch.whatif import artifact as A
+
+    calls = [0]
+    real = A.evaluate_batch
+
+    def counted(*a, **k):
+        calls[0] += 1
+        return real(*a, **k)
+
+    for fn in counters().values():
+        fn.launches = 0
+    A.evaluate_batch = counted
+    try:
+        rec = A.measure_batch(num_futures=WHATIF_FUTURES, best_of=3,
+                              device=dev, **kw)
+    finally:
+        A.evaluate_batch = real
+    launches = {n: fn.launches for n, fn in counters().items()}
+    per_call = launches["whatif_verdict"] / calls[0]
+    out = {"phase": f"whatif_{label}", **rec,
+           "evaluate_batch_calls": calls[0],
+           "k12_launches_per_evaluate_batch": per_call,
+           "launches": {n: launches[n] for n in PATHS["whatif"]}}
+    emit(out)
+    gates = {"singleDispatch": rec["numDispatches"] == 1 and per_call == 1,
+             "atLeast64Futures": rec["numFutures"] >= WHATIF_FUTURES,
+             "batchRatioUnder2x": rec["ratio"] < 2.0}
+    if not all(gates.values()):
+        raise AssertionError(f"what-if {label}: batch gates {gates}")
+    return out, launches
+
+
+def whatif_phase(dev):
+    """Phase 7 → (K12's records by case, the what-if path's launches)."""
+    from cruise_control_tpu_torch.models.generators import random_cluster
+    from cruise_control_tpu_torch.whatif import artifact as A
+    from cruise_control_tpu_torch.whatif.compiler import compile_futures
+    from cruise_control_tpu_torch.whatif.engine import verdict_inputs
+    from cruise_control_tpu_torch.whatif.futures import (
+        FutureSpec,
+        broker_loss,
+        rack_loss,
+        traffic_scale,
+    )
+
+    small = random_cluster(seed=42, **SMALL)
+    mid = random_cluster(**MIDSCALE)
+    ragged = random_cluster(seed=5, num_brokers=77, num_racks=7,
+                            num_partitions=3001, dead_brokers=3)
+    ragged_futures = [
+        FutureSpec(name="b10", events=(broker_loss(10),)),
+        FutureSpec(name="r2", events=(rack_loss(2),)),
+        FutureSpec(name="x1.5", events=(traffic_scale(1.5),))]
+    recs = {}
+    for label, state, futures in (
+            ("50b_1k_x64", small, A.artifact_futures(small, WHATIF_FUTURES)),
+            ("midscale_x64", mid, A.artifact_futures(mid, WHATIF_FUTURES)),
+            ("midscale_x256", mid,
+             A.artifact_futures(mid, WHATIF_MAX_FUTURES)),
+            ("ragged", ragged, ragged_futures)):
+        args = verdict_inputs(state, compile_futures(state, futures),
+                              device=dev)
+        recs[label] = check_whatif_verdict(label, args)
+    if recs["ragged"]["N"] != 8 or recs["ragged"]["dead_base"] != 3:
+        raise AssertionError(f"ragged what-if case is not ragged: "
+                             f"{recs['ragged']}")
+    recs["north_star_x64"] = check_whatif_verdict(
+        "north_star_x64", whatif_north_star(dev), plain_reps=2)
+    whatif_timing("50b_1k_x64", small, WHATIF_FUTURES, dev, against_cpu=True)
+    whatif_timing("midscale_x64", mid, WHATIF_FUTURES, dev)
+    whatif_timing("midscale_x256", mid, WHATIF_MAX_FUTURES, dev)
+    whatif_path("50b_1k", dict(seed=42, **SMALL), dev)
+    # the what-if path read for launches: the sweep at 1 000 / 20 000
+    # (measure_batch's generator runs at its default mean utilization,
+    # 0.35, MIDSCALE's)
+    mkw = {k: v for k, v in MIDSCALE.items() if k != "mean_utilization"}
+    _, launches = whatif_path("1000b_20k", mkw, dev)
+    for name in PATHS["whatif"]:
+        if launches[name] <= 0:
+            raise AssertionError(f"what-if path never launched {name}")
+    return recs, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this "
@@ -1121,8 +1429,8 @@ def main() -> int:
         raise AssertionError(f"50b plan score {score} > greedy {g_score}")
     if not rec["identical_reruns"]:
         raise AssertionError("two 50b plans differ")
-    for name, n in launches_small.items():
-        if n <= 0:
+    for name in PATHS["plan"]:
+        if launches_small[name] <= 0:
             raise AssertionError(f"50b plan never launched {name}")
 
     # ---- the main path: plan at 1 000 brokers / 20 000 partitions -----------
@@ -1158,14 +1466,22 @@ def main() -> int:
         raise AssertionError(f"counted {sorted(launches)}, built "
                              f"{sorted(KERNELS)}")
     acting = acting_launches(launches, summ)
-    for name, n in launches.items():
+    for name in PATHS["plan"]:
+        n = launches[name]
         if n <= 0 or acting[name] <= 0:
             raise AssertionError(f"main path never launched {name} to act "
                                  f"({n} launches, {acting[name]} acting)")
 
+    # ---- the what-if path ---------------------------------------------------
+    whatif_recs, whatif_launches = whatif_phase(dev)
+    for name in PATHS["whatif"]:
+        launches[name] = acting[name] = whatif_launches[name]
+
     # the kernels line: main-path shapes (mid-scale); errors over every case
-    cases = [steps[c] for c in steps]
-    main_rec = {"grid_top_r": k1, **steps["midscale"]}
+    cases = [steps[c] for c in steps] + [
+        {"whatif_verdict": r} for r in whatif_recs.values()]
+    main_rec = {"grid_top_r": k1, **steps["midscale"],
+                "whatif_verdict": whatif_recs["midscale_x64"]}
     # every case of a kernel, its variants ("name[...]") included
     errs = {n: max([r[c]["max_abs_err"] for r in cases for c in r
                     if c == n or c.startswith(n + "[")]
