@@ -41,12 +41,27 @@ Phases, each printing one JSON line; any failure exits non-zero:
    artifact's batched sweep (``whatif.artifact.measure_batch``), end to
    end at 50 / 1 000 and at 1 000 / 20 000 (the path read for launches),
    against the reference's gates: one dispatch, ≥ 64 futures, wall under
-   2× one plan search.
+   2× one plan search;
+8. search paths (the off-default configs): the score-only round's kernels
+   (K13 ``round_pack``, K14 ``score_columnar``, K11 on their flat key) and
+   the corrected cohort (K15 ``corrected_accept``) against their plain
+   versions, bit for bit, on 1 000 / 20 000 first-round and first-step
+   inputs (mean and percentile loads, stacking guard off and on), on the
+   ragged case and K14 + K11 at the north star's 10 000 brokers /
+   1 000 000 partitions; whole rounds against ``round_plain``; one
+   score-only round at 1 000 / 20 000 timed, and its full plan; then the
+   paths' plans, each twice with identical actions, verified and under
+   the bar: score-only rounds at 50 / 1 000 in the grid and the columnar
+   form, 1 000 / 20 000 with ``polish_rounds=4`` after the resident
+   search, and 1 000 / 20 000 with ``cohort_mode="corrected"`` — each
+   read for its kernels' launches (the default plan of phase 6 must have
+   launched none of K13-K15).
 
 Every kernel of a path must have launched on that path's run (the plan
-path: K1-K11, the what-if path: K12).  The last two lines are the
-``{"kernels": [...]}`` summary and the ``{"ok": true, "device": ...}``
-verdict.  Nothing here imports JAX.
+path: K1-K11, the what-if path: K12, the search paths: theirs, K13-K15
+among them).  The last two lines are the ``{"kernels": [...]}`` summary
+and the ``{"ok": true, "device": ...}`` verdict.  Nothing here imports
+JAX.
 """
 
 from __future__ import annotations
@@ -70,6 +85,9 @@ MIDSCALE_SCORE_BAR = 1595
 MIDSCALE = dict(seed=12, num_brokers=1000, num_racks=20,
                 num_partitions=20000, mean_utilization=0.35)
 SMALL = dict(num_brokers=50, num_racks=10, num_partitions=1000)
+#: the score-only round's (K, D, L) on MIDSCALE at the engine's widths:
+#: K·R + L = 73 728 flat grid-form scores, K·D + P·S = 8 252 000 columnar
+MIDSCALE_ROUND = (8192, 1000, 8192)
 #: kernel-vs-plain tolerance on finite scores: both paths run the same f32
 #: operations in the same order (the kernel is built without FMA
 #: contraction), so they should agree to the bit; the bound leaves room
@@ -112,12 +130,37 @@ KERNELS = {
                   f"{_REF}:2173 _leadership_pool (top-L)",
     "whatif_verdict": "cruise_control_tpu/whatif/engine.py:39 _verdict_one "
                       "under jax.vmap (_EVALUATE :140)",
+    "round_pack": f"{_REF}:2892 _cached_round_fn: lax.top_k(-scores) over "
+                  f":2334 _merged_scores, :2875 _decode_flat_idx (or "
+                  f":2902 columnar_topk's gathers), :2059 _pack_round_result",
+    "score_columnar": f"{_REF}:720 _build_round_candidates + {_REF}:513 "
+                      "_score_candidates (as :2902 columnar_topk calls it)",
+    "corrected_accept": f"{_REF}:2522 _corrected_accept + {_REF}:2503 "
+                        "_seg_excl_prefix",
 }
-#: the what-if path's kernels (phase 7); the rest are the plan search's
+#: the what-if path's kernels (phase 7)
 WHATIF_PATH = ("whatif_verdict",)
+#: the kernels only the search's off-default paths run (phase 8)
+OFF_DEFAULT = ("round_pack", "score_columnar", "corrected_accept")
+_PLAN = tuple(n for n in KERNELS if n not in WHATIF_PATH + OFF_DEFAULT)
 #: each path the script drives → the kernels its run must launch
-PATHS = {"plan": tuple(n for n in KERNELS if n not in WHATIF_PATH),
-         "whatif": WHATIF_PATH}
+PATHS = {"plan": _PLAN,
+         "whatif": WHATIF_PATH,
+         # score-only rounds: a full repool, the grid form's K2/K1/K6 or the
+         # columnar form's K14, K13 around K11, and K9 at each resync
+         "score_only_grid": ("pool_tables", "top_select", "grid_terms",
+                             "grid_top_r", "score_candidates", "round_pack",
+                             "recompute_aggregates"),
+         "score_only_columnar": ("pool_tables", "top_select",
+                                 "score_columnar", "round_pack",
+                                 "recompute_aggregates"),
+         "polish": _PLAN + ("round_pack",),
+         "corrected": tuple(n for n in _PLAN if n != "budget_accept")
+         + ("corrected_accept",)}
+#: the path whose run gives each off-default kernel's launches in the
+#: kernels line
+LAUNCH_PATH = {"round_pack": "polish", "score_columnar":
+               "score_only_columnar", "corrected_accept": "corrected"}
 #: the what-if sweep's size: the artifact's floor, and the futures cap
 #: (``whatif.max.futures``)
 WHATIF_FUTURES = 64
@@ -152,6 +195,13 @@ LIBRARY_NOTES = {
                       "R] (library_ms) sums the hosted load with float "
                       "atomics, not exactly; no single PyTorch call gives "
                       "the verdicts",
+    "round_pack": "torch.topk of the negated flat key (library_ms) keeps the "
+                  "same k largest but orders ties in no fixed way on CUDA; "
+                  "the gather, decode and pack are no single PyTorch call",
+    "score_columnar": "a chain of gathers and four fused costs over the "
+                      "flat K·D + P·S candidates: no single PyTorch call",
+    "corrected_accept": "two segmented prefix sums and four fused costs a "
+                        "row: no single PyTorch call",
 }
 
 
@@ -309,9 +359,13 @@ def counters():
     from cruise_control_tpu_torch.analyzer import compact_kernel as K7
     from cruise_control_tpu_torch.analyzer import score_kernel as K6
 
+    from cruise_control_tpu_torch.analyzer import corrected_kernel as K15
     from cruise_control_tpu_torch.analyzer import pool_kernels as PK
+    from cruise_control_tpu_torch.analyzer import round_kernels as RK
     from cruise_control_tpu_torch.whatif import verdict_kernels as VK
 
+    # K13's first entry point (``round_keys``) counts apart: see
+    # search_path_plan
     return {"grid_top_r": G.launch_grid_top_r, "grid_terms": G.grid_terms,
             "per_src_top": SK.per_src_top,
             "budget_accept": SK.budget_accept,
@@ -321,7 +375,10 @@ def counters():
             "commit_batch": K89.commit_batch,
             "recompute_aggregates": K89.recompute_aggregates,
             "pool_tables": PK.pool_tables, "top_select": PK.top_select,
-            "whatif_verdict": VK.whatif_verdict}
+            "whatif_verdict": VK.whatif_verdict,
+            "round_pack": RK.round_pack,
+            "score_columnar": RK.score_columnar,
+            "corrected_accept": K15.corrected_accept}
 
 
 def with_percentile(state, seed: int = 3):
@@ -353,8 +410,8 @@ def first_step_calls(state, cfg_kw, dev):
     ca = opt._constraint_arrays(ctx)
     K, D = opt._pool_sizes(ctx.num_partitions, ctx.max_rf, ctx.num_brokers)
     names = ("grid_rescore", "score_candidates", "per_src_top",
-             "compact_rows", "budget_accept", "match_batch", "commit_batch",
-             "pool_tables", "top_select")
+             "compact_rows", "budget_accept", "corrected_accept",
+             "match_batch", "commit_batch", "pool_tables", "top_select")
     saved = {n: getattr(C, n) for n in names}
     calls = {"recompute_aggregates": ((m,), {}), "top_select": []}
 
@@ -405,6 +462,24 @@ def compare(label, got, want) -> float:
     return err
 
 
+def bitwise(label, got, want) -> None:
+    """Every output equal to the plain twin's bit for bit (floats compared
+    by their bits: -0.0, +0.0 and the infinities apart)."""
+    if isinstance(got, torch.Tensor):
+        got, want = [got], [want]
+    for i, (a, b) in enumerate(zip(got, want)):
+        a, b = a.detach().cpu().contiguous(), b.detach().cpu().contiguous()
+        if a.dtype != b.dtype or a.shape != b.shape:
+            raise AssertionError(f"{label}[{i}]: {a.dtype} {tuple(a.shape)} "
+                                 f"vs plain {b.dtype} {tuple(b.shape)}")
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        if not torch.equal(a, b):
+            raise AssertionError(f"{label}[{i}]: {int((a != b).sum())} "
+                                 "entries differ from the plain twin in "
+                                 "their bits")
+
+
 def bound(nbytes: float, ops: float) -> dict:
     """Least time for the work: bytes at HBM rate vs f32 operations."""
     t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
@@ -414,17 +489,20 @@ def bound(nbytes: float, ops: float) -> dict:
 
 
 def record_kernel(label, name, fn, plain, args, kw, extra, nbytes, ops,
-                  plain_kw=None, timed=False, tag=None):
+                  plain_kw=None, timed=False, tag=None, exact=False):
     """Run kernel wrapper ``fn`` and its plain twin ``plain`` on copies of
     the same inputs (K8 updates its inputs in place), compare their
-    outputs, time both and bound the work → the emitted record.  With
-    ``timed`` the record also has the kernel's device time alone (the
-    kernels whose names hold ``tag``, by default ``<kernel>_kernel``)."""
+    outputs (with ``exact``, every output bit for bit), time both and bound
+    the work → the emitted record.  With ``timed`` the record also has the
+    kernel's device time alone (the kernels whose names hold ``tag``, by
+    default ``<kernel>_kernel``)."""
     plain_kw = kw if plain_kw is None else plain_kw
     got = fn(*copy.deepcopy(args), **kw)
     torch.cuda.synchronize()
     want = plain(*copy.deepcopy(args), **plain_kw)
     err = compare(f"{label} {name}", got, want)
+    if exact:
+        bitwise(f"{label} {name}", got, want)
     targs, pargs = copy.deepcopy(args), copy.deepcopy(args)
     kernel = name.split("[")[0]
     # timed as the step calls it after its first step: inputs checked once
@@ -1311,6 +1389,320 @@ def whatif_phase(dev):
     return recs, launches
 
 
+# ---- phase 8: the search's off-default paths -------------------------------
+
+def round_inputs(state, cfg_kw, dev):
+    """The first score-only round's scores at ``state``, made by the
+    search's own first half of a round (``cuda_optimizer._round_scores``:
+    a full repool, then K2/K1 + K6 or K14) on the model and constants the
+    search uploads, in the grid and the columnar form → the round's inputs
+    and ``forms``: {form: (scores, layout, pools)}."""
+    from cruise_control_tpu_torch.analyzer import cuda_optimizer as C
+    from cruise_control_tpu_torch.analyzer.context import AnalyzerContext
+    from cruise_control_tpu_torch.ops.grid import grid_consts, terms_consts
+
+    opt = C.CudaGoalOptimizer(config=C.CudaSearchConfig(**cfg_kw), device=dev)
+    ctx = AnalyzerContext(state)
+    m = opt._device_model(ctx)
+    ca = opt._constraint_arrays(ctx)
+    cfg = opt.config
+    K, D = opt._pool_sizes(ctx.num_partitions, ctx.max_rf, ctx.num_brokers)
+    consts, tconsts = grid_consts(cfg, ca, dev), terms_consts(cfg, ca, dev)
+    forms = {f: C._round_scores(m, dataclasses.replace(cfg, scoring=f), ca,
+                                K, D, consts, tconsts)
+             for f in ("grid", "columnar")}
+    torch.cuda.synchronize()
+    return dict(m=m, cfg=cfg, ca=ca, K=K, D=D, consts=consts,
+                tconsts=tconsts, forms=forms)
+
+
+#: ~f32 operations of one fused broker cost (csrc/broker_cost.cuh: about
+#: 13 a resource, then the count, leadership and network terms)
+BROKER_COST_OPS = 85
+
+
+def score_columnar_ops(scores, K, D, B, S, NR, has_cap):
+    """The least f32 operations of K14's function on this run's data.  A
+    move cell's source costs depend only on its pool row and its
+    destination's old cost only on the broker, so each is counted once (a
+    row's new source cost, every broker's old cost); every move cell needs
+    its feasibility (the capacity test, 2·NR, the rack and duplicate scan,
+    3·S, ~8 flags), a feasible one also the destination's new cost and the
+    delta's sums; a leadership transfer needs ~12 operations of
+    feasibility, a feasible one its two new costs and ~30 more."""
+    n_mv = K * D
+    feas_mv = int(torch.isfinite(scores[:n_mv]).sum())
+    feas_ld = int(torch.isfinite(scores[n_mv:]).sum())
+    return (n_mv * (2 * NR + 3 * S + 8)
+            + feas_mv * (BROKER_COST_OPS + (NR if has_cap else 0) + 2)
+            + K * (BROKER_COST_OPS + 30) + B * BROKER_COST_OPS
+            + (scores.shape[0] - n_mv) * 12
+            + feas_ld * (2 * BROKER_COST_OPS + 30)), feas_mv, feas_ld
+
+
+def check_round_kernels(label, r, timed, whole=True):
+    """K13's two entry points and K11 on the round's flat key, in each form
+    of ``r["forms"]`` (the columnar one with K14), each against its plain
+    twin bit for bit → {name: record}; with ``whole`` the search's round
+    (``_round``) equals ``round_plain`` bit for bit in both forms.  K13 (a)
+    is timed beside ``torch.neg`` of the columnar scores (its library
+    call; the grid key takes two calls, ``torch.cat`` and ``torch.neg``),
+    K13 (b) beside ``torch.topk`` of the key."""
+    from cruise_control_tpu_torch.analyzer import cuda_optimizer as C
+    from cruise_control_tpu_torch.analyzer import round_kernels as RK
+    from cruise_control_tpu_torch.analyzer import pool_kernels as PK
+
+    m, cfg, ca = r["m"], r["cfg"], r["ca"]
+    K, D = r["K"], r["D"]
+    P, S = m.assignment.shape
+    B, NR = m.capacity.shape
+    W = m.pload.shape[1]
+    has_cap = m.broker_cload is not None
+    one = lambda f: lambda *a, **k: [f(*a, **k)]  # noqa: E731
+    recs = {}
+    if "columnar" in r["forms"]:
+        (scores,), _, (kp, ks, dp, _, _) = r["forms"]["columnar"]
+        N = scores.shape[0]
+        ops, feas_mv, feas_ld = score_columnar_ops(scores, K, D, B, S, NR,
+                                                   has_cap)
+        # K14: each input once — the pools, every partition's row (slots,
+        # origins, must-move flags, leader slot, load row), the broker
+        # tables, the constants — and N scores out
+        recs["score_columnar"] = record_kernel(
+            label, "score_columnar", one(RK.score_columnar),
+            lambda *a: [RK.score_columnar_plain(*a[:6])],
+            (m, cfg, ca, kp, ks, dp, r["consts"], r["tconsts"]), {},
+            {"percentile_cload": has_cap, "K": K, "D": D, "P": P, "S": S,
+             "N": N, "feasible_moves": feas_mv,
+             "feasible_transfers": feas_ld},
+            K * 8 + D * 4 + P * (9 * S + 4 + 4 * W)
+            + B * (4 * (NR * (3 if has_cap else 2) + 4) + 6) + 4 * 28
+            + N * 4, ops,
+            plain_kw={}, timed=timed, exact=True)
+    for form, (key_args, layout, pools) in r["forms"].items():
+        sfx = "" if form == "grid" else "[columnar]"
+        kp, ks, dp = pools[:3]
+        key = RK.round_keys(*key_args)
+        N = key.shape[0]
+        k = min(cfg.topk_per_round, N)
+        rec = record_kernel(
+            label, f"round_pack[keys]{sfx}", one(RK.round_keys),
+            one(RK.round_keys_plain), key_args, {},
+            {"percentile_cload": has_cap, "N": N},
+            # the scores read once, the key written once; a negation each
+            N * 8, N, timed=timed, tag="round_keys_kernel", exact=True)
+        if form == "columnar":
+            rec["library_ms"] = cuda_ms(lambda: torch.neg(key_args[0]))
+        else:
+            vals, ls = key_args
+            rec["library_two_calls_ms"] = cuda_ms(
+                lambda: torch.neg(torch.cat((vals.reshape(-1), ls))))
+        rec["library_note"] = ("torch.neg of the columnar scores "
+                               "(library_ms); the grid key is torch.cat then "
+                               "torch.neg, two calls (library_two_calls_ms)")
+        emit({"phase": "kernel_library", "case": label,
+              "name": f"round_pack[keys]{sfx}",
+              **{k2: rec[k2] for k2 in ("library_ms", "library_two_calls_ms",
+                                        "library_note") if k2 in rec}})
+        recs[f"round_pack[keys]{sfx}"] = rec
+        sel = torch.empty(k, dtype=torch.int32, device=key.device)
+        recs.update(check_top_select(label, f"top_select[round]{sfx}",
+                                     (key, sel), {}, timed, has_cap))
+        PK.top_select(key, sel)
+        rec = record_kernel(
+            label, f"round_pack{sfx}", one(RK.round_pack),
+            one(RK.round_pack_plain), (key, sel, kp, ks, dp), layout,
+            {"percentile_cload": has_cap, "N": N, "k": k},
+            # the k selected indices and their keys, ~4 ids each (pool
+            # row, slot, destination, leadership entry) read once; the
+            # packed [5, k] out; ~10 operations each
+            k * (4 + 4 + 16) + 5 * k * 4, 10 * k, timed=timed,
+            tag="round_pack_kernel", exact=True)
+        rec["library_ms"] = cuda_ms(lambda: torch.topk(key, k))
+        emit({"phase": "kernel_library", "case": label,
+              "name": f"round_pack{sfx}", "library_ms": rec["library_ms"]})
+        recs[f"round_pack{sfx}"] = rec
+    if whole:
+        for scoring in ("grid", "columnar"):
+            c = dataclasses.replace(cfg, scoring=scoring)
+            got = C._round(m, c, ca, K, D, r["consts"], r["tconsts"])
+            torch.cuda.synchronize()
+            bitwise(f"{label} round ({scoring})", got,
+                    RK.round_plain(m, c, ca, K, D, scoring))
+        emit({"phase": "round_whole", "case": label,
+              "equal_to_round_plain": ["grid", "columnar"]})
+    return recs
+
+
+def check_corrected(label, state, cfg_kw, dev, timed):
+    """K15 against ``_corrected_accept`` on the compacted rows of the
+    first step of a corrected-cohort search, bit for bit → the record."""
+    from cruise_control_tpu_torch.analyzer import corrected_kernel as K15
+
+    calls, has_cap = first_step_calls(
+        state, {"cohort_mode": "corrected", **cfg_kw}, dev)
+    args, kw = calls["corrected_accept"]
+    m, cfg = args[0], args[1]
+    Cn, NB = args[7].shape
+    S = m.assignment.shape[1]
+    NR = m.capacity.shape[1]
+    qual = args[8]
+    log_c = max(Cn - 1, 1).bit_length()
+    name = "corrected_accept" + ("" if cfg.cohort_stack_tol >= 1.0
+                                 else "[stack_tol]")
+    rec = record_kernel(
+        label, name, lambda *a, **k: [K15.corrected_accept(*a, **k)],
+        lambda *a, **k: [K15._corrected_accept(*a, **k)], args, kw,
+        {"percentile_cload": has_cap, "C": Cn, "NB": NB,
+         "qualified": int(qual.sum()),
+         "stack_tol": cfg.cohort_stack_tol},
+        # each input once: a row's ids, move vector, flags and snapshot
+        # score, its partition's slots and must-move flags and their
+        # racks, its two brokers' tables; the accept flags out
+        Cn * (4 * NB + 25 + S * 9 + 2 * (4 * (NR * (3 if has_cap else 2)
+                                              + 4) + 4)) + Cn,
+        # two sorts of C keys, two scans of C·NB, four broker costs (~85
+        # operations each) and ~60 more a row
+        2 * Cn * log_c * (log_c + 1) // 2 + 2 * 4 * Cn * NB + Cn * 400,
+        plain_kw={"snap_score": kw["snap_score"]}, timed=timed,
+        exact=True)
+    return {name: rec}
+
+
+def north_star_round(dev, seed=13):
+    """K14's and K11's inputs at the north star's shapes: a seeded
+    10 000-broker, 100-rack, 1 000 000-partition cluster's first round at
+    the engine's widths, K·D + P·S = 8 192·1 024 + 3 000 000 candidates."""
+    from cruise_control_tpu_torch.models.generators import random_cluster
+
+    state = random_cluster(seed=seed, num_brokers=10_000, num_racks=100,
+                           num_partitions=1_000_000)
+    return round_inputs(state, {}, dev)
+
+
+def search_path_plan(label, path, opt, state, bar):
+    """One off-default path's plan, twice (the first captures what it
+    captures); every kernel counter is zeroed just before the second and
+    read just after → the emitted record.  Both runs must give identical
+    actions, verify and score within ``bar``; every kernel of ``path``
+    must have launched, and K13's two entry points equally often."""
+    from cruise_control_tpu_torch.analyzer import round_kernels as RK
+    from cruise_control_tpu_torch.analyzer.goal_optimizer import make_goals
+    from cruise_control_tpu_torch.analyzer.verifier import (
+        verify_result,
+        violation_score,
+    )
+
+    goals = make_goals()
+    r0, s0 = run_plan(opt, state)
+    for fn in list(counters().values()) + [RK.round_keys]:
+        fn.launches = 0
+    r, s = run_plan(opt, state)
+    launches = {n: fn.launches for n, fn in counters().items()}
+    verify_result(state, r, goals)
+    score = violation_score(r.final_state, goals)
+    rec = {"phase": f"path_{label}", "path": path, "wallclock_s": s,
+           "wallclock_s_first": s0, "violation_score": score,
+           "score_bar": bar, "actions": len(r.actions),
+           "identical_reruns": actions_of(r0) == actions_of(r),
+           "passes": [{k: v for k, v in p.items()
+                       if k in ("goal", "rounds", "steps", "accepted",
+                                "timing_s")} for p in r.goal_summaries],
+           "launches": {n: launches[n] for n in PATHS[path]},
+           "round_keys_launches": RK.round_keys.launches}
+    emit(rec)
+    if not rec["identical_reruns"]:
+        raise AssertionError(f"{label}: two plans differ")
+    if score > bar:
+        raise AssertionError(f"{label}: score {score} > {bar}")
+    for name in PATHS[path]:
+        if launches[name] <= 0:
+            raise AssertionError(f"{label} never launched {name}")
+    if RK.round_keys.launches != launches["round_pack"]:
+        raise AssertionError(f"{label}: K13's entry points launched "
+                             f"{RK.round_keys.launches} and "
+                             f"{launches['round_pack']} times")
+    return rec, launches
+
+
+def search_paths_phase(dev, mid, small, g_small, main_launches):
+    """Phase 8 → (the kernel records by name, each path's launches)."""
+    from cruise_control_tpu_torch.analyzer.cuda_optimizer import (
+        CudaGoalOptimizer,
+        CudaSearchConfig,
+    )
+    from cruise_control_tpu_torch.models.generators import random_cluster
+
+    # the default plan (phase 6) ran none of this slice's kernels
+    for name in OFF_DEFAULT:
+        if main_launches[name] != 0:
+            raise AssertionError(f"the default plan launched {name}")
+    recs = {}
+    r = round_inputs(mid, {}, dev)
+    recs.update(check_round_kernels("midscale", r, True))
+    L = r["forms"]["grid"][2][3].shape[0]
+    if (r["K"], r["D"], L) != MIDSCALE_ROUND:
+        raise AssertionError(f"midscale round at K={r['K']}, D={r['D']}, "
+                             f"not {MIDSCALE_ROUND}")
+    del r
+    rp = round_inputs(with_percentile(mid), {}, dev)
+    recs.update({f"{n}@percentile": v for n, v in check_round_kernels(
+        "midscale_percentile", rp, False, whole=False).items()})
+    del rp
+    ragged = random_cluster(seed=5, num_brokers=77, num_racks=7,
+                            num_partitions=3001, dead_brokers=3)
+    rr = round_inputs(ragged, {"max_source_replicas": 1999}, dev)
+    recs.update({f"{n}@ragged": v for n, v in check_round_kernels(
+        "ragged", rr, False).items()})
+    del rr
+    ns = north_star_round(dev)
+    recs.update({f"{n}@north_star": v for n, v in check_round_kernels(
+        "north_star", ns, False, whole=False).items()})
+    del ns
+    torch.cuda.empty_cache()
+    for lbl, state, kw in (
+            ("midscale", mid, {}),
+            ("midscale", mid, {"cohort_stack_tol": 0.25}),
+            ("midscale_percentile", with_percentile(mid), {}),
+            ("ragged", ragged, {"max_source_replicas": 1999,
+                                "cohort_stack_tol": 0.25})):
+        out = check_corrected(lbl, state, kw, dev,
+                              timed=lbl == "midscale" and not kw)
+        recs.update({(n if lbl == "midscale" else f"{n}@{lbl}"): v
+                     for n, v in out.items()})
+
+    # one score-only round at full width, in both forms, then the full
+    # score-only plan there (grid form)
+    one_round = {}
+    for scoring in ("grid", "columnar"):
+        opt = CudaGoalOptimizer(config=CudaSearchConfig(
+            steps_per_call=0, max_rounds=1, scoring=scoring))
+        run_plan(opt, mid)
+        res, s = run_plan(opt, mid)
+        one_round[scoring] = {"wallclock_s": s, "actions": len(res.actions),
+                              "timing_s": res.goal_summaries[0]["timing_s"]}
+    emit({"phase": "score_only_round_1000b_20k", **one_round})
+
+    launches = {}
+    for label, path, cfg, state, bar in (
+            ("score_only_grid_50b_1k", "score_only_grid",
+             dict(steps_per_call=0), small, g_small),
+            ("score_only_columnar_50b_1k", "score_only_columnar",
+             dict(scoring="columnar"), small, g_small),
+            ("score_only_grid_1000b_20k", "score_only_grid",
+             dict(steps_per_call=0), mid, MIDSCALE_SCORE_BAR),
+            ("polish_1000b_20k", "polish", dict(polish_rounds=4), mid,
+             MIDSCALE_SCORE_BAR),
+            ("corrected_1000b_20k", "corrected",
+             dict(cohort_mode="corrected"), mid, MIDSCALE_SCORE_BAR)):
+        opt = CudaGoalOptimizer(config=CudaSearchConfig(**cfg))
+        _, counts = search_path_plan(label, path, opt, state, bar)
+        launches.setdefault(path, counts)
+    if launches["corrected"]["budget_accept"] != 0:
+        raise AssertionError("the corrected cohort's plan launched K4")
+    return recs, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this "
@@ -1477,11 +1869,20 @@ def main() -> int:
     for name in PATHS["whatif"]:
         launches[name] = acting[name] = whatif_launches[name]
 
+    # ---- the search's off-default paths -------------------------------------
+    path_recs, path_launches = search_paths_phase(dev, mid, small, g_score,
+                                                  launches)
+    for name in OFF_DEFAULT:
+        launches[name] = acting[name] = \
+            path_launches[LAUNCH_PATH[name]][name]
+
     # the kernels line: main-path shapes (mid-scale); errors over every case
     cases = [steps[c] for c in steps] + [
-        {"whatif_verdict": r} for r in whatif_recs.values()]
+        {"whatif_verdict": r} for r in whatif_recs.values()] + [
+        {re.split(r"[\[@]", n)[0]: r} for n, r in path_recs.items()]
     main_rec = {"grid_top_r": k1, **steps["midscale"],
-                "whatif_verdict": whatif_recs["midscale_x64"]}
+                "whatif_verdict": whatif_recs["midscale_x64"],
+                **{n: path_recs[n] for n in OFF_DEFAULT}}
     # every case of a kernel, its variants ("name[...]") included
     errs = {n: max([r[c]["max_abs_err"] for r in cases for c in r
                     if c == n or c.startswith(n + "[")]

@@ -29,6 +29,16 @@ path.  The search keeps the model on the card and runs, per step,
   (:class:`_HostEvaluator`, a verbatim copy of the reference's numpy
   evaluator); a rejection resyncs the device model from the host context.
 
+Off the default path, as the reference: ``cohort_mode="corrected"`` runs
+the exact-conservative stacked cohort (K15,
+:mod:`analyzer.corrected_kernel`) in the step in place of K4;
+``steps_per_call=0`` or ``scoring="columnar"`` make the **score-only
+rounds** the search — each round a full repool, every candidate scored,
+the ``topk_per_round`` best fetched in one packed read and rechecked on
+the host one by one (:func:`_round`, kernels K13 / K14 in
+:mod:`analyzer.round_kernels`) — and ``polish_rounds`` runs that loop
+after the resident search.
+
 The reference's ``lax.while_loop`` becomes chunks of masked steps: the
 loop's carry (done flag, step, commit count, repool bookkeeping) lives in
 a small device vector (:mod:`analyzer.step_state`) that K8 advances and
@@ -81,10 +91,21 @@ from cruise_control_tpu_torch.analyzer.commit_kernels import (  # noqa: F401
 )
 from cruise_control_tpu_torch.analyzer import step_state as SS
 from cruise_control_tpu_torch.analyzer.compact_kernel import compact_rows
+from cruise_control_tpu_torch.analyzer.corrected_kernel import (  # noqa: F401
+    _corrected_accept,
+    corrected_accept,
+)
 from cruise_control_tpu_torch.analyzer.pool_kernels import (
     PoolBuffers,
     pool_tables,
     top_select,
+)
+from cruise_control_tpu_torch.analyzer.round_kernels import (
+    DESTS_PER_SOURCE,
+    round_keys,
+    round_pack,
+    score_columnar,
+    unpack_round_result,
 )
 from cruise_control_tpu_torch.analyzer.score_kernel import (  # noqa: F401
     KIND_LEADERSHIP,
@@ -146,8 +167,9 @@ class CudaSearchConfig:
     w_leader_nwin: float = 0.5
     w_pot_nwout: float = 1.0
     w_move_size: float = 1e-3
-    #: "auto" = "grid" (the move grid through kernel K1); "columnar" is the
-    #: score-only round path, not ported yet
+    #: "auto" = "grid": the move grid through kernels K2 + K1; "columnar"
+    #: scores the flattened K×D grid and every leadership transfer (K14),
+    #: which only the score-only rounds run
     scoring: str = "auto"
     steps_per_call: int = 512
     repool_steps: int = 128
@@ -186,23 +208,14 @@ class CudaSearchConfig:
 def _check_config(cfg: CudaSearchConfig) -> None:
     """Reject knobs whose code paths this port does not run yet, naming
     the ROADMAP.md item that brings each."""
-    if cfg.scoring not in ("auto", "grid", "columnar"):
-        raise ValueError(f"unknown scoring {cfg.scoring!r} (auto/grid/columnar)")
+    _resolve_scoring(cfg)
     if cfg.cohort_mode not in ("budget", "corrected"):
         raise ValueError(f"unknown cohort_mode {cfg.cohort_mode!r}")
     if cfg.topk_mode not in ("approx", "exact"):
         raise ValueError(f"unknown topk_mode {cfg.topk_mode!r}")
     todo = [
         (cfg.incremental_rescore, "incremental_rescore=True",
-         "A4 (incremental rescore)"),
-        (cfg.cohort_mode == "corrected", "cohort_mode='corrected'",
-         "A4 (corrected cohort)"),
-        (cfg.polish_rounds > 0, "polish_rounds>0",
-         "A4 (score-only rounds / polish)"),
-        (cfg.steps_per_call == 0, "steps_per_call=0",
-         "A4 (score-only rounds / polish)"),
-        (cfg.scoring == "columnar", "scoring='columnar'",
-         "A4 (score-only rounds / polish)"),
+         "A4 (incremental rescore, B15)"),
         (cfg.time_budget_s > 0, "time_budget_s>0", "A4 (time budget)"),
         (bool(cfg.profiler_trace_dir), "profiler_trace_dir",
          "A10 (device telemetry)"),
@@ -211,6 +224,14 @@ def _check_config(cfg: CudaSearchConfig) -> None:
         if bad:
             raise NotImplementedError(
                 f"{knob} is not ported yet (ROADMAP.md {item})")
+
+
+def _resolve_scoring(cfg: CudaSearchConfig) -> str:
+    """The round's scoring form: "auto" is "grid"."""
+    if cfg.scoring not in ("auto", "grid", "columnar"):
+        raise ValueError(
+            f"unknown scoring {cfg.scoring!r} (auto/grid/columnar)")
+    return "grid" if cfg.scoring == "auto" else cfg.scoring
 
 
 # ---------------------------------------------------------------------------------
@@ -254,11 +275,6 @@ def _leadership_pool_size(P: int, S: int, K: int) -> int:
     """Static leadership-pool size: full grid for small models, pruned to
     the move-pool scale for large ones."""
     return min(P * S, max(K, 4096))
-
-
-#: alternate destinations kept per source row (fallbacks tried by the
-#: batch matcher when a better-scored source takes the same destination)
-DESTS_PER_SOURCE = 8
 
 
 def _repool(m: DeviceModel, ca, pb: PoolBuffers, state, rows_budget: int,
@@ -330,10 +346,11 @@ def _cold_tables(m: DeviceModel):
             torch.zeros(P, dtype=torch.bool, device=dev), False)
 
 
-#: the kernel wrappers a step launches (their ``.launches`` count replays)
+#: the kernel wrappers a step launches (their ``.launches`` count replays);
+#: a step runs K4 or, with ``cohort_mode="corrected"``, K15
 STEP_KERNELS = (pool_tables, top_select, grid_terms, launch_grid_top_r,
                 score_candidates, per_src_top, compact_rows, budget_accept,
-                match_batch, commit_batch)
+                corrected_accept, match_batch, commit_batch)
 
 
 class _StepLoop:
@@ -447,9 +464,16 @@ def _step(lp: _StepLoop, checked: bool) -> None:
                      pb.dest_pool, pb.kp, pb.ks, sb, lp.C,
                      cfg.improvement_tol, checked=checked)
 
-    # ---- cohort: water-filling budgets, two rounds of acceptance (K4) ----
-    acc_b, _, _ = budget_accept(m, ca, c.d0, c.cand_src, c.move_vec, c.qual,
-                                cfg.cohort_budget_slack)
+    # ---- cohort: water-filling budgets, two rounds of acceptance (K4), or
+    # the exact-conservative stacked cohort (K15); static per loop
+    if cfg.cohort_mode == "corrected":
+        acc_b = corrected_accept(
+            m, cfg, ca, c.cand_p, c.cand_s, c.cand_src, c.d0, c.move_vec,
+            c.qual, cfg.improvement_tol, snap_score=c.cand_score[:, 0],
+            consts=lp.consts, tconsts=lp.tconsts, checked=checked)
+    else:
+        acc_b, _, _ = budget_accept(m, ca, c.d0, c.cand_src, c.move_vec,
+                                    c.qual, cfg.cohort_budget_slack)
 
     # ---- auction for the rest, disjoint from the cohort (K5) ------------
     take_d, win_score_d, win_dst_d = match_batch(
@@ -548,6 +572,64 @@ def _resync_device_model(m: DeviceModel, ctx: AnalyzerContext) -> DeviceModel:
         must_move=torch.tensor(ctx.replica_offline, device=dev),
     )
     return recompute_aggregates(m)
+
+
+# ---------------------------------------------------------------------------------
+# The score-only round
+# ---------------------------------------------------------------------------------
+
+def _round_scores(m: DeviceModel, cfg: CudaSearchConfig, ca, K: int, D: int,
+                  consts=None, tconsts=None):
+    """The first half of a score-only round: the scores it selects from →
+    ``(scores, layout, pools)``.
+
+    A full repool (K10 + K11: the reference rebuilds the pools from
+    scratch every round) gives ``pools`` = (kp, ks, dest_pool, lp, lsl).
+    The grid form scores each pool row's top-R raw grid scores (K2 + K1)
+    and the leadership pool (K6): ``scores`` = ([K, R], [L]), K·R + L
+    flat; the columnar form scores the K·D + P·S flat candidates (K14):
+    ``scores`` = ([N],).  ``layout`` is what K13 (b) decodes the selected
+    indices with (:func:`_round_pick`)."""
+    S = m.assignment.shape[1]
+    dev = m.assignment.device
+    pools = _build_pools(m, cfg, ca, K, D)
+    kp, ks, dest_pool, lp, lsl = pools
+    if _resolve_scoring(cfg) == "columnar":
+        return ((score_columnar(m, cfg, ca, kp, ks, dest_pool, consts,
+                                tconsts),), {"S": S}, pools)
+    R = min(DESTS_PER_SOURCE, D)
+    _, vals, best_i = grid_rescore(m, cfg, ca, kp, ks, dest_pool, R, consts,
+                                   tconsts)
+    L = lp.shape[0]
+    ls, _ = score_candidates(
+        m, cfg, ca,
+        torch.full((L,), KIND_LEADERSHIP, dtype=torch.int32, device=dev),
+        lp, lsl, torch.zeros(L, dtype=torch.int32, device=dev), consts,
+        tconsts)
+    return (vals, ls), {"best_i": best_i, "lp": lp, "lsl": lsl}, pools
+
+
+def _round_pick(scores, layout, pools, topk: int) -> torch.Tensor:
+    """The second half of a score-only round: K13 (a) negates ``scores``
+    into the flat key, K11 keeps its ``min(topk, N)`` largest
+    (``top_k``'s order) and K13 (b) decodes and packs them → f32 [5, k]."""
+    key = round_keys(*scores)
+    sel = torch.empty(min(topk, key.shape[0]), dtype=torch.int32,
+                      device=key.device)
+    top_select(key, sel)
+    kp, ks, dest_pool = pools[:3]
+    return round_pack(key, sel, kp, ks, dest_pool, **layout)
+
+
+def _round(m: DeviceModel, cfg: CudaSearchConfig, ca, K: int, D: int,
+           consts=None, tconsts=None) -> torch.Tensor:
+    """One score-only round → the packed f32 [5, k] (score, kind, p, s, d)
+    of the ``k = min(topk_per_round, N)`` best candidates — the
+    reference's ``_cached_round_fn(cfg, K, D, None)(m, ca)`` (plain twin:
+    :func:`analyzer.round_kernels.round_plain`): :func:`_round_scores`
+    then :func:`_round_pick`.  No host read."""
+    return _round_pick(*_round_scores(m, cfg, ca, K, D, consts, tconsts),
+                       cfg.topk_per_round)
 
 
 # ---------------------------------------------------------------------------------
@@ -1165,14 +1247,84 @@ class CudaGoalOptimizer:
         m = self._device_model(ctx)
         can = self._constraint_arrays_np(ctx)
         ca = {k: torch.as_tensor(v, device=self.device) for k, v in can.items()}
-        consts = grid_consts(cfg, ca, self.device)
         P, S, B = ctx.num_partitions, ctx.max_rf, ctx.num_brokers
         K, D = self._pool_sizes(P, S, B)
         evaluator = _HostEvaluator(ctx, cfg, can)
-        evaluator.goal_tag = "CudaSearch"
         actions: List[BalancingAction] = []
         pass_summaries: List[dict] = []
+        upload_s = time.perf_counter() - t_up
 
+        if cfg.steps_per_call and _resolve_scoring(cfg) != "columnar":
+            # the device-resident search, then (``polish_rounds``) the
+            # score-only rounds as polish on a model resynced from the host
+            m = self._resident_search(ctx, m, cfg, ca, K, D, evaluator,
+                                      actions, pass_summaries, upload_s)
+            rounds_budget = cfg.polish_rounds
+            timing = {"score": 0.0, "fetch": 0.0, "recheck": 0.0,
+                      "resync": 0.0}
+            if rounds_budget:
+                t_rs = time.perf_counter()
+                m = _resync_device_model(m, ctx)
+                timing["resync"] += time.perf_counter() - t_rs
+        else:
+            # score-only configs (steps_per_call=0, scoring="columnar"):
+            # the rounds are the search
+            rounds_budget = cfg.max_rounds
+            timing = {"upload": upload_s, "score": 0.0, "fetch": 0.0,
+                      "recheck": 0.0, "resync": 0.0}
+        if rounds_budget:
+            evaluator.goal_tag = ("CudaPolish" if pass_summaries
+                                  else "CudaSearch")
+            self._score_rounds(ctx, m, cfg, ca, K, D, evaluator, actions,
+                               pass_summaries, rounds_budget, timing)
+
+        # Host swap-repair pass: when hard violations survive the search,
+        # replay the greedy hard goals host-side (their optimize() carries
+        # the swap fallback the device vocabulary lacks).
+        if any(g.is_hard and g.violations(ctx) > 0 for g in goals):
+            n_before = len(ctx.actions)
+            repaired: List = []
+            for g in goals:
+                if not g.is_hard:
+                    continue
+                ctx.current_goal = g.name
+                ctx.current_round = len(pass_summaries) + len(repaired)
+                try:
+                    g.optimize(ctx, repaired)
+                except Exception as e:  # leave the verdict to _finalize
+                    LOG.warning("host swap-repair: %s: %s", g.name, e)
+                repaired.append(g)
+            ctx.current_goal, ctx.current_round = "", -1
+            new_actions = ctx.actions[n_before:]
+            actions.extend(new_actions)
+            from cruise_control_tpu_torch.analyzer.goal_optimizer import (
+                goal_pass_summaries,
+            )
+
+            offset = len(pass_summaries)
+            for ent in goal_pass_summaries(repaired, ctx):
+                ent["pass"] += offset
+                pass_summaries.append(ent)
+            LOG.info(
+                "host swap-repair pass committed %d actions for residual "
+                "hard violations", len(new_actions),
+            )
+        return self._finalize(
+            state, ctx, goals, actions, violations_before, stats_before,
+            initial_assignment, initial_leader_slot, initial_replica_disk,
+            t0, pass_summaries,
+        )
+
+    def _resident_search(self, ctx, m, cfg, ca, K: int, D: int, evaluator,
+                         actions, pass_summaries, upload_s: float):
+        """The device-resident search: scan calls of up to
+        ``steps_per_call`` steps on the card, each call's committed actions
+        replayed through the exact host recheck; a rejection resyncs the
+        device model from the host context.  Appends its pass summary and
+        returns the device model it ended with."""
+        P, S, B = ctx.num_partitions, ctx.max_rf, ctx.num_brokers
+        consts = grid_consts(cfg, ca, self.device)
+        evaluator.goal_tag = "CudaSearch"
         cfg = _resolve_batch(cfg, B)
         T = cfg.steps_per_call
         # the bound preserves the score-only path's total action budget
@@ -1195,8 +1347,8 @@ class CudaGoalOptimizer:
         # host wall-clock by phase: upload (model + aggregates), device
         # (the step loop, whose carry read a chunk waits for the card),
         # fetch (the packed prefix), recheck (exact f64 replay), resync
-        timing = {"upload": time.perf_counter() - t_up, "device": 0.0,
-                  "fetch": 0.0, "recheck": 0.0, "resync": 0.0}
+        timing = {"upload": upload_s, "device": 0.0, "fetch": 0.0,
+                  "recheck": 0.0, "resync": 0.0}
         while n_calls < calls_budget:
             t_call = time.perf_counter()
             res, m_new, tab_new = _scan_call(m, cfg, ca, consts, K, D, T, tab,
@@ -1254,7 +1406,7 @@ class CudaGoalOptimizer:
             n_rejected,
         )
         pass_summaries.append({
-            "goal": "CudaSearch", "pass": 0,
+            "goal": "CudaSearch", "pass": len(pass_summaries),
             "accepted": int(n_committed),
             "rejected": (
                 {"no-improvement": int(n_rejected)} if n_rejected else {}
@@ -1266,43 +1418,76 @@ class CudaGoalOptimizer:
             # fetches), captured-chunk replays and repools run
             **device_loop,
         })
+        return m
 
-        # Host swap-repair pass: when hard violations survive the search,
-        # replay the greedy hard goals host-side (their optimize() carries
-        # the swap fallback the device vocabulary lacks).
-        if any(g.is_hard and g.violations(ctx) > 0 for g in goals):
-            n_before = len(ctx.actions)
-            repaired: List = []
-            for g in goals:
-                if not g.is_hard:
+    def _score_rounds(self, ctx, m, cfg, ca, K: int, D: int, evaluator,
+                      actions, pass_summaries, rounds_budget: int,
+                      timing) -> None:
+        """The score-only loop (the reference's :3694-3753), at most
+        ``rounds_budget`` rounds: each round (:func:`_round`) proposes its
+        top-k against a snapshot of the aggregates, fetched in one read;
+        the host walks them best first (a stable argsort), rechecks each
+        against the live aggregates in f64 (:meth:`_HostEvaluator
+        .evaluate`) and applies every one that still improves, up to
+        ``max_moves_per_round``; then the device model is resynced from
+        the host (K9).  A round that applies nothing ends the loop.
+        ``timing`` (host seconds by phase: score — the round's kernels and
+        the wait for them —, fetch, recheck, resync) is added to and goes
+        into the pass summary, tagged ``evaluator.goal_tag``."""
+        dev = self.device
+        consts = grid_consts(cfg, ca, dev)
+        tconsts = terms_consts(cfg, ca, dev)
+        accepted = rejected = rounds = 0
+        for round_idx in range(rounds_budget):
+            evaluator.round_index = round_idx
+            rounds += 1
+            t_sc = time.perf_counter()
+            packed = _round(m, cfg, ca, K, D, consts, tconsts)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            t_f = time.perf_counter()
+            scores, k_top, p_top, s_top, d_top = unpack_round_result(
+                packed.cpu().numpy())
+            t_re = time.perf_counter()
+            timing["score"] += t_f - t_sc
+            timing["fetch"] += t_re - t_f
+            # exact-recheck commit: hundreds of dependent actions a round,
+            # each checked against the live aggregates, never stale
+            batch = 0
+            for i in np.argsort(scores, kind="stable"):
+                if (scores[i] >= cfg.improvement_tol
+                        or not np.isfinite(scores[i])):
+                    break
+                action, delta = evaluator.evaluate(
+                    int(k_top[i]), int(p_top[i]), int(s_top[i]),
+                    int(d_top[i]))
+                if action is None or delta >= cfg.improvement_tol:
+                    rejected += 1
                     continue
-                ctx.current_goal = g.name
-                ctx.current_round = len(pass_summaries) + len(repaired)
-                try:
-                    g.optimize(ctx, repaired)
-                except Exception as e:  # leave the verdict to _finalize
-                    LOG.warning("host swap-repair: %s: %s", g.name, e)
-                repaired.append(g)
-            ctx.current_goal, ctx.current_round = "", -1
-            new_actions = ctx.actions[n_before:]
-            actions.extend(new_actions)
-            from cruise_control_tpu_torch.analyzer.goal_optimizer import (
-                goal_pass_summaries,
-            )
-
-            offset = len(pass_summaries)
-            for ent in goal_pass_summaries(repaired, ctx):
-                ent["pass"] += offset
-                pass_summaries.append(ent)
-            LOG.info(
-                "host swap-repair pass committed %d actions for residual "
-                "hard violations", len(new_actions),
-            )
-        return self._finalize(
-            state, ctx, goals, actions, violations_before, stats_before,
-            initial_assignment, initial_leader_slot, initial_replica_disk,
-            t0, pass_summaries,
-        )
+                ctx.apply(action)
+                actions.append(action)
+                batch += 1
+                if batch >= cfg.max_moves_per_round:
+                    break
+            timing["recheck"] += time.perf_counter() - t_re
+            accepted += batch
+            if not batch:
+                break
+            t_rs = time.perf_counter()
+            m = _resync_device_model(m, ctx)
+            timing["resync"] += time.perf_counter() - t_rs
+        LOG.info("score-only rounds (%s): %d rounds, %d actions committed, "
+                 "%d rejected", evaluator.goal_tag, rounds, accepted,
+                 rejected)
+        pass_summaries.append({
+            "goal": evaluator.goal_tag, "pass": len(pass_summaries),
+            "accepted": int(accepted),
+            "rejected": (
+                {"no-improvement": int(rejected)} if rejected else {}
+            ),
+            "rounds": int(rounds),
+            "timing_s": timing,
+        })
 
     def _finalize(
         self, state, ctx, goals, actions, violations_before, stats_before,

@@ -66,10 +66,6 @@ def test_config_fields_and_defaults_match_reference():
 
 @pytest.mark.parametrize("knob", [
     {"incremental_rescore": True},
-    {"cohort_mode": "corrected"},
-    {"polish_rounds": 2},
-    {"steps_per_call": 0},
-    {"scoring": "columnar"},
     {"time_budget_s": 1.0},
     {"profiler_trace_dir": "trace"},
 ])

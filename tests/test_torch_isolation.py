@@ -36,11 +36,12 @@ def test_import_pulls_in_no_jax_and_no_reference():
     )
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["bad"] == [], res["bad"]
-    # the probe really walked the package, the repool, step-loop and
-    # what-if modules included
+    # the probe really walked the package, the repool, step-loop,
+    # what-if, score-only round and corrected-cohort modules included
     for mod in ("analyzer.cuda_optimizer", "ops.grid", "analyzer.pool_kernels",
                 "analyzer.step_graph", "analyzer.step_state", "whatif.engine",
-                "whatif.verdict_kernels"):
+                "whatif.verdict_kernels", "analyzer.round_kernels",
+                "analyzer.corrected_kernel"):
         assert f"cruise_control_tpu_torch.{mod}" in res["modules"], mod
 
 
