@@ -55,10 +55,27 @@ Phases, each printing one JSON line; any failure exits non-zero:
    form, 1 000 / 20 000 with ``polish_rounds=4`` after the resident
    search, and 1 000 / 20 000 with ``cohort_mode="corrected"`` — each
    read for its kernels' launches (the default plan of phase 6 must have
-   launched none of K13-K15).
+   launched none of K13-K17, and be the plan PERF.md §5 records:
+   score 1 026, 162 steps, 7 081 actions, 176 launches each of K1 and
+   K6).  Its incremental leg (``incremental_rescore=True``): K16
+   ``stale_sets`` and K17 ``grid_patch`` against their plain versions, bit
+   for bit, on the first patching step's inputs at 1 000 / 20 000, with
+   percentile loads and on the ragged case, with the same times and
+   bounds as phase 3, and K1 / K6 on that step's row lists and in their
+   full carry-writing form; one incremental scan call eager against
+   captured; calls capped at 1, 7 and ``steps_per_call`` on one captured
+   chunk (default and incremental); the incremental 1 000 / 20 000 plan
+   twice (identical, verified, under the bar, with patching steps) beside
+   the default plan's steps and mean step time; and the 1 000 / 20 000
+   plan in calls of 16 steps under a time budget, twice: one that never
+   runs out (every call once the hard goals hold is capped, at most its
+   cap, and the plan is the unbudgeted one's), then one of 2 s in which
+   host time passes after the first capped call until about half a call
+   is left (capped calls at most their caps, fewer steps, the hard goals
+   held).
 
 Every kernel of a path must have launched on that path's run (the plan
-path: K1-K11, the what-if path: K12, the search paths: theirs, K13-K15
+path: K1-K11, the what-if path: K12, the search paths: theirs, K13-K17
 among them).  The last two lines are the ``{"kernels": [...]}`` summary
 and the ``{"ok": true, "device": ...}`` verdict.  Nothing here imports
 JAX.
@@ -82,6 +99,11 @@ import torch
 #: PARITY_GATE_MIDSCALE.json ("greedy": {"violation_score": 1595}); the JAX
 #: engine reached 1 035 there on the CPU backend
 MIDSCALE_SCORE_BAR = 1595
+#: the default plan on that fixture as PERF.md §5 records it (violation
+#: score, steps, actions) and its K1 / K6 launches (11 replays of 16-step
+#: chunks): the off-default paths must leave it as it is
+MIDSCALE_DEFAULT_PLAN = (1026, 162, 7081)
+MIDSCALE_DEFAULT_K1_K6 = 176
 MIDSCALE = dict(seed=12, num_brokers=1000, num_racks=20,
                 num_partitions=20000, mean_utilization=0.35)
 SMALL = dict(num_brokers=50, num_racks=10, num_partitions=1000)
@@ -137,11 +159,18 @@ KERNELS = {
                       "_score_candidates (as :2902 columnar_topk calls it)",
     "corrected_accept": f"{_REF}:2522 _corrected_accept + {_REF}:2503 "
                         "_seg_excl_prefix",
+    "stale_sets": f"{_REF}:1075-1095 stale rows / columns / leadership, "
+                  "overflow and fresh (+ the argsorts :1098, :1130, :1146, "
+                  "since_full :1157)",
+    "grid_patch": f"{_REF}:1096-1127 patch_rescore (a): the [K, CB] grid "
+                  "over the stale columns and the exact lax.top_k R + CB "
+                  "merge",
 }
 #: the what-if path's kernels (phase 7)
 WHATIF_PATH = ("whatif_verdict",)
 #: the kernels only the search's off-default paths run (phase 8)
-OFF_DEFAULT = ("round_pack", "score_columnar", "corrected_accept")
+OFF_DEFAULT = ("round_pack", "score_columnar", "corrected_accept",
+               "stale_sets", "grid_patch")
 _PLAN = tuple(n for n in KERNELS if n not in WHATIF_PATH + OFF_DEFAULT)
 #: each path the script drives → the kernels its run must launch
 PATHS = {"plan": _PLAN,
@@ -156,11 +185,13 @@ PATHS = {"plan": _PLAN,
                                  "recompute_aggregates"),
          "polish": _PLAN + ("round_pack",),
          "corrected": tuple(n for n in _PLAN if n != "budget_accept")
-         + ("corrected_accept",)}
+         + ("corrected_accept",),
+         "incremental": _PLAN + ("stale_sets", "grid_patch")}
 #: the path whose run gives each off-default kernel's launches in the
 #: kernels line
 LAUNCH_PATH = {"round_pack": "polish", "score_columnar":
-               "score_only_columnar", "corrected_accept": "corrected"}
+               "score_only_columnar", "corrected_accept": "corrected",
+               "stale_sets": "incremental", "grid_patch": "incremental"}
 #: the what-if sweep's size: the artifact's floor, and the futures cap
 #: (``whatif.max.futures``)
 WHATIF_FUTURES = 64
@@ -202,6 +233,11 @@ LIBRARY_NOTES = {
                       "flat K·D + P·S candidates: no single PyTorch call",
     "corrected_accept": "two segmented prefix sums and four fused costs a "
                         "row: no single PyTorch call",
+    "stale_sets": "three gathered masks, their counts, a decision and "
+                  "three stable compactions: no single PyTorch call",
+    "grid_patch": "a masked grid score over gathered columns and an exact "
+                  "top-R merge in the floats' total order: no single "
+                  "PyTorch call",
 }
 
 
@@ -361,6 +397,7 @@ def counters():
 
     from cruise_control_tpu_torch.analyzer import corrected_kernel as K15
     from cruise_control_tpu_torch.analyzer import pool_kernels as PK
+    from cruise_control_tpu_torch.analyzer import rescore_kernels as K1617
     from cruise_control_tpu_torch.analyzer import round_kernels as RK
     from cruise_control_tpu_torch.whatif import verdict_kernels as VK
 
@@ -378,7 +415,9 @@ def counters():
             "whatif_verdict": VK.whatif_verdict,
             "round_pack": RK.round_pack,
             "score_columnar": RK.score_columnar,
-            "corrected_accept": K15.corrected_accept}
+            "corrected_accept": K15.corrected_accept,
+            "stale_sets": K1617.stale_sets,
+            "grid_patch": K1617.grid_patch}
 
 
 def with_percentile(state, seed: int = 3):
@@ -1023,11 +1062,12 @@ def repool_census(state, dev):
     return rec
 
 
-def compare_scan_paths(state, dev):
+def compare_scan_paths(state, dev, cfg_kw=None, phase="scan_paths"):
     """One scan call at ``state``'s first step, stepped eagerly (masked
     steps, chunk by chunk) and through captured chunks — a fresh capture,
     then a replay-only call on the same loop: identical ScanResults, host
-    reads within ceil(steps / chunk) + 1 → the emitted record."""
+    reads within ceil(steps / chunk) + 1 → the emitted record.  ``cfg_kw``
+    configures the search (the default path when None)."""
     import math
 
     import numpy as np
@@ -1036,7 +1076,8 @@ def compare_scan_paths(state, dev):
     from cruise_control_tpu_torch.analyzer.context import AnalyzerContext
     from cruise_control_tpu_torch.ops.grid import grid_consts
 
-    opt = C.CudaGoalOptimizer(device=dev)
+    opt = C.CudaGoalOptimizer(config=C.CudaSearchConfig(**(cfg_kw or {})),
+                              device=dev)
     ctx = AnalyzerContext(state)
     m = opt._device_model(ctx)
     ca = opt._constraint_arrays(ctx)
@@ -1062,12 +1103,15 @@ def compare_scan_paths(state, dev):
             if not np.array_equal(getattr(res, f), getattr(ref, f)):
                 raise AssertionError(f"{name} scan call: {f} differs from "
                                      "the eager masked steps")
-        for f in ("steps_run", "n_incremental_repool", "repools"):
+        for f in ("steps_run", "n_incremental_repool", "repools",
+                  "n_overflow", "patch_steps"):
             if res.diag[f] != ref.diag[f] or res.done != ref.done:
                 raise AssertionError(f"{name} scan call: {f} differs")
     steps = ref.diag["steps_run"]
     limit = math.ceil(steps / C.STEP_CHUNK) + 1
-    rec = {"phase": "scan_paths", "steps": steps, "actions": len(ref.kind),
+    rec = {"phase": phase, "steps": steps, "actions": len(ref.kind),
+           "n_overflow": ref.diag["n_overflow"],
+           "patch_steps": ref.diag["patch_steps"],
            "done": ref.done, "repools": ref.diag["repools"],
            "incremental_repools": ref.diag["n_incremental_repool"],
            "chunk": C.STEP_CHUNK, "host_sync_limit": limit,
@@ -1607,7 +1651,9 @@ def search_path_plan(label, path, opt, state, bar):
            "identical_reruns": actions_of(r0) == actions_of(r),
            "passes": [{k: v for k, v in p.items()
                        if k in ("goal", "rounds", "steps", "accepted",
-                                "timing_s")} for p in r.goal_summaries],
+                                "timing_s", "n_overflow", "patch_steps",
+                                "capped_calls")}
+                      for p in r.goal_summaries],
            "launches": {n: launches[n] for n in PATHS[path]},
            "round_keys_launches": RK.round_keys.launches}
     emit(rec)
@@ -1625,8 +1671,416 @@ def search_path_plan(label, path, opt, state, bar):
     return rec, launches
 
 
-def search_paths_phase(dev, mid, small, g_small, main_launches):
-    """Phase 8 → (the kernel records by name, each path's launches)."""
+# ---- phase 8, the incremental leg: K16, K17, the gated K1 / K6, the cap ---
+
+def patch_step_calls(state, cfg_kw, dev, steps=16):
+    """The arguments the first step of an incremental search that patches
+    (FRESH = 0) hands K16, K17, the gated K1 (``grid_rescore_carry``), K6
+    and K8 (with the marks) — copies taken at each call — from the
+    engine's own step loop, stepped eagerly → ({name: [(args, kw), ...]},
+    has_cap, step)."""
+    from cruise_control_tpu_torch.analyzer import cuda_optimizer as C
+    from cruise_control_tpu_torch.analyzer import step_state as SS
+    from cruise_control_tpu_torch.analyzer.context import AnalyzerContext
+    from cruise_control_tpu_torch.ops.grid import grid_consts
+
+    opt = C.CudaGoalOptimizer(config=C.CudaSearchConfig(
+        incremental_rescore=True, **cfg_kw), device=dev)
+    ctx = AnalyzerContext(state)
+    m = opt._device_model(ctx)
+    ca = opt._constraint_arrays(ctx)
+    K, D = opt._pool_sizes(ctx.num_partitions, ctx.max_rf, ctx.num_brokers)
+    names = ("stale_sets", "grid_patch", "grid_rescore_carry",
+             "score_candidates", "commit_batch")
+    saved = {n: getattr(C, n) for n in names}
+    rec = {"step": 0, "calls": None, "patch": False, "done": False}
+
+    def shim(n):
+        def f(*a, **k):
+            if rec["done"]:
+                return saved[n](*a, **k)
+            if n == "stale_sets":
+                if rec["patch"]:
+                    rec["done"] = True
+                    return saved[n](*a, **k)
+                rec["calls"] = {}
+                rec["step"] += 1
+            rec["calls"].setdefault(n, []).append(copy.deepcopy((a, k)))
+            out = saved[n](*a, **k)
+            if n == "stale_sets":
+                st = a[7]
+                rec["patch"] = (bool(int(st[SS.ACTIVE]))
+                                and int(st[SS.FRESH]) == 0)
+            return out
+        return f
+
+    try:
+        for n in names:
+            setattr(C, n, shim(n))
+        cfg = C._resolve_batch(opt.config, ctx.num_brokers)
+        C._scan_call(m, cfg, ca, grid_consts(cfg, ca, dev), K, D, steps,
+                     C._cold_tables(m), capture=False)
+    finally:
+        for n in names:
+            setattr(C, n, saved[n])
+    if not rec["patch"]:
+        raise AssertionError(f"no step of the first {steps} patched")
+    return rec["calls"], m.broker_cload is not None, rec["step"]
+
+
+def check_incremental_kernels(label, state, cfg_kw, dev, timed):
+    """K16, K17 and K1 / K6 in their gated, carry-writing forms against
+    their plain twins, bit for bit, on the first patching step's inputs →
+    {name: record}.  The full-rescore forms run on the same step's inputs
+    with the carry's FRESH flag set."""
+    from cruise_control_tpu_torch.analyzer import commit_kernels as K89
+    from cruise_control_tpu_torch.analyzer import rescore_kernels as RK
+    from cruise_control_tpu_torch.analyzer import score_kernel as K6
+    from cruise_control_tpu_torch.analyzer import step_state as SS
+    from cruise_control_tpu_torch.ops import grid as G
+
+    calls, has_cap, step = patch_step_calls(state, cfg_kw, dev)
+    recs = {}
+    (a16, kw16), = calls["stale_sets"]
+    m, kp, dp, lp, lsl, tb, tpm, st, ridx, cidx, lidx, nstale, _ = a16
+    P, S = m.assignment.shape
+    B, NR = m.capacity.shape
+    K, D, L = kp.shape[0], dp.shape[0], lp.shape[0]
+    RB, CB, LB = ridx.shape[0], cidx.shape[0], lidx.shape[0]
+    W = m.pload.shape[1]
+
+    def after(fn, idx):
+        def run(*a, **kw):
+            fn(*a, **kw)
+            return [a[i] for i in idx]
+        return run
+
+    counts = copy.deepcopy(a16)
+    RK.stale_sets_plain(*counts)
+    n_row, n_col, n_l = (int(x) for x in counts[11].cpu())
+    base = {"percentile_cload": has_cap, "step": step, "K": K, "D": D,
+            "L": L, "RB": RB, "CB": CB, "LB": LB, "stale_rows": n_row,
+            "stale_cols": n_col, "stale_leads": n_l}
+    recs["stale_sets"] = record_kernel(
+        label, "stale_sets", after(RK.stale_sets, (7, 8, 9, 10, 11)),
+        after(RK.stale_sets_plain, (7, 8, 9, 10, 11)), a16, kw16, base,
+        # each input once: the pools (kp, dest_pool, lp, lsl), a leadership
+        # entry's leader slot and two assignment words, the marks, the
+        # carry; the three lists, counts and carry out
+        K * 4 + D * 4 + L * 8 + L * 12 + B + P + 2 * 4 * SS.NSTATE
+        + (RB + CB + LB + 3) * 4,
+        # a test and a scan step an entry, twice (count, then compact)
+        4 * (K + D + L), plain_kw={}, timed=timed, exact=True)
+
+    (a17, kw17), = calls["grid_patch"]
+    m17, cfg, ca, kp17, ks17, dp17, packed, cidx17, tb17, dt, bd, st17 = a17
+    R = dt.shape[1]
+    dp_c = torch.where(cidx17 >= 0, dp17[cidx17.clamp_min(0).long()], -1)
+    g_c = G.move_grid_scores(m17, cfg, ca, kp17, ks17, dp_c.to(torch.int32))
+    feas = int(torch.isfinite(g_c).sum())
+    n_stale = int((cidx17 >= 0).sum())
+    src_b = K * 4 * (G._SF + 3 * S + 2)
+    recs["grid_patch"] = record_kernel(
+        label, "grid_patch", after(RK.grid_patch, (9, 10)),
+        after(RK.grid_patch_plain, (9, 10)), a17, kw17,
+        dict(base, R=R, feasible_cells=feas, stale_columns=n_stale),
+        # each input once: K2's source rows, the list and the destination
+        # rows of its stale columns, the constants, the stored (dt, bd)
+        # and the pool entries and marks they index; (dt, bd) out
+        src_b + CB * 4 + n_stale * 4 * (G._DF + G._DI) + 4 * G._NC
+        + 2 * K * R * 8 + D * 4 + B,
+        # K1's cell count over the K · n_stale cells of the stale columns,
+        # one test a -1 column, and a compare per merged entry
+        G.grid_top_r_ops(K * n_stale, feas, S) + (CB - n_stale)
+        + 2 * K * (R + n_stale),
+        plain_kw={}, timed=timed, exact=True)
+
+    # K1 and K6 on the stale rows / entries (the patch's (b) and (c)), and
+    # over the whole pool with the carry's FRESH flag set
+    (a1, kw1) = calls["grid_rescore_carry"][1]
+    (a6, kw6) = calls["score_candidates"][1]
+    full1 = copy.deepcopy(calls["grid_rescore_carry"][0][0])
+    full1[10][SS.FRESH] = 1
+    rows1 = tuple(a1) + (kw1["rows"], kw1["n_rows"])
+    n_r = min(RB, n_row)
+    m1, kp1, ks1, dp1 = a1[0], a1[3], a1[4], a1[5]
+    stale_k = kw1["rows"][:n_r].long()
+    feas_r, feas_k = (int(torch.isfinite(G.move_grid_scores(
+        m1, cfg, ca, kp_, ks_, dp1)).sum()) for kp_, ks_ in (
+            (kp1[stale_k], ks1[stale_k]), (kp1, ks1)))
+    for name, args, nrows, nfeas in (
+            ("grid_top_r[rows]", rows1, n_r, feas_r),
+            ("grid_top_r[carry_full]", tuple(full1) + (None, None), K,
+             feas_k)):
+        recs[name] = record_kernel(
+            label, name, after(lambda *a: G.grid_rescore_carry(
+                *a[:12], rows=a[12], n_rows=a[13]), (8, 9)),
+            after(lambda *a: G.grid_rescore_carry_plain(
+                *a[:12], rows=a[12], n_rows=a[13]), (8, 9)), args, {},
+            dict(base, rows=nrows, feasible_cells=nfeas),
+            nrows * 4 * (G._SF + 3 * S + 2 + 1) + D * 4 * (G._DF + G._DI)
+            + 4 * G._NC + nrows * R * 8,
+            G.grid_top_r_ops(nrows * D, nfeas, S), plain_kw={},
+            timed=timed and name.endswith("[rows]"), exact=True)
+    # the carry form writes the leadership scores only (no feasibility)
+    ls, _ = kw6["out"]
+    k6 = tuple(a6) + (ls, None, kw6["rows"], kw6["n_rows"], kw6["gate"], 0)
+    st6 = kw6["gate"].clone()
+    st6[SS.FRESH] = 1
+    k6f = tuple(a6) + (ls, None, None, None, st6, 1)
+    n_part = int(torch.unique(lp).numel())
+    for name, args, n in (("score_candidates[rows]", k6, min(LB, n_l)),
+                          ("score_candidates[carry_full]", k6f, L)):
+        recs[name] = record_kernel(
+            label, name,
+            after(lambda *a: K6.score_candidates(
+                *a[:9], checked=True, out=(a[9], a[10]), rows=a[11],
+                n_rows=a[12], gate=a[13], want=a[14]), (9,)),
+            after(lambda *a: K6._score_candidates_into(
+                *a[:7], a[9], a[10], a[11], a[12], a[13], a[14]), (9,)),
+            args, {}, dict(base, N=n),
+            # as phase 3's K6 record, for the n candidates scored, with
+            # the score out and no feasibility
+            n * 16 + min(n, n_part) * (9 * S + 4 + 4 * W)
+            + B * (4 * (NR * (3 if has_cap else 2) + 4) + 6)
+            + 4 * (3 * NR + 16) + n * 4,
+            n * 400, plain_kw={}, timed=timed and name.endswith("[rows]"),
+            exact=True)
+
+    # K8 with the marks: it clears the step before's from its lists, then
+    # marks this step's commits (the twin zeroes the tables and marks)
+    (a8, kw8), = calls["commit_batch"]
+    args8 = tuple(a8) + (kw8["tb"], kw8["tpm"], kw8["marks"])
+    state0 = a8[15].state.clone()
+
+    def commit(fn, **k):
+        def run(*a):
+            a[15].state.copy_(state0)
+            m_, tpp, c_step = fn(*a[:16], tb=a[16], tpm=a[17], **k)
+            return [*_model_fields(m_), tpp, c_step, a[12], a[15].state,
+                    a[15].counts, a[16], a[17]]
+        return run
+
+    Cn = a8[5].shape[0]
+    n_commit = int(K89.commit_batch_plain(*copy.deepcopy(a8))[2])
+    ncol = NR * (2 if has_cap else 1) + 4
+    log_c = max(Cn - 1, 1).bit_length()
+    prev = int((kw8["marks"][0] >= 0).sum())
+    recs["commit_batch[marks]"] = record_kernel(
+        label, "commit_batch[marks]",
+        lambda *a: commit(K89.commit_batch, checked=True,
+                          marks=a[18])(*a),
+        commit(K89.commit_batch_plain), args8, {},
+        dict(base, C=Cn, M_step=a8[11], commits=n_commit,
+             marks_cleared=prev),
+        # as phase 3's K8 record, and the marks: the lists read and
+        # written, a mark a broker or partition set and cleared
+        Cn * (39 + 4 + 4 * W) + 2 * B * ncol * 4 + n_commit * (4 + 1 + 16 + 1)
+        + 2 * 3 * a8[11] * 4 + 3 * (prev + n_commit),
+        Cn * log_c * (log_c + 1) // 2 + n_commit * 12 * ncol + 2 * B * ncol,
+        plain_kw={}, timed=False, exact=True)
+    return recs
+
+
+def capped_calls(state, dev, cfg_kw):
+    """Scan calls capped at 1, 7 and steps_per_call on one step loop,
+    replaying one captured chunk (the same graph object): each runs at
+    most its cap, and the uncapped call's first steps → the record."""
+    import numpy as np
+
+    from cruise_control_tpu_torch.analyzer import cuda_optimizer as C
+    from cruise_control_tpu_torch.analyzer.context import AnalyzerContext
+    from cruise_control_tpu_torch.ops.grid import grid_consts
+
+    opt = C.CudaGoalOptimizer(config=C.CudaSearchConfig(**cfg_kw),
+                              device=dev)
+    ctx = AnalyzerContext(state)
+    m = opt._device_model(ctx)
+    ca = opt._constraint_arrays(ctx)
+    K, D = opt._pool_sizes(ctx.num_partitions, ctx.max_rf, ctx.num_brokers)
+    cfg = C._resolve_batch(opt.config, ctx.num_brokers)
+    T = cfg.steps_per_call
+    consts = grid_consts(cfg, ca, dev)
+    loop = C._StepLoop(m, cfg, ca, consts, K, D, T)
+    full, _, _ = C._scan_call(m, cfg, ca, consts, K, D, T, C._cold_tables(m),
+                              loop)
+    graph = loop.chunk.graph
+    rec = {"phase": "capped_calls", "config": cfg_kw, "uncapped_steps":
+           full.diag["steps_run"], "caps": {}}
+    for cap in (1, 7, T):
+        res, _, _ = C._scan_call(m, cfg, ca, consts, K, D, T,
+                                 C._cold_tables(m), loop, t_cap=cap)
+        steps = res.diag["steps_run"]
+        n = int(res.step_counts.sum())
+        same = (np.array_equal(res.step_counts, full.step_counts[:steps])
+                and all(np.array_equal(getattr(res, f),
+                                       getattr(full, f)[:n])
+                        for f in ("kind", "p", "s", "d")))
+        rec["caps"][cap] = {"steps_run": steps, "actions": n,
+                            "graph_replays": res.diag["graph_replays"],
+                            "prefix_of_uncapped": same}
+        if not 0 < steps <= cap or not same:
+            raise AssertionError(f"capped call at {cap}: {steps} steps, "
+                                 f"prefix of the uncapped call: {same}")
+    rec["one_graph"] = loop.chunk.graph is graph
+    emit(rec)
+    if not rec["one_graph"]:
+        raise AssertionError("a capped call captured a new graph")
+    return rec
+
+
+def budgeted_plans(state, T=16, budget=2.0):
+    """The plan in calls of ``T`` steps under a time budget, through
+    ``optimize``: first one that never runs out — every call once the hard
+    goals hold is capped (the probe, then remaining / step rate), runs at
+    most its cap, and the plan equals the unbudgeted one — then one of
+    ``budget`` seconds in which host time passes after the first capped
+    call (a wait) until, after the host recheck that follows, about half
+    that call's time is left: the budget then cuts the plan short (its
+    next call capped by the step rate, or none), its capped calls run at
+    most their caps and its hard goals hold → the record."""
+    from cruise_control_tpu_torch.analyzer import cuda_optimizer as C
+    from cruise_control_tpu_torch.analyzer.context import AnalyzerContext
+    from cruise_control_tpu_torch.analyzer.goal_optimizer import make_goals
+    from cruise_control_tpu_torch.analyzer.verifier import (
+        verify_result,
+        violation_score,
+    )
+
+    goals = make_goals()
+    real = C._scan_call
+    calls = []
+    #: the timed run's start and, for the cut run, its budget
+    clock = {"t0": 0.0, "budget": None, "wait_s": 0.0}
+
+    def spy(*a, t_cap=None, **k):
+        t = time.perf_counter()
+        out = real(*a, t_cap=t_cap, **k)
+        end = time.perf_counter()
+        calls.append((t, end, t_cap, int(out[0].diag["steps_run"])))
+        if clock["budget"] is not None and t_cap is not None \
+                and sum(c[2] is not None for c in calls) == 1:
+            if len(calls) < 2:
+                raise AssertionError("the hard goals held before the "
+                                     "first call")
+            # the host recheck that will follow, timed on the call before
+            recheck = t - calls[-2][1]
+            wait = (clock["t0"] + clock["budget"] - recheck
+                    - 0.5 * (end - t) - end)
+            if wait <= 0:
+                raise AssertionError(f"the budget was spent {-wait} s "
+                                     "before the first capped call ended")
+            time.sleep(wait)
+            clock["wait_s"] = wait
+        return out
+
+    def plan(budget, cut):
+        opt = C.CudaGoalOptimizer(config=C.CudaSearchConfig(
+            steps_per_call=T, time_budget_s=budget))
+        run_plan(opt, state)
+        calls.clear()
+        torch.cuda.synchronize()
+        clock.update(t0=time.perf_counter(), budget=budget if cut else None,
+                     wait_s=0.0)
+        r, s = run_plan(opt, state)
+        clock["budget"] = None
+        verify_result(state, r, goals)
+        summ = r.goal_summaries[0]
+        capped = [(t - clock["t0"], cap, n) for t, _, cap, n in calls
+                  if cap is not None]
+        rec = {"time_budget_s": budget, "wallclock_s": s,
+               "host_wait_s": clock["wait_s"], "actions": len(r.actions),
+               "steps": summ["steps"], "calls": summ["rounds"],
+               "capped_calls": summ["capped_calls"],
+               "capped": [{"at_s": t, "cap": cap, "steps_run": n}
+                          for t, cap, n in capped],
+               "hard_goals_hold": C._hard_goals_hold(
+                   AnalyzerContext(r.final_state), goals),
+               "violation_score": violation_score(r.final_state, goals)}
+        if not capped or summ["capped_calls"] != len(capped) \
+                or any(not 0 < n <= cap for _, cap, n in capped) \
+                or not rec["hard_goals_hold"] or not r.actions:
+            raise AssertionError(f"budgeted plan at {budget} s: {rec}")
+        return r, rec
+
+    C._scan_call = spy
+    try:
+        r_free, _ = run_plan(C.CudaGoalOptimizer(
+            config=C.CudaSearchConfig(steps_per_call=T)), state)
+        r_long, long_rec = plan(600.0, cut=False)
+        _, cut_rec = plan(budget, cut=True)
+    finally:
+        C._scan_call = real
+    rec = {"phase": "budgeted_1000b_20k", "steps_per_call": T,
+           "never_spent": long_rec, "cut": cut_rec,
+           "never_spent_is_unbudgeted": actions_of(r_long)
+           == actions_of(r_free),
+           "cut_capped_below_T": any(c["cap"] < T
+                                     for c in cut_rec["capped"])}
+    emit(rec)
+    if not rec["never_spent_is_unbudgeted"]:
+        raise AssertionError("a budget that never ran out moved the plan")
+    if cut_rec["steps"] >= long_rec["steps"]:
+        raise AssertionError("the spent budget did not cut the plan short")
+    return rec
+
+
+def incremental_leg(dev, mid, ragged, main_plan):
+    """Phase 8's incremental leg → (records by name, the incremental
+    plan's launches, its acting launches): K16, K17 and the gated K1 / K6
+    against their twins (1 000 / 20 000, percentile loads, ragged), one
+    incremental scan call eager against captured, capped calls on one
+    captured chunk (default and incremental), the 1 000 / 20 000 plan at
+    ``incremental_rescore`` twice (beside the default plan ``main_plan``
+    of phase 6) and the budgeted plans (:func:`budgeted_plans`)."""
+    from cruise_control_tpu_torch.analyzer.cuda_optimizer import (
+        CudaGoalOptimizer,
+        CudaSearchConfig,
+    )
+
+    recs = {}
+    for lbl, state, kw in (
+            ("midscale", mid, {}),
+            ("midscale_percentile", with_percentile(mid), {}),
+            ("ragged", ragged, {"max_source_replicas": 1999,
+                                "device_batch_per_step": 8})):
+        out = check_incremental_kernels(lbl, state, kw, dev,
+                                        timed=lbl == "midscale")
+        recs.update({(n if lbl == "midscale" else f"{n}@{lbl}"): v
+                     for n, v in out.items()})
+    torch.cuda.empty_cache()
+    compare_scan_paths(mid, dev, {"incremental_rescore": True},
+                       phase="scan_paths_incremental")
+    for kw in ({}, {"incremental_rescore": True}):
+        capped_calls(mid, dev, kw)
+
+    opt = CudaGoalOptimizer(config=CudaSearchConfig(incremental_rescore=True))
+    rec, launches = search_path_plan("incremental_1000b_20k", "incremental",
+                                     opt, mid, MIDSCALE_SCORE_BAR)
+    summ = rec["passes"][0]
+    if summ["patch_steps"] <= 0:
+        raise AssertionError("the incremental plan never patched")
+    emit({"phase": "incremental_vs_default_1000b_20k",
+          "incremental": {k: summ[k] for k in (
+              "steps", "rounds", "n_overflow", "patch_steps")}
+          | {"actions": rec["actions"], "violation_score":
+             rec["violation_score"], "wallclock_s": rec["wallclock_s"],
+             "mean_step_ms": summ["timing_s"]["device"] / summ["steps"]
+             * 1e3, "device_s": summ["timing_s"]["device"]},
+          "default": main_plan})
+
+    budgeted_plans(mid)
+    # K16 acts on every active step, K17 on every patching one
+    acting = {"stale_sets": summ["steps"], "grid_patch": summ["patch_steps"]}
+    return recs, launches, acting
+
+
+def search_paths_phase(dev, mid, small, g_small, main_launches,
+                       main_plan):
+    """Phase 8 → (the kernel records by name, each path's launches, K16's
+    and K17's acting launches on the incremental plan); ``main_plan`` is
+    phase 6's default plan, which the incremental plan is recorded
+    beside."""
     from cruise_control_tpu_torch.analyzer.cuda_optimizer import (
         CudaGoalOptimizer,
         CudaSearchConfig,
@@ -1670,6 +2124,9 @@ def search_paths_phase(dev, mid, small, g_small, main_launches):
                               timed=lbl == "midscale" and not kw)
         recs.update({(n if lbl == "midscale" else f"{n}@{lbl}"): v
                      for n, v in out.items()})
+    inc_recs, inc_launches, inc_acting = incremental_leg(dev, mid, ragged,
+                                                         main_plan)
+    recs.update(inc_recs)
 
     # one score-only round at full width, in both forms, then the full
     # score-only plan there (grid form)
@@ -1700,7 +2157,8 @@ def search_paths_phase(dev, mid, small, g_small, main_launches):
         launches.setdefault(path, counts)
     if launches["corrected"]["budget_accept"] != 0:
         raise AssertionError("the corrected cohort's plan launched K4")
-    return recs, launches
+    launches["incremental"] = inc_launches
+    return recs, launches, inc_acting
 
 
 def main() -> int:
@@ -1863,6 +2321,21 @@ def main() -> int:
         if n <= 0 or acting[name] <= 0:
             raise AssertionError(f"main path never launched {name} to act "
                                  f"({n} launches, {acting[name]} acting)")
+    got = (score, summ["steps"], len(r.actions))
+    if got != MIDSCALE_DEFAULT_PLAN or any(
+            launches[n] != MIDSCALE_DEFAULT_K1_K6
+            for n in ("grid_top_r", "score_candidates")):
+        raise AssertionError(
+            f"the default plan moved: (score, steps, actions) {got}, K1 / K6 "
+            f"{launches['grid_top_r']} / {launches['score_candidates']} "
+            f"launches")
+    main_plan = {"violation_score": score, "steps": summ["steps"],
+                 "actions": len(r.actions), "wallclock_s": s,
+                 "device_s": summ["timing_s"]["device"],
+                 "mean_step_ms": summ["timing_s"]["device"]
+                 / summ["steps"] * 1e3,
+                 "launches": {n: launches[n] for n in (
+                     "grid_top_r", "score_candidates")}}
 
     # ---- the what-if path ---------------------------------------------------
     whatif_recs, whatif_launches = whatif_phase(dev)
@@ -1870,11 +2343,15 @@ def main() -> int:
         launches[name] = acting[name] = whatif_launches[name]
 
     # ---- the search's off-default paths -------------------------------------
-    path_recs, path_launches = search_paths_phase(dev, mid, small, g_score,
-                                                  launches)
+    path_recs, path_launches, inc_acting = search_paths_phase(
+        dev, mid, small, g_score, launches, main_plan)
     for name in OFF_DEFAULT:
-        launches[name] = acting[name] = \
-            path_launches[LAUNCH_PATH[name]][name]
+        launches[name] = path_launches[LAUNCH_PATH[name]][name]
+        # K13-K15 act at every launch; K16 and K17 return at once on a
+        # masked step, and K17 on a fresh one too (the plan's summary)
+        acting[name] = inc_acting.get(name, launches[name])
+        if acting[name] <= 0:
+            raise AssertionError(f"{name} never acted on its path")
 
     # the kernels line: main-path shapes (mid-scale); errors over every case
     cases = [steps[c] for c in steps] + [
@@ -1902,6 +2379,8 @@ def main() -> int:
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
             "library_note": LIBRARY_NOTES[name],
             "device_ms": rec.get("device_ms"),
+            **({"launches_incremental": path_launches["incremental"][name]}
+               if name in PATHS["incremental"] else {}),
             **({"library_sort_ms": rec["library_sort_ms"]}
                if "library_sort_ms" in rec else {}),
         })

@@ -5,7 +5,8 @@ and the hand-written CUDA kernels that replace them on the card.
   cohort with the auction, the commit-order sort that keeps the step's M
   best, their output rows, the touched-partition mark, the batch applied
   to the device model and the step loop's carry advanced
-  (:mod:`analyzer.step_state`) — plain twin :func:`commit_batch_plain`
+  (:mod:`analyzer.step_state`), and on the incremental path the step's
+  touched-broker and -partition marks — plain twin :func:`commit_batch_plain`
   (reference step ``tpu_optimizer.py:1335-1395``) around
   :func:`_apply_batch_on_device` (``:751``).
 * K9 :func:`recompute_aggregates` (``csrc/recompute_aggregates.cu``): the
@@ -169,7 +170,8 @@ def _apply_batch_on_device(m, take, is_move, p, s, d, src, dst):
 
 def commit_batch_plain(m, acc, take_d, win_score_d, win_dst_d, cand_score,
                        d0, is_move_row, cand_p, cand_s, cand_src,
-                       M_step: int, out, tpp, improving, st):
+                       M_step: int, out, tpp, improving, st, tb=None,
+                       tpm=None):
     """Plain twin of K8 (reference step ``:1335-1395``): unless the carry
     ``st`` (:class:`analyzer.step_state.StepState`) says the step is
     inactive, the cohort rows ``acc`` merged with the auction's winners,
@@ -178,7 +180,10 @@ def commit_batch_plain(m, acc, take_d, win_score_d, win_dst_d, cand_score,
     carry's count, their partitions marked in ``tpp [P]``, the batch
     applied to the model (:func:`_apply_batch_on_device`) and the carry
     advanced (:func:`analyzer.step_state.advance`; ``improving`` [C] feeds
-    the diagnostics) → (model, tpp, commits int32 [1])."""
+    the diagnostics) → (model, tpp, commits int32 [1]).  Given the
+    incremental rescore's ``tb`` [B] and ``tpm`` [P], they are set in place
+    to this step's marks (:1380-1388): its commits' source and destination
+    brokers, and their partitions."""
     C = acc.shape[0]
     P = m.assignment.shape[0]
     if not int(st.state[SS.ACTIVE]):
@@ -203,6 +208,11 @@ def commit_batch_plain(m, acc, take_d, win_score_d, win_dst_d, cand_score,
         win_dst[order].to(torch.float32),
     ])
     tpp = tpp | _mark(P, cand_p.clamp_min(0), take_f)
+    if tb is not None:
+        B = m.capacity.shape[0]
+        tb.copy_(_mark(B, cand_src.clamp_min(0), take_f)
+                 | _mark(B, win_dst.clamp_min(0), take_f))
+        tpm.copy_(_mark(P, cand_p.clamp_min(0), take_f))
     c_step = sel_ok.sum(dtype=torch.int32).reshape(1)
     SS.advance(st, int(c_step), int(improving.sum()), int(acc.sum()),
                int((take_d & ~acc).sum()))
@@ -211,17 +221,23 @@ def commit_batch_plain(m, acc, take_d, win_score_d, win_dst_d, cand_score,
 
 def commit_batch(m, acc, take_d, win_score_d, win_dst_d, cand_score, d0,
                  is_move_row, cand_p, cand_s, cand_src, M_step: int, out,
-                 tpp, improving, st, checked: bool = False):
+                 tpp, improving, st, checked: bool = False, tb=None,
+                 tpm=None, marks=None):
     """The step's commit of the plain twin :func:`commit_batch_plain`
     (same arguments and results).  On the card the model's :data:`MUTABLE`
-    tensors, ``out``, ``tpp`` and the carry ``st`` are updated in place,
-    with no host read, and returned.  ``checked=True`` skips the input
-    checks (the step loop checks once per call)."""
+    tensors, ``out``, ``tpp``, the carry ``st`` and, when given, the marks
+    ``tb`` / ``tpm`` are updated in place, with no host read, and returned;
+    the kernel clears the step before's marks from its lists ``marks``
+    (int32 [3, M_step], -1 = none; the step loop resets the three once a
+    call).  ``checked=True`` skips the input checks (the step loop checks
+    once per call)."""
     if kernels.on_cpu(acc):
         return commit_batch_plain(m, acc, take_d, win_score_d, win_dst_d,
                                   cand_score, d0, is_move_row, cand_p,
                                   cand_s, cand_src, M_step, out, tpp,
-                                  improving, st)
+                                  improving, st, tb, tpm)
+    if (tb is None) != (tpm is None) or (tb is None) != (marks is None):
+        raise ValueError("commit_batch: tb, tpm and marks go together")
     dev = acc.device
     C, R = cand_score.shape
     P, S = m.assignment.shape
@@ -260,6 +276,9 @@ def commit_batch(m, acc, take_d, win_score_d, win_dst_d, cand_score, d0,
             ("counts", st.counts, i32, (4, st.steps)),
             *((("broker_cload", m.broker_cload, f32, (B, NR)),)
               if has_cap else ()),
+            *((("tb", tb, b8, (B,)), ("tpm", tpm, b8, (P,)),
+               ("marks", marks, i32, (3, M_step))) if tb is not None
+              else ()),
         ):
             chk(name, x, dt, shape)
         if not 0 <= M_step <= C \
@@ -271,7 +290,7 @@ def commit_batch(m, acc, take_d, win_score_d, win_dst_d, cand_score, d0,
     lib = kernels.bind("commit_batch", "commit_batch_launch",
                        [_P] * 5 + [_I] + [_P] * 5 + [_I] * 3 + [_P] * 10
                        + [_I] * 3 + [_P, _I] + [_P] * 3 + [_I] * 3
-                       + [_P] * 5)
+                       + [_P] * 8)
     n2 = 1 << max(C - 1, 0).bit_length()
     ncol = 2 * NR + 4 if has_cap else NR + 4
     sums = torch.empty((B, ncol), dtype=torch.int64, device=dev)
@@ -290,7 +309,8 @@ def commit_batch(m, acc, take_d, win_score_d, win_dst_d, cand_score, d0,
         m.broker_cload.data_ptr() if has_cap else None, B, S, W,
         out.data_ptr(), slots, st.state.data_ptr(), st.counts.data_ptr(),
         improving.data_ptr(), st.steps, st.repool, st.slot_limit,
-        tpp.data_ptr(), sums.data_ptr(),
+        tpp.data_ptr(), *(None if x is None else x.data_ptr()
+                          for x in (tb, tpm, marks)), sums.data_ptr(),
         c_step.data_ptr(), None if gws is None else gws.data_ptr(),
         kernels.stream(dev),
     )

@@ -53,19 +53,25 @@ class Compacted(NamedTuple):
 
 
 def _compact_rows(m, q_scores, q_rows, bl, src_term, vals, best_d,
-                  dest_pool, kp, ks, sb, C: int, tol: float) -> Compacted:
+                  dest_pool, kp, ks, sb, C: int, tol: float,
+                  dest_terms: bool = False) -> Compacted:
     """The step's compaction to the best C of the NROW = (Q+1)·B rows
     (Q move rows per source broker from ``q_rows`` / ``q_scores`` [Q, B],
     then each broker's best leadership transfer ``bl`` = (score, p, s,
     dst) [B]) and the cohort's inputs for them.  ``src_term`` [K] and
     ``vals`` / ``best_d`` [K, R] are the rescore's source terms and per-row
     top-R; the row scores are ``src_term + (vals - src_term)``, the
-    reference's carried destination terms re-added to the source term."""
+    reference's carried destination terms re-added to the source term.
+    With ``dest_terms`` ``vals`` *is* the incremental rescore's carry of
+    destination terms (tpu_optimizer.py:1162), so the row scores are
+    ``src_term + vals`` (subtracting again would not round-trip in f32),
+    and ``best_d`` may hold -1 (no destination: -1)."""
     bl_score, bl_p, bl_s, bl_dst = bl
     K, R = vals.shape
     Q, B = q_rows.shape
     dev = vals.device
-    row_scores = src_term[:, None] + (vals - src_term[:, None])
+    row_scores = src_term[:, None] + (
+        vals if dest_terms else vals - src_term[:, None])
     rows_q = q_rows.reshape(-1).long()
     valid_q = rows_q < K
     mrow = rows_q.clamp(0, K - 1)
@@ -131,14 +137,15 @@ def _compact_rows(m, q_scores, q_rows, bl, src_term, vals, best_d,
 
 def compact_rows(m, q_scores, q_rows, bl, src_term, vals, best_d,
                  dest_pool, kp, ks, sb, C: int, tol: float,
-                 checked: bool = False) -> Compacted:
+                 checked: bool = False,
+                 dest_terms: bool = False) -> Compacted:
     """The :class:`Compacted` rows of the plain twin :func:`_compact_rows`
     (same arguments).  ``src_term`` may be a strided 1-D view (the source
     term column of K2's table).  ``checked=True`` skips the input checks
     (the step loop checks once per call)."""
     if kernels.on_cpu(vals):
         return _compact_rows(m, q_scores, q_rows, bl, src_term, vals, best_d,
-                             dest_pool, kp, ks, sb, C, tol)
+                             dest_pool, kp, ks, sb, C, tol, dest_terms)
     dev = vals.device
     bl_score, bl_p, bl_s, bl_dst = bl
     K, R = vals.shape
@@ -195,7 +202,7 @@ def compact_rows(m, q_scores, q_rows, bl, src_term, vals, best_d,
         torch.empty(C, dtype=torch.int32, device=dev),
     )
     lib = kernels.bind("compact_rows", "compact_rows_launch",
-                       [_P] * 6 + [_P, _I] + [_P] * 8 + [_I] * 8 + [_F]
+                       [_P] * 6 + [_P, _I] + [_P] * 8 + [_I] * 8 + [_F, _I]
                        + [_P] * 13)
     err = lib.compact_rows_launch(
         q_scores.data_ptr(), q_rows.data_ptr(), bl_score.data_ptr(),
@@ -204,6 +211,7 @@ def compact_rows(m, q_scores, q_rows, bl, src_term, vals, best_d,
         best_d.data_ptr(), dest_pool.data_ptr(), kp.data_ptr(),
         ks.data_ptr(), sb.data_ptr(), m.leader_slot.data_ptr(),
         m.pload.data_ptr(), W, NB, Q, B, K, R, C, n2, float(tol),
+        int(dest_terms),
         *(t.data_ptr() for t in out),
         None if keys is None else keys.data_ptr(), kernels.stream(dev),
     )

@@ -37,7 +37,11 @@ rounds** the search — each round a full repool, every candidate scored,
 the ``topk_per_round`` best fetched in one packed read and rechecked on
 the host one by one (:func:`_round`, kernels K13 / K14 in
 :mod:`analyzer.round_kernels`) — and ``polish_rounds`` runs that loop
-after the resident search.
+after the resident search; ``incremental_rescore=True`` keeps each row's
+top-R as destination terms in a device carry and rescores only what the
+step before made stale (:func:`_incremental_rescore`, kernels K16 / K17
+in :mod:`analyzer.rescore_kernels`); ``time_budget_s`` caps each call's
+steps once the hard goals hold (the cap rides the device carry).
 
 The reference's ``lax.while_loop`` becomes chunks of masked steps: the
 loop's carry (done flag, step, commit count, repool bookkeeping) lives in
@@ -100,6 +104,10 @@ from cruise_control_tpu_torch.analyzer.pool_kernels import (
     pool_tables,
     top_select,
 )
+from cruise_control_tpu_torch.analyzer.rescore_kernels import (
+    grid_patch,
+    stale_sets,
+)
 from cruise_control_tpu_torch.analyzer.round_kernels import (
     DESTS_PER_SOURCE,
     round_keys,
@@ -133,8 +141,10 @@ from cruise_control_tpu_torch.models.cluster_state import ClusterState
 from cruise_control_tpu_torch.models.stats import cluster_stats, stats_summary
 from cruise_control_tpu_torch.ops.cost import pack_pload
 from cruise_control_tpu_torch.ops.grid import (
+    SRC_TERM_COL,
     grid_consts,
     grid_rescore,
+    grid_rescore_carry,
     grid_terms,
     launch_grid_top_r,
     terms_consts,
@@ -213,17 +223,9 @@ def _check_config(cfg: CudaSearchConfig) -> None:
         raise ValueError(f"unknown cohort_mode {cfg.cohort_mode!r}")
     if cfg.topk_mode not in ("approx", "exact"):
         raise ValueError(f"unknown topk_mode {cfg.topk_mode!r}")
-    todo = [
-        (cfg.incremental_rescore, "incremental_rescore=True",
-         "A4 (incremental rescore, B15)"),
-        (cfg.time_budget_s > 0, "time_budget_s>0", "A4 (time budget)"),
-        (bool(cfg.profiler_trace_dir), "profiler_trace_dir",
-         "A10 (device telemetry)"),
-    ]
-    for bad, knob, item in todo:
-        if bad:
-            raise NotImplementedError(
-                f"{knob} is not ported yet (ROADMAP.md {item})")
+    if cfg.profiler_trace_dir:
+        raise NotImplementedError("profiler_trace_dir is not ported yet "
+                                  "(ROADMAP.md A10 (device telemetry))")
 
 
 def _resolve_scoring(cfg: CudaSearchConfig) -> str:
@@ -347,10 +349,53 @@ def _cold_tables(m: DeviceModel):
 
 
 #: the kernel wrappers a step launches (their ``.launches`` count replays);
-#: a step runs K4 or, with ``cohort_mode="corrected"``, K15
+#: a step runs K4 or, with ``cohort_mode="corrected"``, K15, and with
+#: ``incremental_rescore=True`` K16 and K17
 STEP_KERNELS = (pool_tables, top_select, grid_terms, launch_grid_top_r,
                 score_candidates, per_src_top, compact_rows, budget_accept,
-                corrected_accept, match_batch, commit_batch)
+                corrected_accept, match_batch, commit_batch, stale_sets,
+                grid_patch)
+
+
+@dataclasses.dataclass
+class RescoreCarry:
+    """The incremental rescore's carry (``incremental_rescore=True``; the
+    reference's ``sc``, ``tb``, ``tpm`` at :943, :1432-1447): each pool
+    row's top-R destination terms and pool indices, the leadership scores,
+    the step before's marks (K8 sets them, and clears its own from the
+    lists ``marks``), and K16's index lists and stale counts for the
+    patch.  Reset at every call (:meth:`reset`)."""
+
+    dt: torch.Tensor          # f32 [K, R] score − src_term
+    bd: torch.Tensor          # int32 [K, R] pool index (-1: none)
+    ls: torch.Tensor          # f32 [L] leadership scores
+    tb: torch.Tensor          # bool [B] brokers the step before touched
+    tpm: torch.Tensor         # bool [P] partitions it moved
+    marks: torch.Tensor       # int32 [3, M] K8's lists of those marks
+    ridx: torch.Tensor        # int32 [RB] stale rows first
+    cidx: torch.Tensor        # int32 [CB] stale columns (pool index, -1)
+    lidx: torch.Tensor        # int32 [LB] stale leadership entries first
+    nstale: torch.Tensor      # int32 [3] stale counts (rows, cols, leads)
+
+    @classmethod
+    def empty(cls, cfg, P, B, K, D, L, R, M, device):
+        i32 = functools.partial(torch.empty, dtype=torch.int32, device=device)
+        b8 = functools.partial(torch.zeros, dtype=torch.bool, device=device)
+        return cls(torch.empty((K, R), device=device), i32((K, R)),
+                   torch.empty(L, device=device), b8(B), b8(P),
+                   i32((3, M)), i32(min(K, cfg.rescore_rows_budget)),
+                   i32(min(D, cfg.rescore_cols_budget)),
+                   i32(min(L, cfg.rescore_lead_budget)), i32(3))
+
+    def reset(self) -> None:
+        """The carry a call starts from (:1432-1447): no stored entries, no
+        marks (one [P] fill a call, never a step)."""
+        self.dt.fill_(float("inf"))
+        self.bd.fill_(-1)
+        self.ls.fill_(float("inf"))
+        self.tb.zero_()
+        self.tpm.zero_()
+        self.marks.fill_(-1)
 
 
 class _StepLoop:
@@ -399,6 +444,11 @@ class _StepLoop:
         self.kind_l = torch.full((L,), KIND_LEADERSHIP, dtype=torch.int32,
                                  device=dev)
         self.cd_l = torch.zeros(L, dtype=torch.int32, device=dev)
+        # the incremental rescore's carry, on that path only: the default
+        # loop allocates nothing for it
+        self.sc = (RescoreCarry.empty(cfg, P, B, K, D, L, self.R,
+                                      self.M_step, dev)
+                   if cfg.incremental_rescore else None)
         self.chunk = StepChunk(functools.partial(_step, self), chunk,
                                list(STEP_KERNELS))
 
@@ -412,9 +462,11 @@ class _StepLoop:
         self.consts.copy_(consts)
         self.tconsts.copy_(terms_consts(self.cfg, ca, self.consts.device))
 
-    def load(self, m: DeviceModel, tables) -> None:
+    def load(self, m: DeviceModel, tables, t_cap: Optional[int] = None
+             ) -> None:
         """Copy the call's placement, aggregates and row-table carry into
-        the static buffers and reset the carry (no host read)."""
+        the static buffers and reset the carry, with the call's step cap
+        ``t_cap`` (``None``: the loop's steps) — no host read."""
         for f in MUTABLE:
             _copy_in(getattr(m, f), getattr(self.m, f))
         size, base, tpp, pt_valid = tables
@@ -423,6 +475,10 @@ class _StepLoop:
             if src is not dst:
                 dst.copy_(src)
         self.st.state.copy_(self.initial[bool(pt_valid)])
+        if t_cap is not None:
+            SS.cap(self.st, t_cap)
+        if self.sc is not None:
+            self.sc.reset()
 
 
 def _copy_in(src, dst) -> None:
@@ -444,25 +500,32 @@ def _step(lp: _StepLoop, checked: bool) -> None:
     _repool(m, ca, pb, lp.st.state, lp.rows_budget, checked)
 
     # ---- rescore: the move grid's terms (K2), per-row top-R (K1) and the
-    # leadership pool (K6)
-    src_term, vals, best_d = grid_rescore(m, cfg, ca, pb.kp, pb.ks,
-                                          pb.dest_pool, lp.R, lp.consts,
-                                          lp.tconsts)
-    ls, _ = score_candidates(m, cfg, ca, lp.kind_l, pb.lp, pb.lsl, lp.cd_l,
-                             lp.consts, lp.tconsts, checked=checked)
+    # leadership pool (K6) — or, incrementally, only what went stale
+    if lp.sc is None:
+        src_term, vals, best_d = grid_rescore(m, cfg, ca, pb.kp, pb.ks,
+                                              pb.dest_pool, lp.R, lp.consts,
+                                              lp.tconsts)
+        ls, _ = score_candidates(m, cfg, ca, lp.kind_l, pb.lp, pb.lsl,
+                                 lp.cd_l, lp.consts, lp.tconsts,
+                                 checked=checked)
+        # the rows' best scores re-add the destination terms to the source
+        # term, as the reference does (bit-parity of the row scores)
+        row_best = src_term + (vals[:, 0] - src_term)
+    else:
+        src_term = _incremental_rescore(lp, checked)
+        vals, best_d, ls = lp.sc.dt, lp.sc.bd, lp.sc.ls
+        row_best = src_term + vals[:, 0]
 
-    # ---- reduce: per-broker best transfer + top-Q move rows (K3); the rows'
-    # best scores re-add the carried destination terms to the source term,
-    # as the reference does (bit-parity of the row scores)
+    # ---- reduce: per-broker best transfer + top-Q move rows (K3) ---------
     sb = m.assignment.view(-1)[pb.slot].clamp_min(0)
-    row_best = src_term + (vals[:, 0] - src_term)
     bl, (rows_q, q_scores) = per_src_top(m, pb.lp, pb.lsl, ls, sb, row_best,
                                          lp.B, lp.Q)
 
     # ---- compact to the best C rows and the cohort's inputs (K7) ---------
     c = compact_rows(m, q_scores, rows_q, bl, src_term, vals, best_d,
                      pb.dest_pool, pb.kp, pb.ks, sb, lp.C,
-                     cfg.improvement_tol, checked=checked)
+                     cfg.improvement_tol, checked=checked,
+                     dest_terms=lp.sc is not None)
 
     # ---- cohort: water-filling budgets, two rounds of acceptance (K4), or
     # the exact-conservative stacked cohort (K15); static per loop
@@ -483,16 +546,54 @@ def _step(lp: _StepLoop, checked: bool) -> None:
         rounds=cfg.auction_rounds, acc=acc_b,
     )
 
-    # ---- commit the M_step best in score order; advance the carry (K8) ---
+    # ---- commit the M_step best in score order; advance the carry (K8);
+    # on the incremental path, mark what the commits touched
+    marks = ({} if lp.sc is None else
+             dict(tb=lp.sc.tb, tpm=lp.sc.tpm, marks=lp.sc.marks))
     lp.m, pb.tpp, _ = commit_batch(
         m, acc_b, take_d, win_score_d, win_dst_d, c.cand_score, c.d0,
         c.is_move_row, c.cand_p, c.cand_s, c.cand_src, lp.M_step, lp.out,
-        pb.tpp, c.improving, lp.st, checked=checked)
+        pb.tpp, c.improving, lp.st, checked=checked, **marks)
+
+
+def _incremental_rescore(lp: _StepLoop, checked: bool) -> torch.Tensor:
+    """The rescore of a step with ``incremental_rescore=True`` — the
+    reference's :1075-1160 — into the loop's :class:`RescoreCarry`; every
+    branch is taken on the device from the carry, so a captured chunk holds
+    them all.  K2 packs the terms; K16 finds what the step before made
+    stale and decides (FRESH); then either the full rescore — K1 over every
+    row and K6 over the leadership pool, as destination terms — or the
+    patch: K17 (the stale columns and the exact R + CB merge), K1 on the
+    stale rows (b) and K6 on the stale leadership entries (c), each gated
+    on FRESH.  → the source terms [K] (a view of K2's table)."""
+    m, cfg, ca, pb, sc = lp.m, lp.cfg, lp.ca, lp.pools, lp.sc
+    state = lp.st.state
+    packed = grid_terms(m, cfg, ca, pb.kp, pb.ks, pb.dest_pool, lp.consts,
+                        lp.tconsts)
+    stale_sets(m, pb.kp, pb.dest_pool, pb.lp, pb.lsl, sc.tb, sc.tpm, state,
+               sc.ridx, sc.cidx, sc.lidx, sc.nstale,
+               cfg.rescore_refresh_steps, checked=checked)
+    grid = functools.partial(grid_rescore_carry, m, cfg, ca, pb.kp, pb.ks,
+                             pb.dest_pool, packed, lp.R, sc.dt, sc.bd, state)
+    lead = functools.partial(score_candidates, m, cfg, ca, lp.kind_l, pb.lp,
+                             pb.lsl, lp.cd_l, lp.consts, lp.tconsts,
+                             checked=checked, out=(sc.ls, None),
+                             gate=state)
+    # the full rescore (:1056-1073)
+    grid(1)
+    lead(want=1)
+    # the patch (:1096-1150): (a) before (b), which overwrites stale rows
+    grid_patch(m, cfg, ca, pb.kp, pb.ks, pb.dest_pool, packed, sc.cidx, sc.tb,
+               sc.dt, sc.bd, state, checked=checked)
+    grid(0, rows=sc.ridx, n_rows=sc.nstale[0:1])
+    lead(want=0, rows=sc.lidx, n_rows=sc.nstale[2:3])
+    return packed["src_f"][:, SRC_TERM_COL]
 
 
 def _scan_call(m: DeviceModel, cfg: CudaSearchConfig, ca, consts, K: int,
                D: int, T: int, tables, loop: Optional[_StepLoop] = None,
-               chunk: Optional[int] = None, capture: Optional[bool] = None):
+               chunk: Optional[int] = None, capture: Optional[bool] = None,
+               t_cap: Optional[int] = None):
     """Up to T (repool → rescore → reduce → compact → cohort → auction →
     apply) steps on the device — the port of the reference's
     ``_cached_scan_fn`` body on its default single-device branch.
@@ -505,15 +606,20 @@ def _scan_call(m: DeviceModel, cfg: CudaSearchConfig, ca, consts, K: int,
     CPU, or with ``capture=False``, the chunks run eagerly.  ``loop`` holds
     the search's static buffers (a fresh one is built when None).
 
+    ``t_cap`` (1 ≤ t_cap ≤ T; ``None``: T) caps the call's steps — the
+    reference's runtime step cap of the anytime deadline (:1400-1406): it
+    rides the device carry, so capped and uncapped calls replay one
+    captured chunk.
+
     Returns (ScanResult, updated model, (size, base, touched) row-table
     carry).  The loop ends on convergence (a step on freshly built pools
-    commits nothing), after T steps, or when the next step could overflow
-    the slot budget (the host just calls again)."""
+    commits nothing), after ``min(T, t_cap)`` steps, or when the next step
+    could overflow the slot budget (the host just calls again)."""
     lp = loop if loop is not None else _StepLoop(
         m, cfg, ca, consts, K, D, T, chunk or STEP_CHUNK)
     if chunk is not None and lp.chunk.n != chunk:
         raise ValueError(f"step loop runs chunks of {lp.chunk.n}, not {chunk}")
-    lp.load(m, tables)
+    lp.load(m, tables, t_cap)
     if capture is None:
         capture = lp.out.device.type == "cuda"
     syncs = replays = 0
@@ -547,6 +653,10 @@ def _scan_call(m: DeviceModel, cfg: CudaSearchConfig, ca, consts, K: int,
     diag = {"steps_run": t, "n_incremental_repool": int(state[SS.N_INCR]),
             "repools": int(state[SS.N_REPOOL]), "host_syncs": syncs,
             "graph_replays": replays,
+            # full rescores forced by a stale set over its budget, and the
+            # steps that patched (incremental_rescore=True; else 0)
+            "n_overflow": int(state[SS.N_OVF]),
+            "patch_steps": int(state[SS.N_PATCH]),
             "fetch_s": time.perf_counter() - t_fetch}
     if cfg.step_diagnostics:
         diag.update(improving=meta[1], cohort=meta[2], auction=meta[3])
@@ -557,6 +667,13 @@ def _scan_call(m: DeviceModel, cfg: CudaSearchConfig, ca, consts, K: int,
         f: getattr(lp.m, f).clone() for f in MUTABLE
         if getattr(lp.m, f) is not None})
     return res, m_out, (pb.size.clone(), pb.base.clone(), pb.tpp.clone())
+
+
+def _hard_goals_hold(ctx: AnalyzerContext, goals) -> bool:
+    """No replica is offline and every hard goal holds on the plan so far:
+    the condition under which a time budget may end the search."""
+    return (not ctx.replica_offline.any()
+            and all(g.violations(ctx) == 0 for g in goals if g.is_hard))
 
 
 def _resync_device_model(m: DeviceModel, ctx: AnalyzerContext) -> DeviceModel:
@@ -1254,11 +1371,22 @@ class CudaGoalOptimizer:
         pass_summaries: List[dict] = []
         upload_s = time.perf_counter() - t_up
 
+        def budget_left() -> Optional[float]:
+            # the anytime budget (the reference's :3369-3380): the seconds
+            # left (< 0: spent), or None while it may not cut the plan — no
+            # budget, a hard goal failing or a replica offline; until then
+            # the budget keeps extending.  Shared by both search phases so
+            # their guarantees cannot drift apart.
+            if not cfg.time_budget_s or not _hard_goals_hold(ctx, goals):
+                return None
+            return cfg.time_budget_s - (time.perf_counter() - t0)
+
         if cfg.steps_per_call and _resolve_scoring(cfg) != "columnar":
             # the device-resident search, then (``polish_rounds``) the
             # score-only rounds as polish on a model resynced from the host
             m = self._resident_search(ctx, m, cfg, ca, K, D, evaluator,
-                                      actions, pass_summaries, upload_s)
+                                      actions, pass_summaries, upload_s,
+                                      budget_left)
             rounds_budget = cfg.polish_rounds
             timing = {"score": 0.0, "fetch": 0.0, "recheck": 0.0,
                       "resync": 0.0}
@@ -1276,7 +1404,8 @@ class CudaGoalOptimizer:
             evaluator.goal_tag = ("CudaPolish" if pass_summaries
                                   else "CudaSearch")
             self._score_rounds(ctx, m, cfg, ca, K, D, evaluator, actions,
-                               pass_summaries, rounds_budget, timing)
+                               pass_summaries, rounds_budget, timing,
+                               budget_left)
 
         # Host swap-repair pass: when hard violations survive the search,
         # replay the greedy hard goals host-side (their optimize() carries
@@ -1316,12 +1445,21 @@ class CudaGoalOptimizer:
         )
 
     def _resident_search(self, ctx, m, cfg, ca, K: int, D: int, evaluator,
-                         actions, pass_summaries, upload_s: float):
+                         actions, pass_summaries, upload_s: float,
+                         budget_left):
         """The device-resident search: scan calls of up to
         ``steps_per_call`` steps on the card, each call's committed actions
         replayed through the exact host recheck; a rejection resyncs the
         device model from the host context.  Appends its pass summary and
-        returns the device model it ended with."""
+        returns the device model it ended with.
+
+        With ``time_budget_s`` (the reference's :3515-3594): no call starts
+        once ``budget_left()`` is spent, and while it is not None (the hard
+        goals hold) each call is capped at the steps the remaining budget buys at the measured
+        step rate — a first probe of ``min(steps_per_call, 256)``, then
+        ``remaining / rate`` clipped to [1, steps_per_call] — the rate an
+        EMA of the calls' seconds a step that skips the first capped call.
+        The cap rides the device carry (:func:`_scan_call`)."""
         P, S, B = ctx.num_partitions, ctx.max_rf, ctx.num_brokers
         consts = grid_consts(cfg, ca, self.device)
         evaluator.goal_tag = "CudaSearch"
@@ -1333,12 +1471,18 @@ class CudaGoalOptimizer:
             cfg.max_rounds,
             -(cfg.max_rounds * cfg.max_moves_per_round) // -T,
         )
-        n_calls = n_committed = n_rejected = n_steps = 0
-        device_loop = {"host_syncs": 0, "graph_replays": 0, "repools": 0}
+        n_calls = n_committed = n_rejected = n_steps = n_capped = 0
+        #: measured seconds per executed step, per-call overheads included:
+        #: the anytime deadline's rate model
+        step_rate: Optional[float] = None
+        device_loop = {"host_syncs": 0, "graph_replays": 0, "repools": 0,
+                       "n_overflow": 0, "patch_steps": 0}
         tab = _cold_tables(m)
         # the static buffers (and, on the card, the captured step chunk)
-        # every call steps on: kept for the next search of the same shape
-        key = (P, S, B, K, D, T, cfg, m.pload.shape[1], STEP_CHUNK)
+        # every call steps on: kept for the next search of the same shape.
+        # The budget is a host-loop knob: one loop serves every deadline
+        key = (P, S, B, K, D, T, dataclasses.replace(cfg, time_budget_s=0.0),
+               m.pload.shape[1], STEP_CHUNK)
         if self._loop is None or self._loop[0] != key:
             self._loop = (key, _StepLoop(m, cfg, ca, consts, K, D, T,
                                          STEP_CHUNK))
@@ -1350,9 +1494,21 @@ class CudaGoalOptimizer:
         timing = {"upload": upload_s, "device": 0.0, "fetch": 0.0,
                   "recheck": 0.0, "resync": 0.0}
         while n_calls < calls_budget:
+            left = budget_left()
+            if left is not None and left < 0:
+                LOG.info("anytime budget (%.1fs) exhausted after %d calls",
+                         cfg.time_budget_s, n_calls)
+                break
+            t_cap = None
+            if left is not None:
+                # the per-step deadline: the remaining budget as a step cap
+                # at the measured rate; the first capped call is a short
+                # probe.  Until the hard goals hold the budget never cuts
+                t_cap = (int(np.clip(left / step_rate, 1, T))
+                         if step_rate else min(T, 256))
             t_call = time.perf_counter()
             res, m_new, tab_new = _scan_call(m, cfg, ca, consts, K, D, T, tab,
-                                             loop)
+                                             loop, t_cap=t_cap)
             for k in device_loop:
                 device_loop[k] += res.diag[k]
             timing["fetch"] += res.diag["fetch_s"]
@@ -1360,6 +1516,19 @@ class CudaGoalOptimizer:
                                  - res.diag["fetch_s"])
             n_calls += 1
             n_steps += int(res.diag["steps_run"])
+            if t_cap is not None:
+                n_capped += 1
+            if cfg.time_budget_s and res.diag["steps_run"] > 0 and not (
+                    t_cap is not None and n_capped == 1):
+                # the first capped call's sample is skipped: it follows the
+                # switch to capped calls and would fold that one-off cost
+                # into the rate, over-truncating the next cap
+                rate = (time.perf_counter() - t_call) / res.diag["steps_run"]
+                step_rate = rate if step_rate is None else (
+                    0.5 * step_rate + 0.5 * rate)
+            if res.diag["n_overflow"]:
+                LOG.debug("device call %d: %d staleness-overflow full "
+                          "rescores", n_calls, res.diag["n_overflow"])
             evaluator.round_index = n_calls
             t_re = time.perf_counter()
             batch = rejected = off = 0
@@ -1413,16 +1582,18 @@ class CudaGoalOptimizer:
             ),
             "rounds": int(n_calls),
             "steps": int(n_steps),
+            "capped_calls": int(n_capped),
             "timing_s": timing,
             # device-to-host reads of the step loop (carry reads and
-            # fetches), captured-chunk replays and repools run
+            # fetches), captured-chunk replays, repools run, and the
+            # incremental rescore's overflows and patch steps
             **device_loop,
         })
         return m
 
     def _score_rounds(self, ctx, m, cfg, ca, K: int, D: int, evaluator,
                       actions, pass_summaries, rounds_budget: int,
-                      timing) -> None:
+                      timing, budget_left) -> None:
         """The score-only loop (the reference's :3694-3753), at most
         ``rounds_budget`` rounds: each round (:func:`_round`) proposes its
         top-k against a snapshot of the aggregates, fetched in one read;
@@ -1430,7 +1601,9 @@ class CudaGoalOptimizer:
         against the live aggregates in f64 (:meth:`_HostEvaluator
         .evaluate`) and applies every one that still improves, up to
         ``max_moves_per_round``; then the device model is resynced from
-        the host (K9).  A round that applies nothing ends the loop.
+        the host (K9).  A round that applies nothing ends the loop, and
+        no round starts once ``budget_left()`` is spent (:3703); a loop that
+        runs no round appends no summary.
         ``timing`` (host seconds by phase: score — the round's kernels and
         the wait for them —, fetch, recheck, resync) is added to and goes
         into the pass summary, tagged ``evaluator.goal_tag``."""
@@ -1439,6 +1612,9 @@ class CudaGoalOptimizer:
         tconsts = terms_consts(cfg, ca, dev)
         accepted = rejected = rounds = 0
         for round_idx in range(rounds_budget):
+            left = budget_left()
+            if left is not None and left < 0:
+                break
             evaluator.round_index = round_idx
             rounds += 1
             t_sc = time.perf_counter()
@@ -1476,6 +1652,8 @@ class CudaGoalOptimizer:
             t_rs = time.perf_counter()
             m = _resync_device_model(m, ctx)
             timing["resync"] += time.perf_counter() - t_rs
+        if not rounds:
+            return
         LOG.info("score-only rounds (%s): %d rounds, %d actions committed, "
                  "%d rejected", evaluator.goal_tag, rounds, accepted,
                  rejected)

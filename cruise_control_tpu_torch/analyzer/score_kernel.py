@@ -18,6 +18,7 @@ import functools
 
 import torch
 
+from cruise_control_tpu_torch.analyzer import step_state as SS
 from cruise_control_tpu_torch.common.resources import (
     EMPTY_SLOT,
     NUM_RESOURCES,
@@ -192,7 +193,7 @@ def _score_candidates(m, cfg, ca, kind, cp, cs, cd):
 
 def _library():
     lib = kernels.bind("score_candidates", "score_candidates_launch",
-                       [_P] * 21 + [_I] * 3 + [_P] * 3)
+                       [_P] * 21 + [_I] * 3 + [_P] * 5 + [_I, _P])
     if not getattr(lib, "_cc_checked", False):
         lib.score_candidates_layout.argtypes = [ctypes.POINTER(ctypes.c_int)]
         lib.score_candidates_layout.restype = None
@@ -205,17 +206,59 @@ def _library():
     return lib
 
 
+def _score_candidates_into(m, cfg, ca, kind, cp, cs, cd, out, feasible,
+                           rows=None, n_rows=None, gate=None, want=1):
+    """Plain twin of K6's incremental-rescore forms: unless the carry
+    ``gate`` says the step is inactive or its FRESH flag is not ``want``,
+    :func:`_score_candidates` of every candidate, or of the first
+    ``n_rows[0]`` entries of the index list ``rows``, written into ``out``
+    and (unless None) ``feasible`` at each candidate's own index."""
+    if gate is not None and not (int(gate[SS.ACTIVE])
+                                 and int(gate[SS.FRESH]) == want):
+        return out, feasible
+    if rows is None:
+        delta, ok = _score_candidates(m, cfg, ca, kind, cp, cs, cd)
+        out.copy_(delta)
+        if feasible is not None:
+            feasible.copy_(ok)
+        return out, feasible
+    i = rows[:min(rows.shape[0], int(n_rows[0]))].long()
+    delta, ok = _score_candidates(m, cfg, ca, kind[i], cp[i], cs[i], cd[i])
+    out[i] = delta
+    if feasible is not None:
+        feasible[i] = ok
+    return out, feasible
+
+
 def score_candidates(m, cfg, ca, kind, cp, cs, cd, consts=None,
-                     tconsts=None, checked: bool = False):
+                     tconsts=None, checked: bool = False, out=None,
+                     rows=None, n_rows=None, gate=None, want: int = 1):
     """→ (delta f32 [N], +inf where infeasible; feasible bool [N]) of the
     candidates (kind, cp, cs, cd) — the plain twin
     :func:`_score_candidates`.  ``consts`` / ``tconsts`` are the constant
     blocks of :func:`ops.grid.grid_consts` and :func:`ops.grid.terms_consts`
     (built here when not given).  ``checked=True`` skips the input checks:
     the step loop checks once per call, since its tensors keep their
-    types and shapes from step to step."""
+    types and shapes from step to step.
+
+    The incremental rescore's forms (plain twin
+    :func:`_score_candidates_into`): ``out`` = (delta, feasible) to write
+    into (the carry's leadership scores; ``feasible`` may be None, and is
+    then not written) instead of new tensors; ``rows``
+    (int32 [n]) with ``n_rows`` (int32 [1]) scores only the first
+    ``min(n, n_rows)`` candidates of that index list, each written at its
+    own index; ``gate`` (the step loop's carry) runs it only on an active
+    step whose FRESH flag is ``want``."""
+    if (rows is None) != (n_rows is None):
+        raise ValueError("score_candidates: rows and n_rows go together")
+    if out is None and (rows is not None or gate is not None):
+        raise ValueError("score_candidates: a row list or a gate writes "
+                         "into out")
     if kernels.on_cpu(cp):
-        return _score_candidates(m, cfg, ca, kind, cp, cs, cd)
+        if out is None:
+            return _score_candidates(m, cfg, ca, kind, cp, cs, cd)
+        return _score_candidates_into(m, cfg, ca, kind, cp, cs, cd, *out,
+                                      rows, n_rows, gate, want)
     dev = cp.device
     P, S = m.assignment.shape
     B = m.capacity.shape[0]
@@ -261,8 +304,26 @@ def score_candidates(m, cfg, ca, kind, cp, cs, cd, consts=None,
         chk(name, x, dt, shape)
     if has_cap and not checked:
         chk("broker_cload", m.broker_cload, f32, (B, R))
-    delta = torch.empty(N, dtype=f32, device=dev)
-    feasible = torch.empty(N, dtype=b8, device=dev)
+    if out is None:
+        delta = torch.empty(N, dtype=f32, device=dev)
+        feasible = torch.empty(N, dtype=b8, device=dev)
+    else:
+        delta, feasible = out
+    n = N
+    if rows is not None:
+        n = rows.shape[0]
+    for name, x, dt, shape in () if checked else (
+        *((("out", delta, f32, (N,)),) if out is not None else ()),
+        *((("feasible", feasible, b8, (N,)),)
+          if out is not None and feasible is not None else ()),
+        *((("rows", rows, i32, (n,)), ("n_rows", n_rows, i32, (1,)))
+          if rows is not None else ()),
+        *((("gate", gate, i32, (SS.NSTATE,)),) if gate is not None else ()),
+    ):
+        chk(name, x, dt, shape)
+    if n < 1:
+        return delta, feasible
+    ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
     err = _library().score_candidates_launch(
         m.assignment.data_ptr(), m.leader_slot.data_ptr(),
         m.offline_origin.data_ptr(), m.must_move.data_ptr(),
@@ -273,8 +334,8 @@ def score_candidates(m, cfg, ca, kind, cp, cs, cd, consts=None,
         m.leader_nwin.data_ptr(), m.pot_nwout.data_ptr(),
         m.rcount.data_ptr(), m.lcount.data_ptr(), kind.data_ptr(),
         cp.data_ptr(), cs.data_ptr(), cd.data_ptr(), consts.data_ptr(),
-        tconsts.data_ptr(), N, S, W, delta.data_ptr(), feasible.data_ptr(),
-        kernels.stream(dev),
+        tconsts.data_ptr(), n, S, W, delta.data_ptr(), ptr(feasible),
+        ptr(rows), ptr(n_rows), ptr(gate), int(want), kernels.stream(dev),
     )
     kernels.launched("score_candidates", err)
     score_candidates.launches += 1

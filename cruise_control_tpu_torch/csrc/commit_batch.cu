@@ -24,8 +24,19 @@
 // `cond_fn` :1400): the step's commits and its three diagnostic counts
 // into `counts[:, t]`, `done |= c == 0 && since_pool == 0`, the
 // `since_pool` update, `count += c`, `t += 1`, and the next step's
-// `active` and `need_pool`.  So a captured chunk of steps runs without a
-// host read: steps past the end of the search do nothing.
+// `active` (`t < min(T, t_cap)`: the call's step cap rides the carry) and
+// `need_pool`.  So a captured chunk of steps runs without a host read:
+// steps past the end of the search do nothing.
+//
+// The incremental rescore's marks (`incremental_rescore=True`; :1380-1388).
+// Given `tb` [B], `tpm` [P] and `marks` [3, M], an active step marks the
+// source and destination brokers (`tb`) and the partitions (`tpm`) of its
+// commits, for the next step's stale sets (K16) and patch (K17).  The
+// marks hold this step's commits only: this kernel first clears the ones
+// the step before set, read back from the lists it kept in `marks`
+// (partition, source, destination of each of its M commit slots, -1 where
+// none), so no step clears a [P] table.  An inactive step marks and clears
+// nothing; the step loop resets the tables and lists once a call.
 //
 // Exactness.  The plain twin (analyzer/commit_kernels.py:
 // _apply_batch_on_device) sums through ops/segment.py: each column of
@@ -141,6 +152,12 @@ __device__ __forceinline__ float* column(const Model& m, int b, int col) {
   return m.cload + (size_t)b * NR + (col - NR - 4);
 }
 
+struct Marks {
+  uint8_t* tb;                 // [B] brokers this step's commits touched
+  uint8_t* tpm;                // [P] partitions they moved
+  int* list;                   // [3, M]: partition, source, destination
+};
+
 struct Loop {
   int* state;                  // [NSTATE] the step loop's carry
   int* counts;                 // [4, T] commits and diagnostics a step
@@ -153,7 +170,7 @@ struct Loop {
 __global__ void __launch_bounds__(THREADS)
 commit_batch_kernel(Rows c, Model m, int C, int n2, int M_step, int B,
                     int S, int W, float* __restrict__ out, int slots,
-                    Loop lp, uint8_t* __restrict__ tpp,
+                    Loop lp, uint8_t* __restrict__ tpp, Marks mk,
                     long long* __restrict__ sums, int* __restrict__ c_step,
                     void* gws) {
   extern __shared__ unsigned long long sws[];
@@ -169,6 +186,17 @@ commit_batch_kernel(Rows c, Model m, int C, int n2, int M_step, int B,
     return;
   }
   const int count = lp.state[cc_state::COUNT];
+
+  // ---- the step before's marks cleared (its lists; -1 = no commit) ------
+  if (mk.tb != nullptr) {
+    for (int k = tid; k < M_step; k += nt) {
+      const int p = mk.list[k];
+      if (p < 0) continue;
+      mk.tpm[p] = 0;
+      mk.tb[mk.list[M_step + k]] = 0;
+      mk.tb[mk.list[2 * M_step + k]] = 0;
+    }
+  }
 
   // ---- merge the cohort and the auction; key the merged scores ----------
   for (int x = tid; x < B * ncol; x += nt) sums[x] = 0;
@@ -209,6 +237,20 @@ commit_batch_kernel(Rows c, Model m, int C, int n2, int M_step, int B,
     const bool ok = isfinite(from_ord32((unsigned)(key[k] >> 32)));
     take_f[i] = ok ? 1 : 0;
     if (ok) atomicAdd(&s_count, 1);
+    if (mk.tb != nullptr) {
+      // this step's marks (cleared above, a barrier before) and its lists
+      const int p = ok ? max(c.cand_p[i], 0) : -1;
+      const int sb = (int)max(c.cand_src[i], 0ll);
+      const int db = (int)max(win_dst(c, i), 0ll);
+      mk.list[k] = p;
+      mk.list[M_step + k] = sb;
+      mk.list[2 * M_step + k] = db;
+      if (ok) {
+        mk.tpm[p] = 1;
+        mk.tb[sb] = 1;
+        mk.tb[db] = 1;
+      }
+    }
     float* o = out + count + k;
     o[0] = c.is_move[i] ? (float)KIND_MOVE : (float)KIND_LEADERSHIP;
     o[slots] = (float)c.cand_p[i];
@@ -282,7 +324,8 @@ commit_batch_kernel(Rows c, Model m, int C, int n2, int M_step, int B,
     st[SINCE_POOL] = since;
     st[COUNT] = total;
     st[STEP] = t + 1;
-    st[ACTIVE] = !done && t + 1 < lp.T && total <= lp.slot_limit ? 1 : 0;
+    const int t_end = min(lp.T, st[T_CAP]);
+    st[ACTIVE] = !done && t + 1 < t_end && total <= lp.slot_limit ? 1 : 0;
     st[NEED_POOL] = since >= lp.repool ? 1 : 0;
   }
 }
@@ -302,7 +345,9 @@ long long commit_batch_workspace_bytes(int C) {
 // Launches K8 on `stream` (one block); `sums` is a [B, ncol] int64 scratch.
 // `state` is the step loop's carry (the write offset is its count),
 // `counts` its [4, T] meta; `slot_limit + M_step <= slots` keeps every
-// active step's rows inside `out`.  Returns the CUDA error code.
+// active step's rows inside `out`.  `tb`, `tpm` and `marks` ([3, M_step]
+// int32) are the incremental rescore's marks, all given or all null.
+// Returns the CUDA error code.
 int commit_batch_launch(const uint8_t* acc, const uint8_t* take_d,
                         const float* win_score_d, const long long* win_dst_d,
                         const float* cand_score, int R, const int* d0,
@@ -314,11 +359,14 @@ int commit_batch_launch(const uint8_t* acc, const uint8_t* take_d,
                         float* lcount, float* cload, int B, int S, int W,
                         float* out, int slots, int* state, int* counts,
                         const uint8_t* improving, int T, int repool,
-                        int slot_limit, uint8_t* tpp, long long* sums,
+                        int slot_limit, uint8_t* tpp, uint8_t* tb,
+                        uint8_t* tpm, int* marks, long long* sums,
                         int* c_step, void* gws, void* stream) {
   if (C < 1 || R < 1 || n2 < C || (n2 & (n2 - 1)) != 0 || M_step < 0 ||
       M_step > C || B < 1 || S < 1 || T < 1 || repool < 1 ||
       slot_limit < 0 || slot_limit + M_step > slots ||
+      (tb == nullptr) != (tpm == nullptr) ||
+      (tb == nullptr) != (marks == nullptr) ||
       W != (cload != nullptr ? 4 * NR + 1 : 2 * NR + 1)) {
     return (int)cudaErrorInvalidValue;
   }
@@ -327,12 +375,14 @@ int commit_batch_launch(const uint8_t* acc, const uint8_t* take_d,
   Model m{assignment, leader_slot, must_move, pload, load, leader_nwin,
           pot_nwout, rcount, lcount, cload};
   Loop lp{state, counts, improving, T, repool, slot_limit};
+  Marks mk{tb, tpm, marks};
   const int smem = gws == nullptr ? (int)commit_batch_workspace_bytes(C) : 0;
   cudaError_t e = cudaFuncSetAttribute(
       commit_batch_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   commit_batch_kernel<<<1, THREADS, smem, (cudaStream_t)stream>>>(
-      c, m, C, n2, M_step, B, S, W, out, slots, lp, tpp, sums, c_step, gws);
+      c, m, C, n2, M_step, B, S, W, out, slots, lp, tpp, mk, sums, c_step,
+      gws);
   return (int)cudaGetLastError();
 }
 

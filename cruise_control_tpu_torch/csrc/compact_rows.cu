@@ -79,6 +79,7 @@ struct In {
   const int* sb;           // [K]
   const int* leader_slot;  // [P]
   const float* pload;      // [P, W]
+  int dest_terms;          // vals holds score - src_term (the carry's dt)
 };
 
 struct Out {
@@ -117,7 +118,8 @@ __device__ void resolve_row(const In& in, const Out& out, int k, int crow,
     float sc;
     int dd;
     if (is_move) {
-      sc = valid ? st + (in.vals[(size_t)mr * R + r] - st) : INFINITY;
+      const float v = in.vals[(size_t)mr * R + r];
+      sc = valid ? (in.dest_terms ? st + v : st + (v - st)) : INFINITY;
       const int bd = in.best_d[(size_t)mr * R + r];
       dd = bd >= 0 ? in.dest_pool[bd] : -1;
     } else {
@@ -171,9 +173,8 @@ compact_rows_kernel(In in, Out out, int W, int NB, int Q, int B, int K,
   __shared__ int hist[BINS];
   __shared__ int warp_tot[WARPS];
   __shared__ unsigned s_prefix, s_mask;
-  __shared__ int s_need, s_count, s_base;
+  __shared__ int s_need, s_count;
   const int tid = threadIdx.x, nt = blockDim.x;
-  const int lane = tid & 31, warp = tid >> 5, nw = nt >> 5;
   const int QB = Q * B, NROW = QB + B;
 
   // ---- radix select: T = the C-th smallest score key; need = how many
@@ -205,31 +206,21 @@ compact_rows_kernel(In in, Out out, int W, int NB, int Q, int B, int K,
   // ---- gather exactly C keys: every row below T, the first `need` at T --
   const unsigned T = s_prefix;
   const int need = s_need;
-  if (tid == 0) {
-    s_count = 0;
-    s_base = 0;
-  }
+  if (tid == 0) s_count = 0;
   __syncthreads();
+  int base = 0;   // rows keyed T in earlier chunks (the same in every thread)
   for (int c0 = 0; c0 < NROW; c0 += nt) {
     const int i = c0 + tid;
     const unsigned h = i < NROW ? row_key(in, QB, i) : 0u;
     const bool eq = i < NROW && h == T;
-    const unsigned ball = __ballot_sync(FULL, eq);
-    if (lane == 0) warp_tot[warp] = __popc(ball);
-    __syncthreads();
-    int rank = s_base + __popc(ball & ((1u << lane) - 1u));
-    for (int w = 0; w < warp; ++w) rank += warp_tot[w];
+    int tot;
+    const int rank = base + block_count_before(eq, warp_tot, &tot);
     if (i < NROW && (h < T || (eq && rank < need))) {
       key[atomicAdd(&s_count, 1)] = ((unsigned long long)h << 32) | (unsigned)i;
     }
-    __syncthreads();
-    if (tid == 0) {
-      int tot = 0;
-      for (int w = 0; w < nw; ++w) tot += warp_tot[w];
-      s_base += tot;
-    }
-    __syncthreads();
+    base += tot;
   }
+  __syncthreads();
   for (int x = C + tid; x < n2; x += nt) key[x] = PAD;
   __syncthreads();
   bitonic_sort(key, n2);
@@ -278,8 +269,10 @@ compact_rows_kernel(In in, Out out, int W, int NB, int Q, int B, int K,
 extern "C" {
 
 // Launches K7 on `stream` (one block); `keys` is an [n2] u64 scratch in
-// device memory, or null to keep the keys in shared memory.  Returns the
-// CUDA error code.
+// device memory, or null to keep the keys in shared memory.  `dest_terms`:
+// `vals` holds the incremental rescore's destination terms, so a row's
+// scores are src_term + vals (else src_term + (vals - src_term)).  Returns
+// the CUDA error code.
 int compact_rows_launch(const float* q_scores, const int* q_rows,
                         const float* bl_score, const int* bl_p,
                         const int* bl_s, const int* bl_dst,
@@ -288,7 +281,8 @@ int compact_rows_launch(const float* q_scores, const int* q_rows,
                         const int* kp, const int* ks, const int* sb,
                         const int* leader_slot, const float* pload, int W,
                         int NB, int Q, int B, int K, int R, int C, int n2,
-                        float tol, uint8_t* is_move, float* cand_score,
+                        float tol, int dest_terms, uint8_t* is_move,
+                        float* cand_score,
                         int* cand_dst, long long* cand_src, int* cand_p,
                         int* cand_s, float* move_vec, uint8_t* qual,
                         long long* rep, uint8_t* improving, int* d0,
@@ -301,7 +295,8 @@ int compact_rows_launch(const float* q_scores, const int* q_rows,
     return (int)cudaErrorInvalidValue;
   }
   In in{q_scores, q_rows, bl_score, bl_p, bl_s, bl_dst, src_term, st_ld,
-        vals, best_d, dest_pool, kp, ks, sb, leader_slot, pload};
+        vals, best_d, dest_pool, kp, ks, sb, leader_slot, pload,
+        dest_terms};
   Out out{is_move, cand_score, cand_dst, cand_src, cand_p, cand_s,
           move_vec, qual, rep, improving, d0};
   const int smem = keys == nullptr ? n2 * (int)sizeof(unsigned long long) : 0;

@@ -37,46 +37,40 @@
 // a sorted top-8 of (score, j) in registers, and a warp-shuffle merge of
 // the 32 lists finishes the row.  Cost arithmetic runs only for cells that
 // pass the cheap integer feasibility test first.  [K, D] never reaches
-// device memory; only the [K, R] result is written.
+// device memory; only the [K, R] result is written.  The per-cell body
+// lives in csrc/grid_cell.cuh, which K17 (csrc/grid_patch.cu) compiles too.
+//
+// The incremental rescore (tpu_optimizer.py:1056-1073 `full_rescore` and
+// :1134-1144, the patch's part (b)).  With `incremental_rescore=True` the
+// step keeps each row's top-R as destination terms, dt = score - src_term,
+// in a carry; K1 then runs twice a step, each gated on the device carry
+// (csrc/step_common.cuh: gate_open): over every row when the step rescores
+// in full, and over the first n (<= RB) rows of a row list (K16's stale
+// rows) when it patches.  A gated launch whose gate is shut returns before
+// it stages anything; both write dt and pool indices into the carry at the
+// row's own index.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "grid_cell.cuh"
+#include "step_common.cuh"
+
 namespace {
 
-constexpr int NR = 4;      // resources (common/resources.py)
-constexpr int NW_IN = 1;
-constexpr int NW_OUT = 2;
-constexpr int TOPR = 8;    // DESTS_PER_SOURCE
-constexpr int MAX_S = 8;   // widest replica-slot axis the kernel takes
+using namespace cc_grid;
+
 constexpr int WARPS = 8;   // warps (source rows in flight) per block
-
-// packed column layouts — ops/grid.py builds the same
-constexpr int SF = 2 * NR + 4;   // src_f: move_load, cmove_load, l_delta,
-                                 //        lnwin_delta, pot_delta, src_term
-constexpr int DF = 4 * NR + 6;   // dst_f: capc, cap_lim, load, cload, lnwin,
-                                 //        pot, lcount, c_rc, c_rc_b, f_old
-constexpr int DI = 3;            // dst_i: broker, rack, flags
-constexpr int NC = 3 * NR + 9;   // consts (see ops/grid.py: grid_consts)
-
-// dst_f column offsets
-constexpr int F_CAPC = 0, F_LIM = NR, F_LOAD = 2 * NR, F_CLOAD = 3 * NR;
-constexpr int F_LNWIN = 4 * NR, F_POT = 4 * NR + 1, F_LCOUNT = 4 * NR + 2;
-constexpr int F_CRC = 4 * NR + 3, F_CRCB = 4 * NR + 4, F_FOLD = 4 * NR + 5;
-// consts offsets
-constexpr int C_ULO = 0, C_UUP = NR, C_THR = 2 * NR;
-constexpr int C_AVG_LC = 3 * NR, C_LC_UP = 3 * NR + 1, C_LC_LO = 3 * NR + 2;
-constexpr int C_LNW_UP = 3 * NR + 3, C_W_VAR = 3 * NR + 4;
-constexpr int C_W_BOUND = 3 * NR + 5, C_W_LC = 3 * NR + 6;
-constexpr int C_W_LNW = 3 * NR + 7, C_W_POT = 3 * NR + 8;
 
 __device__ __forceinline__ bool before(float a, int ia, float b, int ib) {
   return a < b || (a == b && ia < ib);
 }
 
-__device__ __forceinline__ float relu(float x) { return fmaxf(x, 0.0f); }
-
+// `rows`: null = row n is source row n (n < K); else row n is rows[n],
+// for n < min(K, *n_rows) (K is then the list's length).  `gate`: null =
+// always run; else only when cc_state::gate_open(gate, want).  `dest_terms`:
+// write score - src_term (the carry's destination terms), not the score.
 __global__ void __launch_bounds__(WARPS * 32)
 grid_top_r_kernel(const float* __restrict__ src_f,
                   const int* __restrict__ src_i,
@@ -84,16 +78,14 @@ grid_top_r_kernel(const float* __restrict__ src_f,
                   const int* __restrict__ dst_i,
                   const float* __restrict__ consts, int K, int D, int S,
                   int R, int has_cap, float* __restrict__ out_s,
-                  int* __restrict__ out_i) {
+                  int* __restrict__ out_i, const int* __restrict__ rows,
+                  const int* __restrict__ n_rows, const int* gate, int want,
+                  int dest_terms) {
+  if (gate != nullptr && !cc_state::gate_open(gate, want)) return;
   extern __shared__ float smem[];
   float* sf = smem;                                   // [DF][D]
   int* si = reinterpret_cast<int*>(smem + DF * D);    // [DI][D]
-  for (int x = threadIdx.x; x < D * DF; x += blockDim.x) {
-    sf[(x % DF) * D + x / DF] = dst_f[x];
-  }
-  for (int x = threadIdx.x; x < D * DI; x += blockDim.x) {
-    si[(x % DI) * D + x / DI] = dst_i[x];
-  }
+  stage_dests(dst_f, dst_i, nullptr, D, sf, si);
   float c[NC];
 #pragma unroll
   for (int q = 0; q < NC; ++q) c[q] = consts[q];
@@ -101,32 +93,12 @@ grid_top_r_kernel(const float* __restrict__ src_f,
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int SI = 3 * S + 2;
-  for (int k = blockIdx.x * WARPS + warp; k < K; k += gridDim.x * WARPS) {
-    const float* rf = src_f + (size_t)k * SF;
-    const int* ri = src_i + (size_t)k * SI;
-    float mv[NR], cmv[NR];
-#pragma unroll
-    for (int r = 0; r < NR; ++r) {
-      mv[r] = rf[r];
-      cmv[r] = rf[NR + r];
-    }
-    const float l_delta = rf[2 * NR];
-    const float lnwin_delta = rf[2 * NR + 1];
-    const float pot_delta = rf[2 * NR + 2];
-    const float src_term = rf[2 * NR + 3];
-    // slots past S pad with -1, which never equals a broker id or a rack
-    int row[MAX_S], orig[MAX_S], orack[MAX_S];
-#pragma unroll
-    for (int s = 0; s < MAX_S; ++s) {
-      row[s] = s < S ? ri[s] : -1;
-      orig[s] = s < S ? ri[S + s] : -1;
-      orack[s] = s < S ? ri[2 * S + s] : -1;
-    }
-    const int src = ri[3 * S];
-    const int rflags = ri[3 * S + 1];
-    const bool leader_now = (rflags & 1) != 0;
-    const bool row_ok = (rflags & 2) != 0;   // slot exists, not excluded
+  const int n_end = rows != nullptr ? min(K, *n_rows) : K;
+  for (int n = blockIdx.x * WARPS + warp; n < n_end;
+       n += gridDim.x * WARPS) {
+    const int k = rows != nullptr ? rows[n] : n;
+    SrcRow r;
+    load_src_row(src_f, src_i, k, S, r);
 
     float ts[TOPR];
     int ti[TOPR];
@@ -137,64 +109,7 @@ grid_top_r_kernel(const float* __restrict__ src_f,
     }
 
     for (int j = lane; j < D; j += 32) {
-      float score = INFINITY;
-      const int dc = si[j];
-      const int dflags = si[2 * D + j];
-      bool ok = row_ok && (dflags & 1) && src != dc &&
-                (!leader_now || (dflags & 2));
-      if (ok) {
-        const int drack = si[D + j];
-#pragma unroll
-        for (int s = 0; s < MAX_S; ++s) {
-          ok = ok && row[s] != dc && orig[s] != dc && orack[s] != drack;
-        }
-      }
-      float la[NR], cla[NR];
-      if (ok) {
-#pragma unroll
-        for (int r = 0; r < NR; ++r) {
-          la[r] = sf[(F_LOAD + r) * D + j] + mv[r];
-          cla[r] = has_cap ? sf[(F_CLOAD + r) * D + j] + cmv[r] : la[r];
-          ok = ok && cla[r] <= sf[(F_LIM + r) * D + j];
-        }
-      }
-      if (ok) {
-        float capc[NR], u[NR];
-#pragma unroll
-        for (int r = 0; r < NR; ++r) {
-          capc[r] = sf[(F_CAPC + r) * D + j];
-          u[r] = la[r] / capc[r];
-        }
-        float v = u[0] * u[0];
-        float b = relu(u[0] - c[C_UUP]) + relu(c[C_ULO] - u[0]);
-        float cu = has_cap ? cla[0] / capc[0] : u[0];
-        float o = relu(cu - c[C_THR]);
-#pragma unroll
-        for (int r = 1; r < NR; ++r) {
-          v = v + u[r] * u[r];
-          b = b + (relu(u[r] - c[C_UUP + r]) + relu(c[C_ULO + r] - u[r]));
-          cu = has_cap ? cla[r] / capc[r] : u[r];
-          o = o + relu(cu - c[C_THR + r]);
-        }
-        const float c_var = v * c[C_W_VAR];
-        const float c_bound = b * c[C_W_BOUND];
-        const float c_cap = o * 1000.0f;
-        const float lc = sf[F_LCOUNT * D + j] + l_delta;
-        const float t_lc = lc / c[C_AVG_LC] - 1.0f;
-        const float c_lc = t_lc * t_lc * c[C_W_LC];
-        const float c_lc_b =
-            (relu(lc - c[C_LC_UP]) + relu(c[C_LC_LO] - lc)) / c[C_AVG_LC] *
-            c[C_W_BOUND];
-        const float lnw = (sf[F_LNWIN * D + j] + lnwin_delta) / capc[NW_IN];
-        const float c_lnw = lnw * lnw * c[C_W_LNW];
-        const float c_lnw_b = relu(lnw - c[C_LNW_UP]) * c[C_W_BOUND];
-        const float pot_u = (sf[F_POT * D + j] + pot_delta) / capc[NW_OUT];
-        const float c_pot = relu(pot_u - c[C_THR + NW_OUT]) * c[C_W_POT];
-        const float f_new = c_var + c_bound + c_cap + sf[F_CRC * D + j] +
-                            c_lc + sf[F_CRCB * D + j] + c_lc_b + c_lnw +
-                            c_lnw_b + c_pot;
-        score = src_term + (f_new - sf[F_FOLD * D + j]);
-      }
+      const float score = cell_score(r, sf, si, D, j, c, has_cap);
       // sorted insert into this lane's running top-8 (j rises per lane)
       if (before(score, j, ts[TOPR - 1], ti[TOPR - 1])) {
         ts[TOPR - 1] = score;
@@ -218,7 +133,7 @@ grid_top_r_kernel(const float* __restrict__ src_f,
     // R <= D guarantees every pop is a real entry, never a sentinel)
     float my_s = INFINITY;
     int my_i = -1;
-    for (int r = 0; r < R; ++r) {
+    for (int q = 0; q < R; ++q) {
       float bs = ts[0];
       int bi = ti[0];
 #pragma unroll
@@ -230,22 +145,22 @@ grid_top_r_kernel(const float* __restrict__ src_f,
           bi = oi;
         }
       }
-      if (lane == r) {
+      if (lane == q) {
         my_s = bs;
         my_i = bi;
       }
       if (ti[0] == bi) {
 #pragma unroll
-        for (int q = 0; q < TOPR - 1; ++q) {
-          ts[q] = ts[q + 1];
-          ti[q] = ti[q + 1];
+        for (int t = 0; t < TOPR - 1; ++t) {
+          ts[t] = ts[t + 1];
+          ti[t] = ti[t + 1];
         }
         ts[TOPR - 1] = INFINITY;
         ti[TOPR - 1] = INT32_MAX;
       }
     }
     if (lane < R) {
-      out_s[(size_t)k * R + lane] = my_s;
+      out_s[(size_t)k * R + lane] = dest_terms ? my_s - r.src_term : my_s;
       out_i[(size_t)k * R + lane] = my_i;
     }
   }
@@ -268,13 +183,17 @@ void grid_top_r_layout(int* out) {
 }
 
 // Launches K1 on `stream`; returns the CUDA error code (0 = launched).
+// `rows` / `n_rows` (both or neither) restrict it to a row list, K its
+// length; `gate` (or null) and `want` gate it on the step loop's carry;
+// `dest_terms` writes score - src_term.
 int grid_top_r_launch(const float* src_f, const int* src_i,
                       const float* dst_f, const int* dst_i,
                       const float* consts, int K, int D, int S, int R,
                       int has_cap, int grid, float* out_s, int* out_i,
-                      void* stream) {
+                      const int* rows, const int* n_rows, const int* gate,
+                      int want, int dest_terms, void* stream) {
   if (K <= 0 || D <= 0 || S < 1 || S > MAX_S || R < 1 || R > TOPR ||
-      R > D || grid < 1) {
+      R > D || grid < 1 || (rows == nullptr) != (n_rows == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   const size_t smem = (size_t)(DF + DI) * D * sizeof(float);
@@ -283,7 +202,8 @@ int grid_top_r_launch(const float* src_f, const int* src_i,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
   grid_top_r_kernel<<<grid, WARPS * 32, smem, (cudaStream_t)stream>>>(
-      src_f, src_i, dst_f, dst_i, consts, K, D, S, R, has_cap, out_s, out_i);
+      src_f, src_i, dst_f, dst_i, consts, K, D, S, R, has_cap, out_s, out_i,
+      rows, n_rows, gate, want, dest_terms);
   return (int)cudaGetLastError();
 }
 

@@ -39,12 +39,21 @@
 // What the design does about it.  One thread per candidate, no shared
 // state and no synchronisation; the N threads in flight overlap their
 // gather latencies.
+//
+// The incremental rescore (tpu_optimizer.py:1063-1066 and :1145-1150, the
+// patch's part (c)).  With `incremental_rescore=True` the step keeps the
+// leadership scores in a carry and K6 runs twice a step, each gated on the
+// device carry (csrc/step_common.cuh: gate_open): over the whole pool when
+// the step rescores in full, and over the first n (<= LB) entries of an
+// index list (K16's stale entries) when it patches, each written at its
+// own index.  A launch whose gate is shut returns at once.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "score_common.cuh"
+#include "step_common.cuh"
 
 namespace {
 
@@ -61,16 +70,23 @@ score_candidates_kernel(Model m, const int* __restrict__ kind,
                         const float* __restrict__ consts,
                         const float* __restrict__ tconsts, int N, int S,
                         int W, float* __restrict__ delta,
-                        uint8_t* __restrict__ feasible) {
+                        uint8_t* __restrict__ feasible,
+                        const int* __restrict__ rows,
+                        const int* __restrict__ n_rows, const int* gate,
+                        int want) {
+  if (gate != nullptr && !cc_state::gate_open(gate, want)) return;
   float c[NC], t[NT];
 #pragma unroll
   for (int q = 0; q < NC; ++q) c[q] = consts[q];
 #pragma unroll
   for (int q = 0; q < NT; ++q) t[q] = tconsts[q];
-  for (int n = blockIdx.x * blockDim.x + threadIdx.x; n < N;
+  const int n_end = rows != nullptr ? min(N, *n_rows) : N;
+  for (int n = blockIdx.x * blockDim.x + threadIdx.x; n < n_end;
        n += gridDim.x * blockDim.x) {
-    score_one(m, c, t, kind[n], cp[n], cs[n], cd[n], S, W, delta + n,
-              feasible + n);
+    const int i = rows != nullptr ? rows[n] : n;
+    uint8_t ok;
+    score_one(m, c, t, kind[i], cp[i], cs[i], cd[i], S, W, delta + i, &ok);
+    if (feasible != nullptr) feasible[i] = ok;
   }
 }
 
@@ -86,6 +102,10 @@ void score_candidates_layout(int* out) {
 }
 
 // Launches K6 on `stream`; returns the CUDA error code (0 = launched).
+// `rows` / `n_rows` (both or neither) restrict it to the first
+// min(N, *n_rows) entries of an index list, N its length; `gate` (or null)
+// and `want` gate it on the step loop's carry; a null `feasible` is not
+// written.
 int score_candidates_launch(const int* assignment, const int* leader_slot,
                             const int* offline_origin,
                             const uint8_t* must_move, const float* pload,
@@ -97,8 +117,11 @@ int score_candidates_launch(const int* assignment, const int* leader_slot,
                             const int* kind, const int* cp, const int* cs,
                             const int* cd, const float* consts,
                             const float* tconsts, int N, int S, int W,
-                            float* delta, uint8_t* feasible, void* stream) {
+                            float* delta, uint8_t* feasible, const int* rows,
+                            const int* n_rows, const int* gate, int want,
+                            void* stream) {
   if (N < 1 || S < 1 || S > MAX_S ||
+      (rows == nullptr) != (n_rows == nullptr) ||
       (W != 2 * NR + 1 && W != 4 * NR + 1) ||
       ((W == 4 * NR + 1) != (cload != nullptr))) {
     return (int)cudaErrorInvalidValue;
@@ -108,7 +131,8 @@ int score_candidates_launch(const int* assignment, const int* leader_slot,
           pot_nwout,  rcount,      lcount};
   const int grid = (N + THREADS - 1) / THREADS;
   score_candidates_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      m, kind, cp, cs, cd, consts, tconsts, N, S, W, delta, feasible);
+      m, kind, cp, cs, cd, consts, tconsts, N, S, W, delta, feasible, rows,
+      n_rows, gate, want);
   return (int)cudaGetLastError();
 }
 

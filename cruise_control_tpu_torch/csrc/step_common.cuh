@@ -1,8 +1,9 @@
 // Helpers the step's kernels share: the order-preserving key of an f32
 // score, the order-free fixed-point scale of ops/segment.py, a bitonic
-// sort inside one block and the layout of the step loop's device carry.
-// One copy, so the kernels that must agree on an order or on a sum's bits
-// (K3, K4, K5, K7, K8, K9, K10, K11) cannot drift apart.
+// sort and a prefix count inside one block, and the layout of the step
+// loop's device carry.  One copy, so the kernels that must agree on an
+// order or on a sum's bits (K3, K4, K5, K7, K8, K9, K10, K11, K16) cannot
+// drift apart.
 
 #ifndef CRUISE_CONTROL_STEP_COMMON_CUH_
 #define CRUISE_CONTROL_STEP_COMMON_CUH_
@@ -61,17 +62,52 @@ __device__ void bitonic_sort(unsigned long long* key, int n2) {
   }
 }
 
+// The block-wide exclusive count of a flag over one chunk of blockDim.x
+// entries, one a thread in thread order: the set flags on lower threads,
+// and the chunk's total in `*total`.  Every thread of the block calls it;
+// `warp_tot` is a shared scratch of blockDim.x / 32 ints.  It ends on a
+// barrier, so the next call may reuse the scratch.  K7 gathers its kept
+// rows and K16 compacts its index lists in stable order with it.
+__device__ __forceinline__ int block_count_before(bool flag, int* warp_tot,
+                                                  int* total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  const unsigned ball = __ballot_sync(0xffffffffu, flag);
+  if (lane == 0) warp_tot[warp] = __popc(ball);
+  __syncthreads();
+  int before = __popc(ball & ((1u << lane) - 1u)), tot = 0;
+  for (int w = 0; w < nw; ++w) {
+    const int t = warp_tot[w];
+    before += w < warp ? t : 0;
+    tot += t;
+  }
+  __syncthreads();
+  *total = tot;
+  return before;
+}
+
 }  // namespace cc_step
 
 // The step loop's carry on the device: indices into the int32 state vector
 // (analyzer/step_state.py holds the same layout).  K8 advances it after each
-// step's commit; K10 and K11 act only when it asks for a repool.
+// step's commit; K10 and K11 act only when it asks for a repool; K16 decides
+// each incremental step's full rescore or patch.
 namespace cc_state {
 
 constexpr int DONE = 0, STEP = 1, COUNT = 2, SINCE_POOL = 3, PT_VALID = 4;
 constexpr int N_INCR = 5, ACTIVE = 6, NEED_POOL = 7, REPOOL = 8, FULL = 9;
 constexpr int N_REPOOL = 10;
+// the incremental rescore (K16 writes, K17 and the gated K1 / K6 read)
+// and the call's step cap (K8 reads)
+constexpr int SINCE_FULL = 11, N_OVF = 12, FRESH = 13, T_CAP = 14;
+constexpr int N_PATCH = 15;
 constexpr int NSTATE = 16;
+
+// Whether a kernel gated on the carry runs this step: the step is active
+// and its FRESH flag is `want` (1: the full rescore, 0: the patch).
+__device__ __forceinline__ bool gate_open(const int* state, int want) {
+  return state[ACTIVE] != 0 && state[FRESH] == want;
+}
 
 }  // namespace cc_state
 

@@ -29,6 +29,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from cruise_control_tpu_torch.analyzer import step_state as SS
 from cruise_control_tpu_torch.common.resources import (
     EMPTY_SLOT,
     NUM_RESOURCES,
@@ -324,7 +325,7 @@ def _library():
     if not getattr(lib, "_cc_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.grid_top_r_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, i,
-                                          p, p, p]
+                                          p, p, p, p, p, i, i, p]
         lib.grid_top_r_launch.restype = ctypes.c_int
         lib.grid_top_r_layout.argtypes = [ctypes.POINTER(ctypes.c_int)]
         lib.grid_top_r_layout.restype = None
@@ -369,13 +370,22 @@ def pack_grid_inputs(m, cfg, ca, dest_pool, terms, consts=None) -> dict:
                 has_cap=int(m.broker_cload is not None))
 
 
-def launch_grid_top_r(packed: dict, R: int):
+def launch_grid_top_r(packed: dict, R: int, out=None, rows=None,
+                      n_rows=None, gate=None, want: int = 1,
+                      dest_terms: bool = False):
     """K1's wrapper: launch ``csrc/grid_top_r.cu`` on K2's packed tables
     (:func:`grid_terms`) → (score f32 [K, R] ascending, pool index int32
     [K, R]), ties to the lowest pool index.  CUDA tensors only: the step
-    reaches K1 through :func:`grid_rescore`, which runs the plain twin
-    (:func:`grid_top_r_plain`) for CPU tensors.  Counts its launches in
-    ``launch_grid_top_r.launches``."""
+    reaches K1 through :func:`grid_rescore` (or :func:`grid_rescore_carry`),
+    which runs the plain twin for CPU tensors.  Counts its launches in
+    ``launch_grid_top_r.launches``.
+
+    The incremental rescore's forms: ``out`` = (score, index) [K, R] to
+    write into (the carry) instead of new tensors; ``rows`` (int32 [n]) with
+    ``n_rows`` (int32 [1] on the card) restricts it to the first
+    ``min(n, n_rows)`` rows of that list, each written at its own row;
+    ``gate`` (the step loop's carry) runs it only on an active step whose
+    FRESH flag is ``want``; ``dest_terms`` writes score − src_term."""
     K, D, S = packed["K"], packed["D"], packed["S"]
     if not 1 <= R <= min(_TOPR, D):
         raise ValueError(f"grid_top_r: R={R} outside [1, min({_TOPR}, D={D})]")
@@ -383,26 +393,41 @@ def launch_grid_top_r(packed: dict, R: int):
     if kernels.on_cpu(packed["dst_f"]):
         raise ValueError("grid_top_r: K1 takes CUDA tensors; grid_rescore "
                          "runs the plain twin for CPU tensors")
+    if (rows is None) != (n_rows is None):
+        raise ValueError("grid_top_r: rows and n_rows go together")
     _check_widths(S, D)
     _check("src_f", packed["src_f"], torch.float32, (K, _SF), dev)
     _check("src_i", packed["src_i"], torch.int32, (K, 3 * S + 2), dev)
     _check("dst_f", packed["dst_f"], torch.float32, (D, _DF), dev)
     _check("dst_i", packed["dst_i"], torch.int32, (D, _DI), dev)
     _check("consts", packed["consts"], torch.float32, (_NC,), dev)
-    out_s = torch.empty((K, R), dtype=torch.float32, device=dev)
-    out_i = torch.empty((K, R), dtype=torch.int32, device=dev)
-    if K == 0:
+    if out is None:
+        out_s = torch.empty((K, R), dtype=torch.float32, device=dev)
+        out_i = torch.empty((K, R), dtype=torch.int32, device=dev)
+    else:
+        out_s, out_i = out
+        _check("out_s", out_s, torch.float32, (K, R), dev)
+        _check("out_i", out_i, torch.int32, (K, R), dev)
+    n = K
+    if rows is not None:
+        n = rows.shape[0]
+        _check("rows", rows, torch.int32, (n,), dev)
+        _check("n_rows", n_rows, torch.int32, (1,), dev)
+    if gate is not None:
+        _check("gate", gate, torch.int32, (SS.NSTATE,), dev)
+    if n == 0:
         return out_s, out_i
     lib = _library()
     sms = kernels.sm_count(dev)
     per_sm = max(1, kernels.SMEM_LIMIT // ((_DF + _DI) * D * 4 + 1024))
-    grid = max(1, min(-(-K // _WARPS), sms * per_sm))
+    grid = max(1, min(-(-n // _WARPS), sms * per_sm))
+    ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
     err = lib.grid_top_r_launch(
         packed["src_f"].data_ptr(), packed["src_i"].data_ptr(),
         packed["dst_f"].data_ptr(), packed["dst_i"].data_ptr(),
-        packed["consts"].data_ptr(), K, D, S, R, packed["has_cap"], grid,
-        out_s.data_ptr(), out_i.data_ptr(),
-        kernels.stream(dev),
+        packed["consts"].data_ptr(), n, D, S, R, packed["has_cap"], grid,
+        out_s.data_ptr(), out_i.data_ptr(), ptr(rows), ptr(n_rows),
+        ptr(gate), int(want), int(dest_terms), kernels.stream(dev),
     )
     kernels.launched("grid_top_r", err)
     launch_grid_top_r.launches += 1
@@ -431,9 +456,12 @@ def terms_consts(cfg, ca, device) -> torch.Tensor:
 
 
 def grid_terms_plain(m, cfg, ca, kp, ks, dest_pool, consts=None) -> dict:
-    """Plain twin of K2: :func:`move_grid_terms`, then K1's packing."""
-    return pack_grid_inputs(m, cfg, ca, dest_pool,
-                            move_grid_terms(m, cfg, ca, kp, ks), consts)
+    """Plain twin of K2: :func:`move_grid_terms`, then K1's packing; the
+    dict also keeps the terms (``"terms"``) for the plain twins that take
+    K2's output on the CPU."""
+    terms = move_grid_terms(m, cfg, ca, kp, ks)
+    return dict(pack_grid_inputs(m, cfg, ca, dest_pool, terms, consts),
+                terms=terms)
 
 
 def _terms_library():
@@ -553,3 +581,41 @@ def grid_rescore(m, cfg, ca, kp, ks, dest_pool, R: int, consts=None,
     packed = grid_terms(m, cfg, ca, kp, ks, dest_pool, consts, tconsts)
     vals, idx = launch_grid_top_r(packed, R)
     return packed["src_f"][:, SRC_TERM_COL], vals, idx
+
+
+def grid_rescore_carry_plain(m, cfg, ca, kp, ks, dest_pool, packed, R: int,
+                             dt, bd, gate, want: int, rows=None,
+                             n_rows=None) -> None:
+    """Plain twin of K1's incremental-rescore forms (tpu_optimizer.py
+    :1056-1073 ``full_rescore``, :1134-1144 the patch's part (b)): unless
+    the carry ``gate`` says the step is inactive or its FRESH flag is not
+    ``want``, every row's top-R — or that of the first ``n_rows[0]`` rows
+    of the list ``rows``, their terms recomputed for those rows as the
+    reference does — as destination terms ``dt`` = score − src_term and
+    pool indices ``bd`` [K, R], written in place at each row.  ``packed``
+    is K2's output for (kp, ks, dest_pool) (:func:`grid_terms`)."""
+    if not (int(gate[SS.ACTIVE]) and int(gate[SS.FRESH]) == want):
+        return
+    src_term = packed["src_f"][:, SRC_TERM_COL]
+    if rows is None:
+        vals, idx = grid_top_r_plain(m, cfg, ca, kp, ks, dest_pool,
+                                     packed.get("terms"), R)
+        dt.copy_(vals - src_term[:, None])
+        bd.copy_(idx)
+        return
+    k = rows[:min(rows.shape[0], int(n_rows[0]))].long()
+    vals, idx = grid_top_r_plain(m, cfg, ca, kp[k], ks[k], dest_pool, None, R)
+    dt[k] = vals - src_term[k][:, None]
+    bd[k] = idx
+
+
+def grid_rescore_carry(m, cfg, ca, kp, ks, dest_pool, packed, R: int, dt,
+                       bd, gate, want: int, rows=None, n_rows=None) -> None:
+    """K1 into the incremental rescore's carry: the plain twin
+    :func:`grid_rescore_carry_plain` (same arguments) for CPU tensors, one
+    gated K1 launch (no host read) for CUDA tensors."""
+    if kernels.on_cpu(dest_pool):
+        return grid_rescore_carry_plain(m, cfg, ca, kp, ks, dest_pool, packed,
+                                        R, dt, bd, gate, want, rows, n_rows)
+    launch_grid_top_r(packed, R, out=(dt, bd), rows=rows, n_rows=n_rows,
+                      gate=gate, want=want, dest_terms=True)

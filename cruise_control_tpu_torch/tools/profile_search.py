@@ -1,8 +1,9 @@
 """Profile the port's plan search on the card: where a plan's time goes.
 
-    python3 -m cruise_control_tpu_torch.tools.profile_search
+    python3 -m cruise_control_tpu_torch.tools.profile_search [--incremental]
 
-Builds the seeded 1 000-broker / 20 000-partition fixture (seed 12, 20 racks,
+``--incremental`` profiles the search with ``incremental_rescore=True``
+(the default path otherwise).  Builds the seeded 1 000-broker / 20 000-partition fixture (seed 12, 20 racks,
 mean utilization 0.35), runs one warm-up
 plan, then one plan under ``torch.profiler`` (CPU + CUDA activities) and
 prints one JSON line: the plan's wall-clock, steps, device-busy time (the
@@ -17,6 +18,7 @@ of the same plan is printed beside it.  Needs a card.
 
 from __future__ import annotations
 
+import argparse
 import collections
 import json
 import time
@@ -44,17 +46,23 @@ def _busy_us(intervals) -> float:
     return total
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--incremental", action="store_true",
+                    help="profile incremental_rescore=True")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_search needs a CUDA card")
 
     from cruise_control_tpu_torch.analyzer.cuda_optimizer import (
         CudaGoalOptimizer,
+        CudaSearchConfig,
     )
     from cruise_control_tpu_torch.models.generators import random_cluster
 
     state = random_cluster(**FIXTURE)
-    opt = CudaGoalOptimizer()
+    opt = CudaGoalOptimizer(config=CudaSearchConfig(
+        incremental_rescore=args.incremental))
     opt.optimize(state)                                   # warm-up plan
     torch.cuda.synchronize()
     t = time.perf_counter()
@@ -114,13 +122,15 @@ def main() -> int:
     summ = plain.goal_summaries[0]
     print(json.dumps({
         "phase": "profile_search", "device": torch.cuda.get_device_name(0),
-        "fixture": FIXTURE, "steps": steps,
+        "fixture": FIXTURE, "incremental_rescore": args.incremental,
+        "steps": steps,
         "plain_wallclock_s": plain_s,
         "plain_timing_s": summ["timing_s"],
         # the step loop's reads of the card (carry reads and prefix
         # fetches), captured-chunk replays and repools, un-profiled plan
         "host_syncs": summ["host_syncs"], "scan_calls": summ["rounds"],
         "graph_replays": summ["graph_replays"], "repools": summ["repools"],
+        "n_overflow": summ["n_overflow"], "patch_steps": summ["patch_steps"],
         "profiled_graph_launches": cpu["cudaGraphLaunch"][1],
         "profiled_wallclock_s": wall_s, "device_busy_s": busy_s,
         "idle_share": 1.0 - busy_s / wall_s,

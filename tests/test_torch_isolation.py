@@ -37,11 +37,12 @@ def test_import_pulls_in_no_jax_and_no_reference():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["bad"] == [], res["bad"]
     # the probe really walked the package, the repool, step-loop,
-    # what-if, score-only round and corrected-cohort modules included
+    # what-if, score-only round, corrected-cohort and incremental-rescore
+    # modules included
     for mod in ("analyzer.cuda_optimizer", "ops.grid", "analyzer.pool_kernels",
                 "analyzer.step_graph", "analyzer.step_state", "whatif.engine",
                 "whatif.verdict_kernels", "analyzer.round_kernels",
-                "analyzer.corrected_kernel"):
+                "analyzer.corrected_kernel", "analyzer.rescore_kernels"):
         assert f"cruise_control_tpu_torch.{mod}" in res["modules"], mod
 
 
@@ -49,11 +50,19 @@ def test_default_device_without_card_raises(monkeypatch):
     from cruise_control_tpu_torch.analyzer.cuda_optimizer import (
         CudaGoalOptimizer,
     )
+    from cruise_control_tpu_torch.models.convert import (
+        cluster_state_from_numpy,
+        device_model_from_numpy,
+    )
     from cruise_control_tpu_torch.utils.device import resolve_device
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
         CudaGoalOptimizer()
+    # the carriers from numpy default to the card too
+    for carry in (cluster_state_from_numpy, device_model_from_numpy):
+        with pytest.raises(RuntimeError, match="cuda"):
+            carry({})
     with pytest.raises(RuntimeError):
         resolve_device("cuda:0")
     assert resolve_device("cpu").type == "cpu"

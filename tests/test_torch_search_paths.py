@@ -140,10 +140,12 @@ def test_polish_after_resident_search():
     {"scoring": "columnar"},
     {"polish_rounds": 2},
     {"cohort_mode": "corrected"},
+    {"incremental_rescore": True},
+    {"time_budget_s": 1.0},
 ])
 def test_ported_knobs_construct(knob):
-    """The four knobs of this path construct (they raised before their
-    kernels were ported); the rest still raise (tests/test_torch_engine.py
-    test_out_of_slice_knobs_raise)."""
+    """The knobs of the off-default paths construct (they raised before
+    their kernels were ported); the rest still raise
+    (tests/test_torch_engine.py test_out_of_slice_knobs_raise)."""
     opt = CudaGoalOptimizer(config=CudaSearchConfig(**knob), device="cpu")
     assert opt.config == CudaSearchConfig(**knob)
