@@ -10,15 +10,20 @@ Phases, each printing one JSON line; any failure exits non-zero:
 1. environment: the card (``nvidia-smi``), CUDA, the TF32 settings;
 2. build: every hand-written kernel compiled from ``csrc/`` (set-up time),
    one ``nvcc`` per source, all started together;
-3. kernels: each kernel against its plain PyTorch version on the card, on
-   the inputs the search's first step hands it — at the main path's
-   mid-scale shapes, with percentile capacity loads on, and on a ragged
-   case — with its wrapper time, its device time, the plain version's
-   time and the card's bound for the same work; the repool's tables (K10)
-   also in their incremental form; then the candidate scorer on moves and
-   transfers mixed, the compaction on 50 000 tie-rich keys, the aggregate
-   rebuild at 3 M replica slots and the top-k (K11) over a 3 M-slot
-   tie-rich priority; the kernels one repool launches, by name;
+3. kernels: first the kernels one repool launches, by name (exactly
+   K10's two and K11's three); then each kernel against its plain PyTorch
+   version on the card, on the inputs the search's first step hands it —
+   at the main path's mid-scale shapes, with percentile capacity loads
+   on, and on a ragged case — with its wrapper time, its device time, the
+   plain version's time and the card's bound for the same work (K1 and
+   K11 bit for bit, with their registers, spills and resident blocks an
+   SM); the repool's tables (K10) also in their incremental form; K1 in
+   its three forms and K17 at replication factors 1, 2, 4 and 8 (their
+   slot instances); then the candidate scorer on moves and transfers
+   mixed, the compaction on 50 000 tie-rich keys, the aggregate rebuild
+   at 3 M replica slots and the top-k (K11) over a 3 M-slot tie-rich
+   priority and at its edge cases (k = 1, every key equal, 4 097 keys,
+   tie-rich 60 000 → 8 192);
 4. the step loop: one scan call at mid-scale stepped eagerly (masked
    steps, chunk by chunk) and through captured CUDA-graph chunks, with
    identical results, and the host reads each made;
@@ -326,36 +331,18 @@ def grid_inputs(state, cfg_kw, dev):
 
 def check_grid_top_r(label, args, consts):
     """K1, on the tables K2 packs for it as the search does, against its
-    plain twin on the same inputs; returns the record."""
+    plain twin on the same inputs, bit for bit (scores and indices), with
+    the built instance's registers, spills and resident blocks an SM;
+    returns the record."""
     from cruise_control_tpu_torch.ops import grid as G
 
     m, cfg, ca, kp, ks, dest_pool, terms, R = args
     packed = G.grid_terms(m, cfg, ca, kp, ks, dest_pool, consts)
-    ks_, ki = G.launch_grid_top_r(packed, R)
+    got = G.launch_grid_top_r(packed, R)
     torch.cuda.synchronize()
-    ps, pi = G.grid_top_r_plain(*args)
+    want = G.grid_top_r_plain(*args)
+    bitwise(f"{label} grid_top_r", got, want)
     g = G.move_grid_scores(m, cfg, ca, kp, ks, dest_pool, terms=terms)
-    ks_, ki, ps, pi = (x.cpu() for x in (ks_, ki, ps, pi))
-    inf_k, inf_p = torch.isinf(ks_), torch.isinf(ps)
-    if not torch.equal(inf_k, inf_p):
-        raise AssertionError(f"{label}: +inf masks differ "
-                             f"({int((inf_k != inf_p).sum())} entries)")
-    fin = ~inf_p
-    err = float((ks_[fin] - ps[fin]).abs().max()) if fin.any() else 0.0
-    if not torch.allclose(ks_[fin], ps[fin], rtol=RTOL, atol=ATOL):
-        raise AssertionError(f"{label}: finite scores differ, max abs {err}")
-    # tie-free rows: the plain scores of ranks 0..R (R+1 entries) are
-    # pairwise separated by more than the tolerance
-    srt = torch.sort(g, dim=1, stable=True).values[:, : R + 1].cpu()
-    gaps = srt[:, 1:] - srt[:, :-1]
-    # (+inf entries order by index on both paths, so they never tie)
-    tie_free = ((gaps > ATOL + RTOL * srt[:, 1:].abs())
-                | torch.isinf(srt[:, 1:])).all(dim=1)
-    idx_eq = (ki == pi).all(dim=1)
-    if not bool(idx_eq[tie_free].all()):
-        raise AssertionError(
-            f"{label}: indices differ on {int((~idx_eq & tie_free).sum())} "
-            "tie-free rows")
     K, D = kp.shape[0], dest_pool.shape[0]
     S = m.assignment.shape[1]
     n_feasible = int(torch.isfinite(g).sum())
@@ -364,26 +351,97 @@ def check_grid_top_r(label, args, consts):
                         "grid_top_r_kernel") if label == "midscale" else None)
     plain_ms = cuda_ms(lambda: G.grid_top_r_plain(*args), reps=20)
     # least time for the same work: inputs read once, outputs written once;
-    # operations counted from the kernel source (ops/grid.py)
+    # the function's least operations (ops/grid.py: grid_top_r_ops)
     nbytes = (K * (G._SF + 3 * S + 2) + D * (G._DF + G._DI) + G._NC) * 4 \
         + K * R * 8
-    ops = G.grid_top_r_ops(K * D, n_feasible, S)
-    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
+    ops = G.grid_top_r_ops(K * D, n_feasible, S, D)
+    n = K
+    W, grid = G.grid_top_r_geometry(
+        n, D, torch.cuda.get_device_properties(0).multi_processor_count,
+        G.grid_top_r_attrs(S, packed["has_cap"], D)["blocks_per_sm"])
     rec = {
         "phase": "kernel", "case": label, "name": "grid_top_r",
         "K": K, "D": D, "S": S, "R": R, "feasible_cells": n_feasible,
-        "max_abs_err": err, "rows_identical": int(idx_eq.sum()),
-        "tie_free_rows": int(tie_free.sum()),
+        "percentile_cload": bool(packed["has_cap"]),
+        "max_abs_err": 0.0, "bit_equal": True,
+        "attrs": G.grid_top_r_attrs(S, packed["has_cap"], D),
+        "warps_a_row": W, "grid": grid,
         "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
-        "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes > t_ops else "operations",
-        "bytes": nbytes, "operations": ops,
-        "library_ms": None,
-        "library_note": "no single PyTorch call computes a masked grid "
-                        "score with a per-row top-R",
+        **bound(nbytes, ops), "library_ms": None,
+        "library_note": LIBRARY_NOTES["grid_top_r"],
     }
     emit(rec)
     return rec
+
+
+def check_slot_instances(dev):
+    """K1 in its three forms (the full grid, a row list, into the carry)
+    and K17 at replication factors 1, 2, 4 and 8 — each a compiled slot
+    instance (S = 3 runs in every other phase) — against their plain twins
+    bit for bit, on a 200-broker / 4 000-partition cluster's first-step
+    tables; K17 over 32 pool columns, 20 of them stale → the records."""
+    from cruise_control_tpu_torch.analyzer import rescore_kernels as RK
+    from cruise_control_tpu_torch.analyzer import step_state as SS
+    from cruise_control_tpu_torch.models.generators import random_cluster
+    from cruise_control_tpu_torch.ops import grid as G
+
+    recs = []
+    for S in (1, 2, 4, 8):
+        state = random_cluster(seed=5, num_brokers=200, num_racks=20,
+                               num_partitions=4000, replication_factor=S)
+        args, consts = grid_inputs(state, {}, dev)
+        m, cfg, ca, kp, ks, dp, terms, R = args
+        if m.assignment.shape[1] != S:
+            raise AssertionError(f"rf {S} cluster has {m.assignment.shape}")
+        packed = G.grid_terms(m, cfg, ca, kp, ks, dp, consts)
+        K, D = packed["K"], packed["D"]
+        bitwise(f"rf{S} grid_top_r", G.launch_grid_top_r(packed, R),
+                G.grid_top_r_plain(*args))
+        gate = torch.zeros(SS.NSTATE, dtype=torch.int32, device=dev)
+        gate[SS.ACTIVE] = 1
+        gate[SS.FRESH] = 1
+        carry = [torch.zeros((K, R), dtype=torch.float32, device=dev),
+                 torch.zeros((K, R), dtype=torch.int32, device=dev)]
+        twin = [t.clone() for t in carry]
+        G.grid_rescore_carry(m, cfg, ca, kp, ks, dp, packed, R, *carry, gate,
+                             1)
+        G.grid_rescore_carry_plain(m, cfg, ca, kp, ks, dp, packed, R, *twin,
+                                   gate, 1)
+        bitwise(f"rf{S} grid_top_r[carry_full]", carry, twin)
+        g = torch.Generator(device=dev).manual_seed(S)
+        rows = torch.randperm(K, generator=g, device=dev)[:64].to(
+            torch.int32)
+        n_rows = torch.tensor([37], dtype=torch.int32, device=dev)
+        patch = gate.clone()
+        patch[SS.FRESH] = 0
+        got = [t.clone() for t in carry]
+        want = [t.clone() for t in carry]
+        G.grid_rescore_carry(m, cfg, ca, kp, ks, dp, packed, R, *got, patch,
+                             0, rows, n_rows)
+        G.grid_rescore_carry_plain(m, cfg, ca, kp, ks, dp, packed, R, *want,
+                                   patch, 0, rows, n_rows)
+        bitwise(f"rf{S} grid_top_r[rows]", got, want)
+        cols = torch.full((32,), -1, dtype=torch.int32, device=dev)
+        cols[:20] = torch.randperm(D, generator=g, device=dev)[:20].to(
+            torch.int32)
+        tb = torch.rand(m.capacity.shape[0], generator=g, device=dev) < 0.1
+        got = [t.clone() for t in carry]
+        want = [t.clone() for t in carry]
+        RK.grid_patch(m, cfg, ca, kp, ks, dp, packed, cols, tb, *got, patch)
+        RK.grid_patch_plain(m, cfg, ca, kp, ks, dp, packed, cols, tb, *want,
+                            patch)
+        bitwise(f"rf{S} grid_patch", got, want)
+        rec = {"phase": "slot_instance", "S": S,
+               "instance": G.slot_instance(S), "K": K, "D": D,
+               "forms_bit_equal": ["grid_top_r", "grid_top_r[carry_full]",
+                                   "grid_top_r[rows]", "grid_patch"],
+               "stale_rows": 37, "stale_columns": 20,
+               "attrs": G.grid_top_r_attrs(S, packed["has_cap"], D),
+               "attrs_grid_patch": RK.grid_patch_attrs(S, packed["has_cap"],
+                                                       32)}
+        emit(rec)
+        recs.append(rec)
+    return recs
 
 
 def counters():
@@ -748,8 +806,10 @@ def check_pool_tables(label, args, kw, has_cap, timed):
 
 
 def check_top_select(label, name, args, kw, timed, has_cap=False):
-    """K11 against ``top_select_plain`` → {name: record}, with torch.topk
-    and a stable torch.sort on the same input timed beside it."""
+    """K11 against ``top_select_plain``, bit for bit, → {name: record},
+    with its grid, its registers, spills and resident blocks an SM, and
+    torch.topk and a stable torch.sort on the same input timed beside
+    it."""
     from cruise_control_tpu_torch.analyzer import pool_kernels as PK
 
     def outs(fn):
@@ -764,14 +824,17 @@ def check_top_select(label, name, args, kw, timed, has_cap=False):
     rec = record_kernel(
         label, name, outs(PK.top_select), outs(PK.top_select_plain), args,
         kw, {"percentile_cload": has_cap, "N": N, "k": k,
-             "blocks": PK.top_select_blocks(N, x.device),
+             "blocks": PK.top_select_grid(
+                 N, k, torch.cuda.get_device_properties(
+                     x.device).multi_processor_count),
+             "attrs": PK.top_select_attrs(k),
              "finite": int(torch.isfinite(x).sum())},
         # each key read once; the k indices (and slots, flat ids) out
         N * 4 + k * 4 * (1 + (lo is not None)) + k * 8 * (flat is not None),
-        # four radix passes, the count and the gather over N keys; the
-        # sort of the k kept
-        6 * N + k * log_k * (log_k + 1) // 2, timed=timed,
-        tag="top_select_kernel")
+        # three radix passes, the gather over N keys; the rank of the k
+        # kept (the least a comparison sort needs: k log2 k)
+        4 * N + k * log_k, timed=timed, tag="top_select_kernel",
+        exact=True)
     rec["library_ms"] = cuda_ms(lambda: torch.topk(x, k))
     rec["library_sort_ms"] = cuda_ms(
         lambda: torch.sort(x, descending=True, stable=True))
@@ -779,6 +842,25 @@ def check_top_select(label, name, args, kw, timed, has_cap=False):
           "library_ms": rec["library_ms"],
           "library_sort_ms": rec["library_sort_ms"]})
     return {name: rec}
+
+
+def check_top_select_cases(dev):
+    """K11 on the edge cases of its selection, each bit for bit against
+    ``top_select_plain`` (all three outputs): k = 1 of 60 000 tie-rich
+    keys, 60 000 equal keys → 8 192, one key past a block's slice (4 097 →
+    2 048) and the tie-rich ±0.0 / -inf keys at the main path's 60 000 →
+    8 192 (k = N is the repool's top-D, phase 3's ``top_select[dest]``; the
+    3 M-slot priority is ``top_select[3M]``) → {name: record}."""
+    recs = {}
+    for name, n, k, equal in (("top_select[k1]", 60_000, 1, False),
+                              ("top_select[all_equal]", 60_000, 8192, True),
+                              ("top_select[4097]", 4097, 2048, False),
+                              ("top_select[60k]", 60_000, 8192, False)):
+        args, kw = synthetic_priority(dev, n=n, k=k, seed=23)
+        if equal:
+            args = (torch.full((n,), 2.5, device=dev),) + args[1:]
+        recs.update(check_top_select("edge_cases", name, args, kw, False))
+    return recs
 
 
 def check_score_candidates(label, args, kw, has_cap, timed,
@@ -1046,15 +1128,24 @@ def repool_census(state, dev):
     st = C.StepState.empty(1, 1, 0, dev)
     st.state.copy_(st.initial(False))
     torch.cuda.synchronize()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        C._repool(m, ca, pb, st.state, -1)
+    # K10 launches on every call, so a window with no CUDA event at all is
+    # the profiler's miss, not the repool's: take the window again (once
+    # seen on the card after phase 3's other checks, never when repeated)
+    for attempt in range(1, 4):
+        st.state.copy_(st.initial(False))
         torch.cuda.synchronize()
-    names = [e.name for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            C._repool(m, ca, pb, st.state, -1)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            break
     ours = [n for n in names if "pool_tables_" in n or "top_select" in n]
     rec = {"phase": "repool_census", "kernels": len(names),
-           "hand_kernels": len(ours), "names": sorted(set(names))}
+           "hand_kernels": len(ours), "names": sorted(set(names)),
+           "profiler_windows": attempt}
     emit(rec)
     if len(names) != 5 or len(ours) != 5:
         raise AssertionError(f"a repool launched {names}, not K10's two "
@@ -1783,15 +1874,16 @@ def check_incremental_kernels(label, state, cfg_kw, dev, timed):
     recs["grid_patch"] = record_kernel(
         label, "grid_patch", after(RK.grid_patch, (9, 10)),
         after(RK.grid_patch_plain, (9, 10)), a17, kw17,
-        dict(base, R=R, feasible_cells=feas, stale_columns=n_stale),
+        dict(base, R=R, feasible_cells=feas, stale_columns=n_stale,
+             attrs=RK.grid_patch_attrs(S, has_cap, CB)),
         # each input once: K2's source rows, the list and the destination
         # rows of its stale columns, the constants, the stored (dt, bd)
         # and the pool entries and marks they index; (dt, bd) out
         src_b + CB * 4 + n_stale * 4 * (G._DF + G._DI) + 4 * G._NC
         + 2 * K * R * 8 + D * 4 + B,
-        # K1's cell count over the K · n_stale cells of the stale columns,
-        # one test a -1 column, and a compare per merged entry
-        G.grid_top_r_ops(K * n_stale, feas, S) + (CB - n_stale)
+        # K1's count over the K · n_stale cells of the stale columns, one
+        # test a -1 column, and a compare per merged entry
+        G.grid_top_r_ops(K * n_stale, feas, S, n_stale) + (CB - n_stale)
         + 2 * K * (R + n_stale),
         plain_kw={}, timed=timed, exact=True)
 
@@ -1820,8 +1912,8 @@ def check_incremental_kernels(label, state, cfg_kw, dev, timed):
             dict(base, rows=nrows, feasible_cells=nfeas),
             nrows * 4 * (G._SF + 3 * S + 2 + 1) + D * 4 * (G._DF + G._DI)
             + 4 * G._NC + nrows * R * 8,
-            G.grid_top_r_ops(nrows * D, nfeas, S), plain_kw={},
-            timed=timed and name.endswith("[rows]"), exact=True)
+            G.grid_top_r_ops(nrows * D, nfeas, S, D), plain_kw={},
+            timed=timed, exact=True)
     # the carry form writes the leadership scores only (no feasibility)
     ls, _ = kw6["out"]
     k6 = tuple(a6) + (ls, None, kw6["rows"], kw6["n_rows"], kw6["gate"], 0)
@@ -1844,8 +1936,7 @@ def check_incremental_kernels(label, state, cfg_kw, dev, timed):
             n * 16 + min(n, n_part) * (9 * S + 4 + 4 * W)
             + B * (4 * (NR * (3 if has_cap else 2) + 4) + 6)
             + 4 * (3 * NR + 16) + n * 4,
-            n * 400, plain_kw={}, timed=timed and name.endswith("[rows]"),
-            exact=True)
+            n * 400, plain_kw={}, timed=timed, exact=True)
 
     # K8 with the marks: it clears the step before's from its lists, then
     # marks this step's commits (the twin zeroes the tables and marks)
@@ -1878,7 +1969,7 @@ def check_incremental_kernels(label, state, cfg_kw, dev, timed):
         Cn * (39 + 4 + 4 * W) + 2 * B * ncol * 4 + n_commit * (4 + 1 + 16 + 1)
         + 2 * 3 * a8[11] * 4 + 3 * (prev + n_commit),
         Cn * log_c * (log_c + 1) // 2 + n_commit * 12 * ncol + 2 * B * ncol,
-        plain_kw={}, timed=False, exact=True)
+        plain_kw={}, timed=timed, exact=True)
     return recs
 
 
@@ -2202,6 +2293,7 @@ def main() -> int:
 
     # ---- kernels against their plain versions on the card ------------------
     mid = random_cluster(**MIDSCALE)
+    repool_census(mid, dev)
     args, consts = grid_inputs(mid, {}, dev)
     k1 = check_grid_top_r("midscale", args, consts)
     ragged = random_cluster(seed=5, num_brokers=77, num_racks=7,
@@ -2212,6 +2304,12 @@ def main() -> int:
             or not bool(rargs[0].must_move.any()):
         raise AssertionError(f"ragged case is not ragged: {rk}")
     del rargs
+    pk = check_grid_top_r("midscale_percentile",
+                          *grid_inputs(with_percentile(mid), {}, dev))
+    if not pk["percentile_cload"]:
+        raise AssertionError("percentile K1 case ran without capacity loads")
+    # K1 and K17 at the slot instances phase 3's clusters (S = 3) skip
+    check_slot_instances(dev)
     steps = {
         "midscale": check_step_kernels("midscale", mid, {}, dev),
         "midscale_percentile": check_step_kernels(
@@ -2239,8 +2337,8 @@ def main() -> int:
     extra.update(check_top_select("north_star_slots", "top_select[3M]",
                                   pargs, pkw, True))
     del pargs, pkw
+    extra.update(check_top_select_cases(dev))
     steps["extra"] = extra
-    repool_census(mid, dev)
     compare_scan_paths(mid, dev)
     del calls, margs, sargs
     # deterministic aggregates: two rebuilds agree to the bit
@@ -2363,8 +2461,8 @@ def main() -> int:
     # every case of a kernel, its variants ("name[...]") included
     errs = {n: max([r[c]["max_abs_err"] for r in cases for c in r
                     if c == n or c.startswith(n + "[")]
-                   + ([k1["max_abs_err"], rk["max_abs_err"]]
-                      if n == "grid_top_r" else []))
+                   + ([k1["max_abs_err"], rk["max_abs_err"],
+                       pk["max_abs_err"]] if n == "grid_top_r" else []))
             for n in KERNELS}
     line = []
     for name, replaces in KERNELS.items():
@@ -2383,6 +2481,7 @@ def main() -> int:
                if name in PATHS["incremental"] else {}),
             **({"library_sort_ms": rec["library_sort_ms"]}
                if "library_sort_ms" in rec else {}),
+            **({"attrs": rec["attrs"]} if "attrs" in rec else {}),
         })
     print(nvidia_smi(), flush=True)
     emit({"kernels": line})

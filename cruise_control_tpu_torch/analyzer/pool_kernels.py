@@ -45,11 +45,17 @@ from cruise_control_tpu_torch.ops.pools import (
     pool_row_tables_update,
 )
 
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I = ctypes.c_void_p, ctypes.c_int
 _INF = float("inf")
-#: K11's block width and the entries a block takes at least
+#: K11's block width, the entries a selecting block takes at least and
+#: the kept entries a block ranks (csrc/top_select.cu)
 _TOP_THREADS = 1024
 _TOP_PER_BLOCK = 4 * _TOP_THREADS
+_TOP_RANK = 64
+#: K11's zeroed workspace words (three passes' bins and the counters) and
+#: its static shared memory, bytes (bins, scan scratch, a few scalars)
+_TOP_CONTROL = 2048 + 2048 + 1024 + 8
+_TOP_STATIC_SMEM = 4 * (2048 + 33 + 3) + 1024
 #: widest replica-slot axis K10 keeps in registers (as K1)
 _MAX_S = 8
 
@@ -277,29 +283,48 @@ pool_tables.launches = 0
 # K11: exact top-k, ties to the lowest index
 # ---------------------------------------------------------------------------------
 
-def top_select_blocks(n: int, device) -> int:
-    """K11's grid over ``n`` entries: one block per 4 096 entries, at most
-    one per SM.  The launch caps it further at the blocks the card holds
-    at once and is cooperative, so its grid barriers never wait on a block
-    that is not resident: such a grid fails to launch and raises."""
-    return max(1, min(kernels.sm_count(device), -(-n // _TOP_PER_BLOCK)))
+def top_select_grid(n: int, k: int, sms: int) -> int:
+    """K11's grid for k kept of ``n`` entries on a card of ``sms`` SMs: a
+    block per 4 096 entries for the selection and a block per 64 kept
+    entries for the ranking, whichever is more, at most one an SM.  The
+    launch caps it further at the blocks the card holds at once and is
+    cooperative, so its grid barriers never wait on a block that is not
+    resident: such a grid fails to launch and raises."""
+    return max(1, min(sms, max(-(-n // _TOP_PER_BLOCK), -(-k // _TOP_RANK))))
 
 
 def top_select_words(k: int, n: int) -> int:
-    """int32 words of K11's workspace for k kept of n entries: the
-    kernel's control region, one count a block (at most one block per
-    4 096 entries) and the k selected keys."""
-    G = -(-n // _TOP_PER_BLOCK)
-    return 2 * ((4 * 256 + 16 + G + 1) // 2 + k)
+    """int32 words of K11's workspace for k kept of n entries, on any card:
+    the bins and counters (zero between launches), two counts a block of
+    the largest grid :func:`top_select_grid` gives, and the k kept keys
+    and indices (``top_select_ws_words`` in the kernel's source)."""
+    g = max(-(-n // _TOP_PER_BLOCK), -(-k // _TOP_RANK))
+    return _TOP_CONTROL + 2 * g + 2 * k
+
+
+def top_select_max_k() -> int:
+    """The most entries K11 keeps: its 1 024 threads' static shared memory
+    and the k kept keys (4 B each) staged for the ranking."""
+    return (kernels.SMEM_LIMIT - _TOP_STATIC_SMEM) // 4
+
+
+def top_select_attrs(k: int) -> dict:
+    """The built K11 for k kept, as the card reports it (registers and
+    spilled bytes a thread, static and dynamic shared bytes, resident
+    blocks an SM: :func:`ops.kernels.attrs`).  Needs the card."""
+    lib = kernels.bind("top_select", "top_select_attrs",
+                       [_I, ctypes.POINTER(ctypes.c_int)])
+    return kernels.attrs("top_select", lib.top_select_attrs, k)
 
 
 def top_select(x, hi, lo=None, flat=None, S: int = 1, state=None,
                ws=None):
     """The top-k of the plain twin :func:`top_select_plain` (same
-    arguments; the outputs are written in place).  On the card one launch
-    of :func:`top_select_blocks` blocks, no host read.  ``ws`` is a
-    workspace of at least :func:`top_select_words` int32 words, zero before
-    its first launch (the kernel leaves it so); None allocates one."""
+    arguments; the outputs are written in place).  On the card one
+    cooperative launch of :func:`top_select_grid` blocks, no host read;
+    k is at most :func:`top_select_max_k`.  ``ws`` is a workspace of at
+    least :func:`top_select_words` int32 words, zero before its first
+    launch (the kernel leaves it so); None allocates one."""
     if kernels.on_cpu(x):
         return top_select_plain(x, hi, lo, flat, S, state)
     dev = x.device
@@ -314,11 +339,9 @@ def top_select(x, hi, lo=None, flat=None, S: int = 1, state=None,
         chk("flat", flat, torch.int64, (k,))
     if state is not None:
         chk("state", state, i32, (SS.NSTATE,))
-    n2 = 1 << max(k - 1, 0).bit_length()
-    if not 1 <= k <= N or N >= 1 << 32 or S < 1 \
-            or n2 * 8 > kernels.SMEM_LIMIT - 4096:
+    if not 1 <= k <= min(N, top_select_max_k()) or N >= 1 << 31 or S < 1:
         raise ValueError(f"top_select: k={k} of N={N} (S={S}) out of range")
-    G = top_select_blocks(N, dev)
+    G = top_select_grid(N, k, kernels.sm_count(dev))
     words = top_select_words(k, N)
     if ws is None:
         ws = torch.zeros(words, dtype=i32, device=dev)
@@ -327,7 +350,7 @@ def top_select(x, hi, lo=None, flat=None, S: int = 1, state=None,
         raise ValueError(f"top_select: workspace must be a contiguous int32 "
                          f"tensor of at least {words} words on {dev}")
     lib = kernels.bind("top_select", "top_select_launch",
-                       [_P, _L, _I, _I] + [_P] * 5 + [_I, _P])
+                       [_P, _I, _I, _I] + [_P] * 5 + [_I, _P])
     err = lib.top_select_launch(
         x.data_ptr(), N, k, S, hi.data_ptr(),
         None if lo is None else lo.data_ptr(),

@@ -43,14 +43,17 @@ from cruise_control_tpu_torch.ops.grid import (
     _NC,
     _SF,
     _TOPR,
-    _WARPS,
     SRC_TERM_COL,
     _check_widths,
     move_grid_scores,
+    slot_instance,
 )
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _INF = float("inf")
+#: K17's warps (rows in flight) a block (csrc/grid_patch.cu: WARPS, which
+#: says why 8)
+_K17_WARPS = 8
 
 
 # ---------------------------------------------------------------------------------
@@ -207,14 +210,31 @@ def _k17_library():
     if not getattr(lib, "_cc_checked", False):
         lib.grid_patch_layout.argtypes = [ctypes.POINTER(ctypes.c_int)]
         lib.grid_patch_layout.restype = None
-        layout = (ctypes.c_int * 5)()
+        lib.grid_patch_attrs.argtypes = [_I, _I, _I,
+                                         ctypes.POINTER(ctypes.c_int)]
+        lib.grid_patch_attrs.restype = ctypes.c_int
+        layout = (ctypes.c_int * 6)()
         lib.grid_patch_layout(layout)
-        want = (_SF, _DF, _DI, _NC, _TOPR)
+        want = (_SF, _DF, _DI, _NC, _TOPR, _K17_WARPS)
         if tuple(layout) != want:
             raise RuntimeError(
                 f"grid_patch library layout {tuple(layout)} != {want}")
+        lib._cc_attrs = {}
         lib._cc_checked = True
     return lib
+
+
+def grid_patch_attrs(S: int, has_cap: int, CB: int) -> dict:
+    """The built K17 instance for S slots, capacity loads on or off, over
+    CB columns, as the card reports it (:func:`ops.kernels.attrs`: its
+    registers, spills, shared memory and resident blocks an SM).  Cached by
+    (instance, has_cap, CB); needs the card."""
+    lib = _k17_library()
+    key = (slot_instance(S), int(has_cap), CB)
+    if key not in lib._cc_attrs:
+        lib._cc_attrs[key] = kernels.attrs("grid_patch", lib.grid_patch_attrs,
+                                           S, int(has_cap), CB)
+    return lib._cc_attrs[key]
 
 
 def grid_patch(m, cfg, ca, kp, ks, dest_pool, packed, cidx, tb, dt, bd,
@@ -252,9 +272,9 @@ def grid_patch(m, cfg, ca, kp, ks, dest_pool, packed, cidx, tb, dt, bd,
         ):
             chk(name, x, dt_, shape)
     lib = _k17_library()
-    smem = (_DF + _DI + 1) * CB * 4
-    per_sm = max(1, kernels.SMEM_LIMIT // (smem + 1024))
-    grid = max(1, min(-(-K // _WARPS), kernels.sm_count(dev) * per_sm))
+    # a block per _K17_WARPS rows, in as many waves as the card needs
+    # (csrc/grid_patch.cu says why)
+    grid = -(-K // _K17_WARPS)
     err = lib.grid_patch_launch(
         packed["src_f"].data_ptr(), packed["src_i"].data_ptr(),
         packed["dst_f"].data_ptr(), packed["dst_i"].data_ptr(),

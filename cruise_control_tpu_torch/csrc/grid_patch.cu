@@ -29,16 +29,24 @@
 //
 // What bounds it.  Per row it reads K2's packed source row (~80 B) and its
 // stored R entries, and writes them back; per column one packed row
-// (~100 B): ~1.2 MB at K = 8 192, CB = 128, R = 8.  It does ~96
-// operations a cell (K1's count) over K·CB = 1 M cells: ~0.1 G
-// operations, ~1.5 us at 67 TFLOP/s f32 — operations bound it, by a
-// little.
+// (~100 B): ~1.2 MB at K = 8192, CB = 128, R = 8.  It does ~92
+// operations a feasible cell (K1's count, ops/grid.py: grid_top_r_ops)
+// over at most K·CB = 1 M cells: ~0.1 G operations, ~1.5 us at 67 TFLOP/s
+// f32 — operations bound it, by a little, when every column is stale.
 //
-// What the design does about it.  K1's shape: each block stages the CB
-// gathered columns in shared memory once (structure of arrays, ~13 KB at
-// CB = 128), then a warp per row: lane 0 seeds its running top-8 with the
-// row's stored entries, the 32 lanes split the columns, and a
-// warp-shuffle merge of the 32 lists keeps R.
+// What the design does about it.  K1's first shape: each block stages the
+// CB gathered columns in shared memory once (grid_cell.cuh: stage_dests,
+// ~15 KB at CB = 128), then a warp per row: lane 0 seeds its running top-8
+// with the row's stored entries, the 32 lanes split the columns, and a
+// warp-shuffle merge of the 32 lists keeps R.  The cell is K1's, compiled
+// for the cluster's slot count and capacity loads (grid_cell.cuh:
+// with_cell_instance).  Blocks are of 8 warps, not K1's 32, and there is
+// a block per 8 rows, not one persistent wave: the staged table is small
+// (CB columns, ~15 KB, not K1's D columns, ~116 KB), so restaging it in
+// each block costs little.  The registers a thread, not the table, cap
+// the blocks an SM (grid_patch_attrs reports them); launched as one wave
+// of that many blocks instead, K17 measured no faster (PERF.md §6,
+// tools/time_kernels.py on two trees in turns).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -88,6 +96,7 @@ __device__ __forceinline__ void insert(unsigned* tk, int* tp, float* tv,
   }
 }
 
+template <int NS, int CAP>
 __global__ void __launch_bounds__(WARPS * 32)
 grid_patch_kernel(const float* __restrict__ src_f,
                   const int* __restrict__ src_i,
@@ -97,14 +106,12 @@ grid_patch_kernel(const float* __restrict__ src_f,
                   const int* __restrict__ cidx,
                   const int* __restrict__ dest_pool,
                   const uint8_t* __restrict__ tb, int K, int CB, int S,
-                  int R, int has_cap, float* __restrict__ dt,
+                  int R, float* __restrict__ dt,
                   int* __restrict__ bd, const int* state) {
   if (!cc_state::gate_open(state, 0)) return;
-  extern __shared__ float smem[];
-  float* sf = smem;                                    // [DF][CB]
-  int* si = reinterpret_cast<int*>(smem + DF * CB);    // [DI][CB]
-  int* scol = si + DI * CB;                            // [CB]
-  stage_dests(dst_f, dst_i, cidx, CB, sf, si);
+  extern __shared__ float st[];                        // [CB][CST]
+  int* scol = reinterpret_cast<int*>(st + CST * CB);   // [CB]
+  stage_dests(dst_f, dst_i, cidx, CB, consts, st);
   for (int x = threadIdx.x; x < CB; x += blockDim.x) scol[x] = cidx[x];
   float c[NC];
 #pragma unroll
@@ -114,7 +121,7 @@ grid_patch_kernel(const float* __restrict__ src_f,
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   for (int k = blockIdx.x * WARPS + warp; k < K; k += gridDim.x * WARPS) {
-    SrcRow r;
+    SrcRow<NS, CAP> r;
     load_src_row(src_f, src_i, k, S, r);
     unsigned tk[TOPR];
     int tp[TOPR];
@@ -136,7 +143,7 @@ grid_patch_kernel(const float* __restrict__ src_f,
       }
     }
     for (int x = lane; x < CB; x += 32) {
-      const float v = cell_score(r, sf, si, CB, x, c, has_cap) - r.src_term;
+      const float v = cell_score(r, st, x, c) - r.src_term;
       insert(tk, tp, tv, tot32(v), R + x, v);
     }
 
@@ -189,17 +196,51 @@ grid_patch_kernel(const float* __restrict__ src_f,
   }
 }
 
+// the CB staged columns and their pool indices
+size_t grid_patch_smem(int CB) {
+  return (size_t)(CST + 1) * CB * sizeof(float);
+}
+
 }  // namespace
 
 extern "C" {
 
-// {SF, DF, DI, NC, TOPR}: the wrapper checks its packing against them.
+// {SF, DF, DI, NC, TOPR, WARPS}: the wrapper checks its packing and its
+// launch against them.
 void grid_patch_layout(int* out) {
   out[0] = SF;
   out[1] = DF;
   out[2] = DI;
   out[3] = NC;
   out[4] = TOPR;
+  out[5] = WARPS;
+}
+
+// The instance of (S, has_cap)'s resources over CB columns: {registers a
+// thread, local (spilled) bytes a thread, static shared bytes, dynamic
+// shared bytes, resident blocks an SM}.  Returns the CUDA error code.
+int grid_patch_attrs(int S, int has_cap, int CB, int* out) {
+  if (S < 1 || S > MAX_S || CB < 1) return (int)cudaErrorInvalidValue;
+  return with_cell_instance(S, has_cap, [&](auto ns, auto cap) -> int {
+    const void* fn = (const void*)
+        grid_patch_kernel<decltype(ns)::value, decltype(cap)::value>;
+    const size_t smem = grid_patch_smem(CB);
+    cudaError_t e = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    cudaFuncAttributes a;
+    if ((e = cudaFuncGetAttributes(&a, fn)) != cudaSuccess) return (int)e;
+    int per_sm = 0;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn,
+                                                      WARPS * 32, smem);
+    if (e != cudaSuccess) return (int)e;
+    out[0] = a.numRegs;
+    out[1] = (int)a.localSizeBytes;
+    out[2] = (int)a.sharedSizeBytes;
+    out[3] = (int)smem;
+    out[4] = per_sm;
+    return 0;
+  });
 }
 
 // Launches K17 on `stream`; `dt` / `bd` [K, R] are the carry, updated in
@@ -215,15 +256,19 @@ int grid_patch_launch(const float* src_f, const int* src_i,
       R > TOPR || R > D || B < 1 || grid < 1) {
     return (int)cudaErrorInvalidValue;
   }
-  const size_t smem = (size_t)(DF + DI + 1) * CB * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(
-      grid_patch_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  grid_patch_kernel<<<grid, WARPS * 32, smem, (cudaStream_t)stream>>>(
-      src_f, src_i, dst_f, dst_i, consts, cidx, dest_pool, tb, K, CB, S, R,
-      has_cap, dt, bd, state);
-  return (int)cudaGetLastError();
+  const size_t smem = grid_patch_smem(CB);
+  return with_cell_instance(S, has_cap, [&](auto ns, auto cap) -> int {
+    constexpr int NS = decltype(ns)::value, CAP = decltype(cap)::value;
+    cudaError_t e = cudaFuncSetAttribute(
+        grid_patch_kernel<NS, CAP>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    grid_patch_kernel<NS, CAP><<<grid, WARPS * 32, smem,
+                                 (cudaStream_t)stream>>>(
+        src_f, src_i, dst_f, dst_i, consts, cidx, dest_pool, tb, K, CB, S, R,
+        dt, bd, state);
+    return (int)cudaGetLastError();
+  });
 }
 
 }  // extern "C"

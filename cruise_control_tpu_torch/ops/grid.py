@@ -225,29 +225,71 @@ _DI = 3
 _NC = 3 * _NR + 9
 _TOPR = 8
 _MAX_S = 8
-_WARPS = 8
+#: K1's warps a block (csrc/grid_top_r.cu) and the words of a staged
+#: destination row (csrc/grid_cell.cuh: CST)
+_WARPS = 32
+_CST = _DF + 7
+#: K1's static shared memory: each warp's top-R candidates (f32, int32)
+_K1_STATIC_SMEM = _WARPS * _TOPR * 8
 #: K2's extra constant block (:func:`terms_consts`)
 _NT = 7
 #: src_f column of the source term (K1 layout)
 SRC_TERM_COL = _SF - 1
 
-#: operations per (k, d) cell, counted from the kernel source: the
-#: feasibility test (dest flags, src != dest, lead_ok; three compares per
-#: replica slot; an add and a compare per resource of the capacity test)
-#: and the running top-8 compare are charged to every cell; the inlined
-#: broker_cost and the score (83 operations, a division counted as one)
-#: to feasible cells only
+#: the least operations K1's function needs, counted on csrc/grid_cell.cuh:
+#: every cell pays the feasibility test (dest flags, src != dest, lead_ok;
+#: three compares per replica slot; an add and a compare per resource of
+#: the capacity test) and the running top-8 compare; a feasible cell pays
+#: the inlined broker_cost and the score (71 operations, a division
+#: counted as one); and a destination column pays its two leader-count
+#: cost terms (12 operations) for each leader delta a source row can bring,
+#: 0 and 1, once a launch and not once a cell
 GRID_CELL_OPS_PER_SLOT = 3
 GRID_CELL_OPS = 4 + 2 * _NR
-GRID_FEASIBLE_OPS = 83
+GRID_FEASIBLE_OPS = 71
+GRID_COLUMN_OPS = 2 * 12
 
 
-def grid_top_r_ops(n_cells: int, n_feasible: int, slots: int) -> int:
-    """Arithmetic operations K1 does for a grid of ``n_cells`` cells of
-    which ``n_feasible`` are feasible (the data decide how many pay for
-    the cost arithmetic)."""
+def grid_top_r_ops(n_cells: int, n_feasible: int, slots: int,
+                   n_cols: int) -> int:
+    """Arithmetic operations of a grid of ``n_cells`` cells, ``n_feasible``
+    of them feasible (the data decide how many pay for the cost
+    arithmetic), over ``n_cols`` destination columns."""
     return (n_cells * (GRID_CELL_OPS + GRID_CELL_OPS_PER_SLOT * slots)
-            + n_feasible * GRID_FEASIBLE_OPS)
+            + n_feasible * GRID_FEASIBLE_OPS + n_cols * GRID_COLUMN_OPS)
+
+
+def slot_instance(S: int) -> int:
+    """The replica slots of the K1 / K17 instance that runs a cluster of S
+    slots: 1, 2, 3 and 4 exactly, 5-8 on the instance of 8 (padded slots
+    never match; csrc/grid_cell.cuh: slot_instance).  Each is built with
+    and without capacity loads."""
+    if not 1 <= S <= _MAX_S:
+        raise ValueError(f"grid_top_r: replica slots S={S} outside "
+                         f"[1, {_MAX_S}]")
+    return S if S <= 4 else _MAX_S
+
+
+def grid_top_r_smem(D: int) -> int:
+    """Dynamic shared memory (bytes) of a K1 block over D destinations:
+    one staged row of ``_CST`` words a destination."""
+    return _CST * D * 4
+
+
+def grid_top_r_geometry(n: int, D: int, sms: int,
+                        per_sm: int) -> Tuple[int, int]:
+    """K1's launch over a list of ``n`` rows (the full grid's K, or a row
+    list's capacity) and D destinations, on ``sms`` SMs that each hold
+    ``per_sm`` blocks → (W, grid): W warps a row, a power of two, as many
+    as the card's warps allow for ``n`` rows, at most one a 32
+    destinations and at most a block's warps; and one persistent wave of
+    at most ``sms · per_sm`` blocks of ``_WARPS / W`` rows."""
+    card = sms * max(per_sm, 1) * _WARPS
+    W = 1
+    while 2 * W <= _WARPS and 2 * W * n <= card and 2 * W * 32 <= D:
+        W *= 2
+    groups = _WARPS // W
+    return W, max(1, min(-(-n // groups), sms * max(per_sm, 1)))
 
 
 def grid_top_r_plain(m, cfg, ca, kp, ks, dest_pool, terms, R: int):
@@ -324,27 +366,43 @@ def _library():
     lib = kernels.load("grid_top_r")
     if not getattr(lib, "_cc_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.grid_top_r_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, i,
-                                          p, p, p, p, p, i, i, p]
+        lib.grid_top_r_launch.argtypes = [p] * 5 + [i] * 7 + [p] * 5 + \
+            [i, i, p]
         lib.grid_top_r_launch.restype = ctypes.c_int
         lib.grid_top_r_layout.argtypes = [ctypes.POINTER(ctypes.c_int)]
         lib.grid_top_r_layout.restype = None
-        layout = (ctypes.c_int * 7)()
+        lib.grid_top_r_attrs.argtypes = [i, i, i,
+                                         ctypes.POINTER(ctypes.c_int)]
+        lib.grid_top_r_attrs.restype = ctypes.c_int
+        layout = (ctypes.c_int * 8)()
         lib.grid_top_r_layout(layout)
-        want = (_SF, _DF, _DI, _NC, _TOPR, _MAX_S, _WARPS)
+        want = (_SF, _DF, _DI, _NC, _TOPR, _MAX_S, _WARPS, _CST)
         if tuple(layout) != want:
             raise RuntimeError(
                 f"grid_top_r library layout {tuple(layout)} != {want}")
+        lib._cc_attrs = {}
         lib._cc_typed = True
     return lib
 
 
+def grid_top_r_attrs(S: int, has_cap: int, D: int) -> dict:
+    """The built K1 instance for S slots, capacity loads on or off, at D
+    destinations, as the card reports it: registers and spilled (local)
+    bytes a thread, static and dynamic shared bytes, and the blocks an SM
+    holds at once.  Cached by (instance, has_cap, D); needs the card."""
+    lib = _library()
+    key = (slot_instance(S), int(has_cap), D)
+    if key not in lib._cc_attrs:
+        lib._cc_attrs[key] = kernels.attrs("grid_top_r", lib.grid_top_r_attrs,
+                                           S, int(has_cap), D)
+    return lib._cc_attrs[key]
+
+
 def _check_widths(S: int, D: int) -> None:
-    if not 1 <= S <= _MAX_S:
-        raise ValueError(f"grid_top_r: replica slots S={S} outside [1, {_MAX_S}]")
-    if (_DF + _DI) * D * 4 > kernels.SMEM_LIMIT:
+    slot_instance(S)
+    if grid_top_r_smem(D) + _K1_STATIC_SMEM > kernels.SMEM_LIMIT:
         raise ValueError(
-            f"grid_top_r: D={D} destinations need {(_DF + _DI) * D * 4} B "
+            f"grid_top_r: D={D} destinations need {grid_top_r_smem(D)} B "
             f"of shared memory (limit {kernels.SMEM_LIMIT})")
 
 
@@ -375,7 +433,9 @@ def launch_grid_top_r(packed: dict, R: int, out=None, rows=None,
                       dest_terms: bool = False):
     """K1's wrapper: launch ``csrc/grid_top_r.cu`` on K2's packed tables
     (:func:`grid_terms`) → (score f32 [K, R] ascending, pool index int32
-    [K, R]), ties to the lowest pool index.  CUDA tensors only: the step
+    [K, R]), ties to the lowest pool index: the instance of the cluster's
+    slot count (:func:`slot_instance`), in the geometry of
+    :func:`grid_top_r_geometry`.  CUDA tensors only: the step
     reaches K1 through :func:`grid_rescore` (or :func:`grid_rescore_carry`),
     which runs the plain twin for CPU tensors.  Counts its launches in
     ``launch_grid_top_r.launches``.
@@ -418,14 +478,13 @@ def launch_grid_top_r(packed: dict, R: int, out=None, rows=None,
     if n == 0:
         return out_s, out_i
     lib = _library()
-    sms = kernels.sm_count(dev)
-    per_sm = max(1, kernels.SMEM_LIMIT // ((_DF + _DI) * D * 4 + 1024))
-    grid = max(1, min(-(-n // _WARPS), sms * per_sm))
+    per_sm = grid_top_r_attrs(S, packed["has_cap"], D)["blocks_per_sm"]
+    W, grid = grid_top_r_geometry(n, D, kernels.sm_count(dev), per_sm)
     ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
     err = lib.grid_top_r_launch(
         packed["src_f"].data_ptr(), packed["src_i"].data_ptr(),
         packed["dst_f"].data_ptr(), packed["dst_i"].data_ptr(),
-        packed["consts"].data_ptr(), n, D, S, R, packed["has_cap"], grid,
+        packed["consts"].data_ptr(), n, D, S, R, packed["has_cap"], W, grid,
         out_s.data_ptr(), out_i.data_ptr(), ptr(rows), ptr(n_rows),
         ptr(gate), int(want), int(dest_terms), kernels.stream(dev),
     )

@@ -135,6 +135,24 @@ def launched(kernel: str, err: int) -> None:
         raise RuntimeError(f"{kernel}: kernel launch failed (CUDA error {err})")
 
 
+#: what a kernel's ``*_attrs`` C function reports, in its order
+ATTR_KEYS = ("registers", "local_bytes", "static_smem", "dynamic_smem",
+             "blocks_per_sm")
+
+
+def attrs(kernel: str, fn, *args) -> Dict[str, int]:
+    """Call a kernel's exported ``*_attrs(args..., int* out)`` — its
+    ``cudaFuncGetAttributes`` and ``cudaOccupancyMaxActiveBlocksPer
+    Multiprocessor`` at the given shape — and name the five numbers
+    (:data:`ATTR_KEYS`)."""
+    out = (ctypes.c_int * len(ATTR_KEYS))()
+    err = fn(*args, out)
+    if err != 0:
+        raise RuntimeError(f"{kernel}: attributes query failed (CUDA error "
+                           f"{err})")
+    return dict(zip(ATTR_KEYS, out))
+
+
 def on_cpu(x: torch.Tensor) -> bool:
     """Whether a wrapper handed ``x`` runs its kernel's plain twin: exactly
     when ``x`` lies on the CPU.  A CUDA tensor launches the kernel or

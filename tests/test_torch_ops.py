@@ -154,9 +154,12 @@ def test_grid_top_r_plain_matches_reference(case):
 
 
 def test_grid_top_r_ops_counts_cells():
-    assert grid.grid_top_r_ops(10, 0, 3) == 10 * (grid.GRID_CELL_OPS + 9)
-    assert (grid.grid_top_r_ops(10, 4, 3) - grid.grid_top_r_ops(10, 0, 3)
-            == 4 * grid.GRID_FEASIBLE_OPS)
+    assert grid.grid_top_r_ops(10, 0, 3, 0) == 10 * (grid.GRID_CELL_OPS + 9)
+    assert (grid.grid_top_r_ops(10, 4, 3, 0)
+            - grid.grid_top_r_ops(10, 0, 3, 0) == 4 * grid.GRID_FEASIBLE_OPS)
+    # the leader-count terms: two a column, once a launch, not once a cell
+    assert (grid.grid_top_r_ops(10, 4, 3, 5)
+            - grid.grid_top_r_ops(10, 4, 3, 0) == 5 * 2 * 12)
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
