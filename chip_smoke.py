@@ -21,7 +21,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
    its three forms and K17 at replication factors 1, 2, 4 and 8 (their
    slot instances); then the candidate scorer on moves and transfers
    mixed, the compaction on 50 000 tie-rich keys, the aggregate rebuild
-   at 3 M replica slots and the top-k (K11) over a 3 M-slot tie-rich
+   (K9, bit for bit, with its launches' device times) at 3 M replica
+   slots and on a skewed placement (one broker hosting a quarter of the
+   slots, mean and capacity loads), and the top-k (K11) over a 3 M-slot
+   tie-rich
    priority and at its edge cases (k = 1, every key equal, 4 097 keys,
    tie-rich 60 000 → 8 192);
 4. the step loop: one scan call at mid-scale stepped eagerly (masked
@@ -38,9 +41,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
    repool), the host reads per scan call and the graph replays;
 7. what-if: the verdict kernel (K12) against its plain version, bit for
    bit on every output, at 50 brokers / 1 000 partitions × 64 futures,
-   1 000 / 20 000 × 64 and × 256 (the futures cap), on the ragged case and
-   at the north star's 10 000 brokers / 1 000 000 partitions × 64, with
-   the same times and bounds as phase 3; the engine on the card against
+   1 000 / 20 000 × 64 and × 256 (the futures cap), on the ragged case,
+   on two skewed placements (one broker hosting a quarter of the slots,
+   alive in every future, then dead in every other) and at the north
+   star's 10 000 brokers / 1 000 000 partitions × 64, with the same times
+   and bounds as phase 3 and each launch's device time and resources; the engine on the card against
    the engine on the CPU at 50 / 1 000; the host compile, the upload of
    the multipliers and the batched call timed; then the what-if path, the
    artifact's batched sweep (``whatif.artifact.measure_batch``), end to
@@ -201,6 +206,9 @@ LAUNCH_PATH = {"round_pack": "polish", "score_columnar":
 #: (``whatif.max.futures``)
 WHATIF_FUTURES = 64
 WHATIF_MAX_FUTURES = 256
+#: K12's kernels by ``whatif_verdict_attrs``' phase number
+VERDICT_PHASES = ("alive", "part", "sort_count", "prep", "scatter", "brokers",
+                  "finish")
 #: why no single PyTorch call computes each kernel's function
 LIBRARY_NOTES = {
     "grid_top_r": "no single PyTorch call computes a masked grid score "
@@ -260,7 +268,7 @@ def nvidia_smi() -> str:
 
 def kernel_name(name: str) -> str:
     """A profiled kernel's name without its namespace and arguments."""
-    m = re.search(r"(\w+)\(", name)
+    m = re.search(r"(\w+)(?:<[^()]*>)?\(", name)
     return m.group(1) if m else name
 
 
@@ -968,9 +976,12 @@ def check_commit_batch(label, args, kw, has_cap, timed):
 
 
 def check_recompute_aggregates(label, m, has_cap, timed):
-    """K9 against ``_recompute_aggregates`` → the record, with index_add_
-    over the slots' load rows timed beside it."""
+    """K9 against ``_recompute_aggregates``, bit for bit → the record, with
+    its six launches' device times (``timed``), its gather pass's
+    registers, spills and resident blocks, and index_add_ over the slots'
+    load rows timed beside it."""
     from cruise_control_tpu_torch.analyzer import commit_kernels as K89
+    from cruise_control_tpu_torch.ops import kernels
 
     P, S = m.assignment.shape
     B, NR = m.capacity.shape
@@ -983,28 +994,67 @@ def check_recompute_aggregates(label, m, has_cap, timed):
             return [getattr(r, f) for f in cols if getattr(r, f) is not None]
         return run
 
+    lib = kernels.load("recompute_aggregates")
     rec = record_kernel(
         label, "recompute_aggregates", outs(K89.recompute_aggregates),
         outs(K89._recompute_aggregates), (m,), {},
-        {"percentile_cload": has_cap, "P": P, "S": S, "B": B},
+        {"percentile_cload": has_cap, "P": P, "S": S, "B": B,
+         "top_broker_share": top_broker_share(m.assignment),
+         "attrs": kernels.attrs("recompute_aggregates",
+                                lib.recompute_aggregates_attrs)},
         # each input once: the placement and leader slots, the leader and
         # follower load rows (and capacity loads); six aggregates out
         P * S * 4 + P * 4 + P * NR * 4 * (4 if has_cap else 2)
         + B * (NR * (2 if has_cap else 1) + 4) * 4,
         # per slot: a column max and a fixed-point product and add a column
-        P * S * (NR * (2 if has_cap else 1) + 2) * 3, timed=timed)
+        P * S * (NR * (2 if has_cap else 1) + 2) * 3, timed=timed,
+        tag="recompute_aggregates_", exact=True)
+    if timed:
+        rec["device_ms_by_phase"] = device_ms(
+            lambda: K89.recompute_aggregates(m), "recompute_aggregates_",
+            by_name=True)
     # yardstick: one index_add_ of the slots' load rows (float atomics)
+    rows, ids = aggregate_slot_loads(m)
+    rec["library_ms"] = cuda_ms(lambda: torch.zeros(
+        (B + 1, NR), device=rows.device).index_add_(0, ids, rows))
+    emit({"phase": "kernel_library", "case": label,
+          "name": "recompute_aggregates", "library_ms": rec["library_ms"],
+          "device_ms_by_phase": rec.get("device_ms_by_phase")})
+    return rec
+
+
+def aggregate_slot_loads(m):
+    """Every slot's load row ``[P·S, R]`` and its broker (empty slots to a
+    dump row B): the input of the one ``index_add_`` timed beside K9."""
+    P, S = m.assignment.shape
+    B, NR = m.capacity.shape
     ids = torch.where(m.assignment >= 0, m.assignment, B).reshape(-1).long()
     rows = torch.where(
         (torch.arange(S, device=m.assignment.device)[None, :]
          == m.leader_slot[:, None])[:, :, None],
         m.leader_load[:, None, :], m.follower_load[:, None, :]
     ).reshape(-1, NR).contiguous()
-    rec["library_ms"] = cuda_ms(lambda: torch.zeros(
-        (B + 1, NR), device=rows.device).index_add_(0, ids, rows))
-    emit({"phase": "kernel_library", "case": label,
-          "name": "recompute_aggregates", "library_ms": rec["library_ms"]})
-    return rec
+    return rows, ids
+
+
+def top_broker_share(assignment) -> float:
+    """The share of the existing replica slots that the busiest broker
+    hosts."""
+    a = assignment[assignment >= 0].long()
+    return float(torch.bincount(a).max()) / max(1, a.numel())
+
+
+def skew_placement(assignment, hot: int = 0):
+    """The placement with broker ``hot`` put into the first slot of every
+    partition that does not hold it, but one in four: it then hosts at
+    least a quarter of the slots of a three-replica placement — the
+    contention case of K9's and K12's per-broker sums."""
+    P = assignment.shape[0]
+    rows = ((torch.arange(P, device=assignment.device) % 4 != 0)
+            & ~(assignment == hot).any(dim=1))
+    a = assignment.clone()
+    a[rows, 0] = hot
+    return a
 
 
 def mixed_candidates(calls):
@@ -1327,6 +1377,7 @@ def check_whatif_verdict(label, args, plain_reps=10, library=True):
     outputs (floats compared by their bits) → the emitted record, with
     both times, K12's device time, the bound and one ``index_add_`` of the
     slot loads beside it."""
+    from cruise_control_tpu_torch.ops import kernels
     from cruise_control_tpu_torch.whatif import verdict_kernels as VK
 
     got = VK.whatif_verdict(*args)
@@ -1351,10 +1402,15 @@ def check_whatif_verdict(label, args, plain_reps=10, library=True):
     S = a.shape[1]
     B, R = args[4].shape
     fn = lambda: VK.whatif_verdict(*args)  # noqa: E731
-    phases = device_ms(fn, "verdict_", by_name=True)
+    phases = device_ms(fn, "whatif_verdict_", by_name=True)
+    lib = kernels.load("whatif_verdict")
     rec = {
         "phase": "kernel", "case": label, "name": "whatif_verdict",
         "N": N, "P": P, "S": S, "B": B,
+        "attrs": {name: kernels.attrs("whatif_verdict",
+                                      lib.whatif_verdict_attrs, i, B)
+                  for i, name in enumerate(VERDICT_PHASES)},
+        "top_broker_share": top_broker_share(a),
         "dead_base": int((~args[6]).sum()),
         "offline_slots": int(want["movesRequired"].sum()),
         "survivable": int(want["survivable"].sum()),
@@ -1414,7 +1470,7 @@ def whatif_timing(label, state, n_futures, dev, against_cpu=False):
                lambda: torch.from_numpy(batch.scale).to(dev)),
            "h2d_scale_bytes": batch.scale.nbytes,
            "k12_device_ms": device_ms(lambda: VK.whatif_verdict(*args),
-                                      "verdict_"),
+                                      "whatif_verdict_"),
            "survivable": sum(v["survivable"] for v in rows),
            "goal_violations": sum(v["goalViolations"] for v in rows)}
     if against_cpu:
@@ -1507,6 +1563,25 @@ def whatif_phase(dev):
     if recs["ragged"]["N"] != 8 or recs["ragged"]["dead_base"] != 3:
         raise AssertionError(f"ragged what-if case is not ragged: "
                              f"{recs['ragged']}")
+    # the contention cases: one broker hosting over a quarter of the slots,
+    # alive in every future, then dead in every other future
+    margs = verdict_inputs(mid, compile_futures(
+        mid, A.artifact_futures(mid, WHATIF_FUTURES)), device=dev)
+    hot = skew_placement(margs[0])
+    dead = margs[7].clone()
+    dead[:, 0] = False
+    skew = (hot,) + margs[1:7] + (dead,) + margs[8:]
+    recs["skew_x64"] = check_whatif_verdict("skew_x64", skew)
+    dead = dead.clone()
+    dead[::2, 0] = True
+    recs["skew_dead_x64"] = check_whatif_verdict(
+        "skew_dead_x64", skew[:7] + (dead,) + skew[8:])
+    for c in ("skew_x64", "skew_dead_x64"):
+        if recs[c]["top_broker_share"] < 0.25:
+            raise AssertionError(f"{c}: the hot broker hosts "
+                                 f"{recs[c]['top_broker_share']:.3f} of the "
+                                 "slots, under a quarter")
+    del margs, skew, hot, dead
     recs["north_star_x64"] = check_whatif_verdict(
         "north_star_x64", whatif_north_star(dev), plain_reps=2)
     whatif_timing("50b_1k_x64", small, WHATIF_FUTURES, dev, against_cpu=True)
@@ -2331,8 +2406,27 @@ def main() -> int:
     extra.update(check_compact_rows("nrow_50k", sargs, {}, False, False))
     if extra["compact_rows"]["NROW"] < 50_000:
         raise AssertionError("synthetic compaction is below 50 000 keys")
+    m_ns = north_star_placement(dev)
     extra["recompute_aggregates"] = check_recompute_aggregates(
-        "north_star_slots", north_star_placement(dev), True, True)
+        "north_star_slots", m_ns, True, True)
+    # K9 where one broker hosts over a quarter of the slots, at 1 000 and
+    # at the north star's 10 000 brokers
+    m_skew = calls["recompute_aggregates"][0][0]
+    m_skew = dataclasses.replace(m_skew,
+                                 assignment=skew_placement(m_skew.assignment))
+    m_cap = dataclasses.replace(m_skew, leader_cload=m_skew.leader_load * 1.3,
+                                follower_cload=m_skew.follower_load * 0.6)
+    m_ns = dataclasses.replace(m_ns,
+                               assignment=skew_placement(m_ns.assignment))
+    for tag, ms, cap in (("skew", m_skew, False),
+                         ("skew_percentile", m_cap, True),
+                         ("north_star_skew", m_ns, True)):
+        r9 = check_recompute_aggregates(tag, ms, cap, True)
+        if r9["top_broker_share"] < 0.25:
+            raise AssertionError(f"K9 {tag}: the hot broker hosts "
+                                 f"{r9['top_broker_share']:.3f} of the slots")
+        extra[f"recompute_aggregates[{tag}]"] = r9
+    del m_skew, m_cap, m_ns
     pargs, pkw = synthetic_priority(dev)
     extra.update(check_top_select("north_star_slots", "top_select[3M]",
                                   pargs, pkw, True))

@@ -326,9 +326,37 @@ commit_batch.launches = 0
 # K9: the aggregate rebuild
 # ---------------------------------------------------------------------------------
 
+@functools.lru_cache(maxsize=64)
+def _agg_layout(P: int, S: int, B: int, has_cap: bool, sms: int):
+    """(the sizes of K9's outputs in f32 — load, capacity load when
+    ``has_cap``, leader NW-in, potential NW-out, replica and leader count
+    — packed from the start of one call's buffer, the buffer's bytes),
+    from its own ``recompute_aggregates_layout``; raises unless it packs
+    them so."""
+    fn = kernels.load("recompute_aggregates").recompute_aggregates_layout
+    fn.restype = ctypes.c_int
+    fn.argtypes = [_I] * 5 + [_P]
+    off = (ctypes.c_longlong * 7)()
+    kernels.launched("recompute_aggregates",
+                     fn(P, S, B, int(has_cap), sms, off))
+    sizes = [B * NUM_RESOURCES] * (2 if has_cap else 1) + [B] * 4
+    starts = [off[0]] + ([off[1]] if has_cap else []) + list(off[2:6])
+    at = 0
+    for start, n in zip(starts, sizes):
+        if start != at:
+            raise RuntimeError("recompute_aggregates: the kernel's layout "
+                               "does not pack its outputs")
+        at += 4 * n
+    return tuple(sizes), off[6]
+
+
 def recompute_aggregates(m):
     """The model with every per-broker aggregate rebuilt from its placement
-    — the plain twin :func:`_recompute_aggregates`."""
+    — the plain twin :func:`_recompute_aggregates`.  On the card one call
+    is one buffer (the aggregates are views of it, the workspace follows
+    them) and six launches: the column maxima, the sort of the slots by
+    broker (count, scan, scatter), a warp an item of a broker's slots, a
+    warp a broker."""
     if kernels.on_cpu(m.assignment):
         return _recompute_aggregates(m)
     dev = m.assignment.device
@@ -338,6 +366,9 @@ def recompute_aggregates(m):
     has_cap = m.leader_cload is not None
     i32, f32 = torch.int32, torch.float32
     chk = functools.partial(kernels.check, "recompute_aggregates", device=dev)
+    if not 1 <= S <= 8 or not 1 <= P < 1 << 28 or B < 1:
+        raise ValueError(f"recompute_aggregates: P={P}, S={S}, B={B} out of "
+                         "range (1 <= S <= 8, P < 2^28)")
     for name, x, dt, shape in (
         ("assignment", m.assignment, i32, (P, S)),
         ("leader_slot", m.leader_slot, i32, (P,)),
@@ -349,27 +380,25 @@ def recompute_aggregates(m):
     ):
         chk(name, x, dt, shape)
     lib = kernels.bind("recompute_aggregates", "recompute_aggregates_launch",
-                       [_P] * 6 + [_I] * 4 + [_P] * 9)
-    colmax = torch.empty(2 * NR + 2, dtype=torch.int32, device=dev)
-    sums = torch.empty((B, 2 * NR + 4), dtype=torch.int64, device=dev)
-    load = torch.empty((B, NR), dtype=f32, device=dev)
-    cload = torch.empty((B, NR), dtype=f32, device=dev) if has_cap else None
-    aggs = [torch.empty(B, dtype=f32, device=dev) for _ in range(4)]
-    grid = max(1, min(-(-P * S // 256), 8 * kernels.sm_count(dev)))
+                       [_P] * 6 + [_I] * 4 + [_P] * 2)
+    sms = kernels.sm_count(dev)
+    sizes, nbytes = _agg_layout(P, S, B, has_cap, sms)
+    buf = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    outs = buf[:4 * sum(sizes)].view(f32).split(sizes)
     err = lib.recompute_aggregates_launch(
         m.assignment.data_ptr(), m.leader_slot.data_ptr(),
         m.leader_load.data_ptr(), m.follower_load.data_ptr(),
         *((m.leader_cload.data_ptr(), m.follower_cload.data_ptr())
           if has_cap else (None, None)),
-        P, S, B, grid, colmax.data_ptr(), sums.data_ptr(), load.data_ptr(),
-        *(a.data_ptr() for a in aggs),
-        cload.data_ptr() if has_cap else None, kernels.stream(dev),
+        P, S, B, sms, buf.data_ptr(), kernels.stream(dev),
     )
     kernels.launched("recompute_aggregates", err)
     recompute_aggregates.launches += 1
-    rcount, lcount, leader_nwin, pot_nwout = aggs
+    load, *rest = outs
+    cload = rest.pop(0).view(B, NR) if has_cap else None
+    lnwin, pot, rcount, lcount = rest
     return dataclasses.replace(
-        m, broker_load=load, leader_nwin=leader_nwin, pot_nwout=pot_nwout,
+        m, broker_load=load.view(B, NR), leader_nwin=lnwin, pot_nwout=pot,
         rcount=rcount, lcount=lcount, broker_cload=cload)
 
 

@@ -42,6 +42,24 @@ __device__ __forceinline__ double fixed_scale(float maxabs, long long n) {
   return exp2((double)(FP_BITS - (ex + ceil_log2(n))));
 }
 
+// fixed_q's f32 factor for a fixed_scale 2^k: 2^k itself when it is a
+// normal f32, else 0 (fixed_q then multiplies in f64)
+__device__ __forceinline__ float fixed_scale_f(double sc) {
+  return (sc >= 0x1p-126 && sc <= 0x1p127) ? (float)sc : 0.0f;
+}
+
+// round_half_even(v · sc) as int64, sc = 2^k from fixed_scale and scf =
+// fixed_scale_f(sc): ops/segment.py's torch.round(v64 * sc) bit for bit.
+// An f32 times a power of two is exact wherever the product is a normal
+// f32, and a product below 2^-126 rounds to 0 either way; it cannot
+// overflow, as |v · sc| < 2^60 by the scale's choice.  So one f32
+// multiply and one f32 → s64 conversion stand for two conversions and an
+// f64 multiply.
+__device__ __forceinline__ long long fixed_q(float v, float scf, double sc) {
+  return scf != 0.0f ? __float2ll_rn(v * scf)
+                     : __double2ll_rn((double)v * sc);
+}
+
 // Ascending bitonic sort of n2 (a power of two) keys by one block; every
 // thread of the block calls it.
 __device__ void bitonic_sort(unsigned long long* key, int n2) {

@@ -18,10 +18,11 @@ it), the capacity's from the largest surviving capacity and B.  A
 batch-wide scale would make a future's bits depend on the other futures
 in its batch; per future, a batched row equals its single-future
 dispatch bit for bit.  The kernel takes the same maxima and sums the same
-integers with atomics, so it equals the twin bit for bit.
+integers (by broker, over a broker-ordered list of the slots), so it
+equals the twin bit for bit.
 
 The wrapper runs the twin for CPU tensors and for CUDA tensors launches
-the kernel or raises; there is no fallback.  It counts its calls (three
+the kernel or raises; there is no fallback.  It counts its calls (seven
 launches each) in ``whatif_verdict.launches``.
 """
 
@@ -47,6 +48,9 @@ _RATE_MASK = (1.0, 1.0, 1.0, 0.0)
 _FP_BITS = 60
 #: widest replica-slot axis the kernel keeps in registers
 _MAX_S = 8
+#: brokers K12 takes at most (csrc/whatif_verdict.cu: MAX_B; its part pass
+#: holds 8 futures' survivor bits in shared memory)
+_MAX_B = 32_768
 #: slot-load elements the twin holds at once: it walks the futures in
 #: chunks of this size (results are per future, so chunking moves no bit)
 _PLAIN_CHUNK = 1 << 24
@@ -221,12 +225,58 @@ def verdict_plain(assignment, leader_slot, leader_load, follower_load,
 # K12: the verdict chain on the card
 # ---------------------------------------------------------------------------------
 
+#: the outputs as the kernel packs them: (keys, dtype), each group one
+#: run of its arrays in the call's buffer
+_GROUPS = (
+    (("unavailablePartitions", "underReplicated", "overloadedBrokers",
+      "rackViolations", "movesRequired", "leadershipMoves",
+      "topActionPartition", "topActionSource", "topActionDestination"),
+     torch.int32),
+    (("dataMoveMB", "maxBrokerUtilization"), torch.float32),
+    (("survivable", "capacityInfeasible"), torch.bool),
+)
+
+
+#: the outputs of TOP_ACTIONS elements a future
+_TOP_KEYS = ("topActionPartition", "topActionSource", "topActionDestination")
+
+
+def _width(key: str) -> int:
+    """Elements a future of output ``key``."""
+    return TOP_ACTIONS if key in _TOP_KEYS else 1
+
+
+@functools.lru_cache(maxsize=64)
+def _layout(N: int, P: int, S: int, B: int, sms: int):
+    """(the views of one call's buffer — for each output group of
+    :data:`_GROUPS` its keys, dtype, byte range and elements a key — and
+    the buffer's bytes), from the kernel's own ``whatif_verdict_layout``;
+    raises unless its offsets pack each group as one run."""
+    lib = kernels.load("whatif_verdict")
+    fn = lib.whatif_verdict_layout
+    fn.restype = ctypes.c_int
+    fn.argtypes = [_I] * 5 + [_P]
+    off = (ctypes.c_longlong * 14)()
+    kernels.launched("whatif_verdict", fn(N, P, S, B, sms, off))
+    at = dict(zip(KEYS, off[:13]))
+    plan = []
+    for keys, dt in _GROUPS:
+        o = start = at[keys[0]]
+        for k in keys:
+            if at[k] != o:
+                raise RuntimeError(f"whatif_verdict: the kernel's layout "
+                                   f"does not pack {keys}")
+            o += dt.itemsize * N * _width(k)
+        plan.append((keys, dt, start, o, [N * _width(k) for k in keys]))
+    return tuple(plan), off[13]
+
+
 def whatif_verdict(assignment, leader_slot, leader_load, follower_load,
                    capacity, rack, alive0, dead, scale) -> Dict[str, torch.Tensor]:
     """The verdicts of the plain twin :func:`verdict_plain` (same
-    arguments and outputs).  On the card one call is three launches — the
-    slot loads' maxima, the slots, the per-future finish — and no host
-    read."""
+    arguments and outputs).  On the card one call is one buffer (the 13
+    outputs are views of it, the workspace follows them) and seven
+    launches, with no memset and no host read."""
     if kernels.on_cpu(dead):
         return verdict_plain(assignment, leader_slot, leader_load,
                              follower_load, capacity, rack, alive0, dead,
@@ -250,26 +300,33 @@ def whatif_verdict(assignment, leader_slot, leader_load, follower_load,
         ("scale", scale, f32, (N, P)),
     ):
         chk(name, x, dt, shape)
-    if not 1 <= S <= _MAX_S or P < 1 or B < 1 or not 1 <= N <= 65_535 \
+    if not 1 <= S <= _MAX_S or not 1 <= P < 1 << 28 \
+            or not 1 <= B <= _MAX_B or not 1 <= N <= 65_535 \
             or P * S >= 1 << 31 or P * S < TOP_ACTIONS:
         raise ValueError(f"whatif_verdict: N={N}, P={P}, S={S}, B={B} out "
-                         f"of range (1 <= S <= {_MAX_S}, "
-                         f"{TOP_ACTIONS} <= P·S < 2^31)")
+                         f"of range (1 <= S <= {_MAX_S}, P < 2^28, "
+                         f"B <= {_MAX_B}, {TOP_ACTIONS} <= P·S < 2^31)")
+    if leader_load.data_ptr() % 16 or follower_load.data_ptr() % 16:
+        raise ValueError("whatif_verdict: the load rows must start at a "
+                         "16-byte boundary (the kernel reads a row as one "
+                         "float4)")
     lib = kernels.bind("whatif_verdict", "whatif_verdict_launch",
-                       [_P] * 9 + [_I] * 4 + [_P] * 15)
-    lib.whatif_verdict_workspace_words.restype = ctypes.c_longlong
-    lib.whatif_verdict_workspace_words.argtypes = [_I, _I, _I]
-    ws = torch.empty(lib.whatif_verdict_workspace_words(N, P, B),
-                     dtype=torch.int64, device=dev)
-    out = {k: torch.empty((N, TOP_ACTIONS) if k.startswith("topAction")
-                          else (N,), dtype=dt, device=dev)
-           for k, dt in KEYS.items()}
+                       [_P] * 9 + [_I] * 5 + [_P] * 2)
+    sms = kernels.sm_count(dev)
+    plan, nbytes = _layout(N, P, S, B, sms)
+    buf = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    views = {}
+    for keys, dt, o, end, sizes in plan:
+        views.update(zip(keys, buf[o:end].view(dt).split_with_sizes(sizes)))
+    for k in _TOP_KEYS:
+        views[k] = views[k].view(N, TOP_ACTIONS)
+    out = {k: views[k] for k in KEYS}
     err = lib.whatif_verdict_launch(
         assignment.data_ptr(), leader_slot.data_ptr(),
         leader_load.data_ptr(), follower_load.data_ptr(),
         capacity.data_ptr(), rack.data_ptr(), alive0.data_ptr(),
-        dead.data_ptr(), scale.data_ptr(), N, P, S, B, ws.data_ptr(),
-        *(out[k].data_ptr() for k in KEYS), kernels.stream(dev),
+        dead.data_ptr(), scale.data_ptr(), N, P, S, B, sms, buf.data_ptr(),
+        kernels.stream(dev),
     )
     kernels.launched("whatif_verdict", err)
     whatif_verdict.launches += 1
