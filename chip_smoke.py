@@ -702,12 +702,7 @@ def check_step_kernels(label, state, cfg_kw, dev):
     recs.update(check_compact_rows(label, args, kw, has_cap, timed))
     # K4
     args, kw = calls["budget_accept"]
-    Cn, NB = args[4].shape
-    record("budget_accept", SK.budget_accept, SK.budget_accept_plain,
-           args, kw, {"C": Cn, "B": B, "NB": NB},
-           B * (4 * 4 * (3 if has_cap else 2) + 10) + Cn * (13 + 4 * NB)
-           + Cn + 2 * B * NB * 4,
-           B * (12 * 3 + 40) + 2 * (2 * 4 + 3) * Cn * NB)
+    recs.update(check_budget_accept(label, args, kw, has_cap, timed))
     # K5 from the cohort's rows (as the step calls it), on the track_bars
     # branch, and from the footprint's occupancy tables
     args, kw = calls["match_batch"]
@@ -903,8 +898,78 @@ def check_score_candidates(label, args, kw, has_cap, timed,
     return {name: rec}
 
 
+def check_budget_accept(label, args, kw, has_cap, timed,
+                        name="budget_accept"):
+    """K4 against ``budget_accept_plain``, bit for bit → {name: record}."""
+    from cruise_control_tpu_torch.analyzer import step_kernels as SK
+
+    m = args[0]
+    B = m.capacity.shape[0]
+    Cn, NB = args[4].shape
+    return {name: record_kernel(
+        label, name, SK.budget_accept, SK.budget_accept_plain, args, kw,
+        {"percentile_cload": has_cap, "C": Cn, "B": B, "NB": NB,
+         "distinct_dst": int(torch.unique(args[2]).numel()),
+         "distinct_src": int(torch.unique(args[3]).numel())},
+        # each input once: the broker tables, the C rows' ids, vectors and
+        # flags; the flags and the two [B, NB] budget tables out
+        B * (4 * 4 * (3 if has_cap else 2) + 10) + Cn * (13 + 4 * NB)
+        + Cn + 2 * B * NB * 4,
+        # the budgets' column sums and tests; per round two prefix tests
+        # and the draw-down, ~11 operations a row and dim each
+        B * (12 * 3 + 40) + 2 * (2 * 4 + 3) * Cn * NB,
+        timed=timed, exact=True)}
+
+
+def cohort_cases(calls, dev, seed=23):
+    """K4's first-step cohort (``calls["budget_accept"]``) made hard for
+    its sorts: every row on one destination, every row on one source, its
+    first 777 rows and its first row, and the same rows over 10 000
+    brokers (the model's broker tables tiled ten times, the ids spread at
+    random) → {case: (args, kw)}."""
+    args, kw = calls["budget_accept"]
+    m, ca, dst, src, vec, elig = args[:6]
+    rest = args[6:]
+    mode = lambda x: torch.mode(x.cpu()).values.item()  # noqa: E731
+    cases = {
+        "one_dst": (m, ca, torch.full_like(dst, mode(dst)), src, vec, elig),
+        "one_src": (m, ca, dst, torch.full_like(src, mode(src)), vec, elig),
+        "c777": (m, ca, dst[:777], src[:777], vec[:777], elig[:777]),
+        "c1": (m, ca, dst[:1], src[:1], vec[:1], elig[:1]),
+    }
+    tile = 10
+    B = m.capacity.shape[0] * tile
+    big = dataclasses.replace(m, **{
+        f: getattr(m, f).repeat(tile, *([1] * (getattr(m, f).dim() - 1)))
+        for f in ("capacity", "broker_load", "broker_cload", "rcount",
+                  "pot_nwout", "alive", "dest_ok")
+        if getattr(m, f) is not None})
+    g = torch.Generator().manual_seed(seed)
+    cases["b10k"] = (
+        big, ca, torch.randint(0, B, dst.shape, generator=g).to(dst),
+        torch.randint(0, B, src.shape, generator=g).to(src), vec, elig)
+    return {c: (a + rest, kw) for c, a in cases.items()}
+
+
+def compaction_cases(dev):
+    """K7 on tie-rich keys (:func:`synthetic_compaction`): 5 000 keys (1 000
+    brokers) kept to 1 024, 777 and 1, and 50 000 keys (10 000 brokers)
+    kept to 1 024; a tie must straddle the C-th key → {case: args}."""
+    out = {}
+    for case, B, C in (("nrow_5k", 1000, 1024), ("nrow_5k_c777", 1000, 777),
+                       ("nrow_5k_c1", 1000, 1), ("nrow_50k", 10_000, 1024)):
+        args = synthetic_compaction(dev, B=B, C=C)
+        key = torch.cat([args[1].reshape(-1), args[3][0]]).cpu()
+        key = torch.where(key == 0, torch.zeros_like(key), key)
+        kept = torch.sort(key).values
+        if not bool(kept[C - 1] == kept[C]):
+            raise AssertionError(f"K7 {case}: no tie straddles key {C}")
+        out[case] = args
+    return out
+
+
 def check_compact_rows(label, args, kw, has_cap, timed, name="compact_rows"):
-    """K7 against ``_compact_rows`` → {name: record}."""
+    """K7 against ``_compact_rows``, bit for bit → {name: record}."""
     from cruise_control_tpu_torch.analyzer import compact_kernel as K7
 
     (m, q_scores, q_rows, bl, src_term, vals, best_d, dest_pool, kp, ks, sb,
@@ -932,7 +997,7 @@ def check_compact_rows(label, args, kw, has_cap, timed, name="compact_rows"):
         # sorts of C keys, ~(8R + 2NB + 30) operations a kept row
         5 * nrow * 3 + 2 * C * log_c * (log_c + 1) // 2
         + C * (8 * R + 2 * NB + 30),
-        plain_kw={}, timed=timed)}
+        plain_kw={}, timed=timed, exact=True)}
 
 
 def check_commit_batch(label, args, kw, has_cap, timed):
@@ -1700,7 +1765,7 @@ def check_round_kernels(label, r, timed, whole=True):
             one(RK.round_keys_plain), key_args, {},
             {"percentile_cload": has_cap, "N": N},
             # the scores read once, the key written once; a negation each
-            N * 8, N, timed=timed, tag="round_keys_kernel", exact=True)
+            N * 8, N, timed=timed, tag="round_pack_keys_kernel", exact=True)
         if form == "columnar":
             rec["library_ms"] = cuda_ms(lambda: torch.neg(key_args[0]))
         else:
@@ -2402,9 +2467,18 @@ def main() -> int:
     extra = check_score_candidates("mixed_kinds", margs, mkw, False, False)
     if not 0 < extra["score_candidates"]["moves"] < margs[4].shape[0]:
         raise AssertionError("mixed-kind case holds one kind only")
-    sargs = synthetic_compaction(dev)
-    extra.update(check_compact_rows("nrow_50k", sargs, {}, False, False))
-    if extra["compact_rows"]["NROW"] < 50_000:
+    # K4 on one destination, one source, 777 and 1 rows and 10 000
+    # brokers; K7 tie-rich at 5 000 keys (C = 1 024, 777, 1) and 50 000
+    for case, (a4, kw4) in cohort_cases(calls, dev).items():
+        extra.update(check_budget_accept(case, a4, kw4, False, False,
+                                         name=f"budget_accept[{case}]"))
+    if extra["budget_accept[one_dst]"]["distinct_dst"] != 1 \
+            or extra["budget_accept[b10k]"]["B"] < 10_000:
+        raise AssertionError("K4's skewed cohorts are not skewed")
+    for case, sargs in compaction_cases(dev).items():
+        extra.update(check_compact_rows(case, sargs, {}, False, False,
+                                        name=f"compact_rows[{case}]"))
+    if extra["compact_rows[nrow_50k]"]["NROW"] < 50_000:
         raise AssertionError("synthetic compaction is below 50 000 keys")
     m_ns = north_star_placement(dev)
     extra["recompute_aggregates"] = check_recompute_aggregates(
@@ -2434,7 +2508,7 @@ def main() -> int:
     extra.update(check_top_select_cases(dev))
     steps["extra"] = extra
     compare_scan_paths(mid, dev)
-    del calls, margs, sargs
+    del calls, margs
     # deterministic aggregates: two rebuilds agree to the bit
     m0 = args[0]
     a1, a2 = recompute_aggregates(m0), recompute_aggregates(m0)

@@ -31,8 +31,6 @@ from cruise_control_tpu_torch.ops.grid import gather_pload as _gather_pload
 
 _INF = float("inf")
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-#: K7 keeps its sort keys in shared memory up to this many bytes
-_KEY_SMEM = 200_000
 
 
 class Compacted(NamedTuple):
@@ -185,9 +183,15 @@ def compact_rows(m, q_scores, q_rows, bl, src_term, vals, best_d,
                 or W != (4 * NR + 1 if NB > NR + 2 else 2 * NR + 1):
             raise ValueError(f"compact_rows: C={C}, NROW={nrow}, K={K}, "
                              f"R={R}, table width {W} out of range")
-    n2 = 1 << max(C - 1, 0).bit_length()
-    keys = None if n2 * 8 <= _KEY_SMEM else torch.empty(
-        n2, dtype=torch.int64, device=dev)
+    lib = kernels.bind("compact_rows", "compact_rows_launch",
+                       [_P] * 6 + [_P, _I] + [_P] * 8 + [_I] * 7 + [_F, _I]
+                       + [_P] * 13)
+    lib.compact_rows_scratch_bytes.restype = ctypes.c_longlong
+    # the kept keys and the partitions' hash table: in shared memory where
+    # they fit (0 bytes), else in a device scratch
+    nbytes = lib.compact_rows_scratch_bytes(C)
+    scratch = None if nbytes == 0 else torch.empty(
+        -(-nbytes // 8), dtype=torch.int64, device=dev)
     out = Compacted(
         torch.empty(C, dtype=torch.bool, device=dev),
         torch.empty((C, R), dtype=torch.float32, device=dev),
@@ -201,19 +205,15 @@ def compact_rows(m, q_scores, q_rows, bl, src_term, vals, best_d,
         torch.empty(C, dtype=torch.bool, device=dev),
         torch.empty(C, dtype=torch.int32, device=dev),
     )
-    lib = kernels.bind("compact_rows", "compact_rows_launch",
-                       [_P] * 6 + [_P, _I] + [_P] * 8 + [_I] * 8 + [_F, _I]
-                       + [_P] * 13)
     err = lib.compact_rows_launch(
         q_scores.data_ptr(), q_rows.data_ptr(), bl_score.data_ptr(),
         bl_p.data_ptr(), bl_s.data_ptr(), bl_dst.data_ptr(),
         src_term.data_ptr(), src_term.stride(0), vals.data_ptr(),
         best_d.data_ptr(), dest_pool.data_ptr(), kp.data_ptr(),
         ks.data_ptr(), sb.data_ptr(), m.leader_slot.data_ptr(),
-        m.pload.data_ptr(), W, NB, Q, B, K, R, C, n2, float(tol),
-        int(dest_terms),
-        *(t.data_ptr() for t in out),
-        None if keys is None else keys.data_ptr(), kernels.stream(dev),
+        m.pload.data_ptr(), W, NB, Q, B, K, R, C, float(tol),
+        int(dest_terms), *(t.data_ptr() for t in out),
+        None if scratch is None else scratch.data_ptr(), kernels.stream(dev),
     )
     kernels.launched("compact_rows", err)
     compact_rows.launches += 1
@@ -221,3 +221,19 @@ def compact_rows(m, q_scores, q_rows, bl, src_term, vals, best_d,
 
 
 compact_rows.launches = 0
+
+#: K7's device phases in the order its phase stamps close them
+#: (``csrc/compact_rows.cu``, built with ``-DCC_PHASE_STAMPS`` by
+#: ``tools/time_kernels.py``): three selection passes, the gather, the
+#: sort, the rows' resolution with the partitions' hash table, ``rep`` and
+#: the partition filter
+COMPACT_ROWS_PHASES = ("select0", "select1", "select2", "gather", "sort",
+                       "resolve", "rep")
+
+
+def compact_rows_attrs(C: int, nrow: int) -> dict:
+    """The built K7 at C kept rows of ``nrow`` keys, as the card reports
+    it (:func:`ops.kernels.attrs`).  Needs the card."""
+    lib = kernels.bind("compact_rows", "compact_rows_attrs",
+                       [_I, _I, ctypes.POINTER(ctypes.c_int)])
+    return kernels.attrs("compact_rows", lib.compact_rows_attrs, C, nrow)

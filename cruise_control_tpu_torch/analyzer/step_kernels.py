@@ -36,8 +36,9 @@ from cruise_control_tpu_torch.ops.segment import (
     segment_sum,
 )
 
-#: K4 sorts its n2 keys in shared memory up to this many bytes (the
-#: block's static shared memory takes the rest)
+#: K15 (``analyzer/corrected_kernel.py``) sorts its n2 keys in shared
+#: memory up to this many bytes (the block's static shared memory takes
+#: the rest)
 _SORT_SMEM = 200_000
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _INF = float("inf")
@@ -425,19 +426,16 @@ def budget_accept(m, ca, dst_ids, src_ids, vec, eligible, slack: float,
     acc = torch.empty(Cn, dtype=b8, device=dev)
     src_b = torch.empty((B, NB), dtype=f32, device=dev)
     dst_b = torch.empty((B, NB), dtype=f32, device=dev)
-    i64 = torch.int64
-    n2 = 1 << max(Cn - 1, 0).bit_length()
     work = torch.empty((2, B, NB), dtype=f32, device=dev)
-    accum = torch.empty((2, B, NB), dtype=i64, device=dev)
-    q = torch.empty((2, Cn, NB), dtype=i64, device=dev)        # q, excl
-    chunk = torch.empty((-(-Cn // 32), NB + 1), dtype=i64, device=dev)
-    order = torch.empty((2, Cn), dtype=torch.int32, device=dev)
-    key = None if n2 * 8 <= _SORT_SMEM else torch.empty(
-        n2, dtype=i64, device=dev)
-    flags = torch.empty((4, Cn), dtype=torch.uint8, device=dev)
     lib = kernels.bind("budget_accept", "budget_accept_launch",
-                       [_P] * 9 + [_F, _I] + [_P] * 4 + [_I] * 4
-                       + [_P] * 12)
+                       [_P] * 9 + [_F, _I] + [_P] * 4 + [_I] * 3
+                       + [_P] * 6)
+    lib.budget_accept_scratch_bytes.restype = ctypes.c_longlong
+    # the sort keys and the rows' flags: in shared memory where they fit
+    # (0 bytes), else in a device scratch
+    nbytes = lib.budget_accept_scratch_bytes(Cn, NB)
+    scratch = None if nbytes == 0 else torch.empty(
+        -(-nbytes // 8), dtype=torch.int64, device=dev)
     err = lib.budget_accept_launch(
         m.capacity.data_ptr(), m.broker_load.data_ptr(),
         m.broker_cload.data_ptr() if has_cap else None,
@@ -445,10 +443,8 @@ def budget_accept(m, ca, dst_ids, src_ids, vec, eligible, slack: float,
         m.dest_ok.data_ptr(), ca["cap_threshold"].data_ptr(),
         ca["avg_rcount"].data_ptr(), float(slack), B, dst_ids.data_ptr(),
         src_ids.data_ptr(), vec.data_ptr(), eligible.data_ptr(), Cn, NB,
-        n2, rounds, acc.data_ptr(), src_b.data_ptr(), dst_b.data_ptr(),
-        work.data_ptr(), accum.data_ptr(), q[0].data_ptr(),
-        q[1].data_ptr(), chunk.data_ptr(), order.data_ptr(),
-        None if key is None else key.data_ptr(), flags.data_ptr(),
+        rounds, acc.data_ptr(), src_b.data_ptr(), dst_b.data_ptr(),
+        work.data_ptr(), None if scratch is None else scratch.data_ptr(),
         kernels.stream(dev),
     )
     kernels.launched("budget_accept", err)
@@ -457,6 +453,28 @@ def budget_accept(m, ca, dst_ids, src_ids, vec, eligible, slack: float,
 
 
 budget_accept.launches = 0
+
+
+def budget_accept_phases(rounds: int = 2) -> tuple:
+    """K4's device phases in the order its phase stamps close them
+    (``csrc/budget_accept.cu``, built with ``-DCC_PHASE_STAMPS`` by
+    ``tools/time_kernels.py``): the budgets' column maxima, their sums and
+    the broker rows (with the rows' vectors staged), the two sorts (with
+    the starting budgets copied out and the rows' flags), then per round
+    the destination and source prefix filters, the draw-down and the
+    eligibility update."""
+    return ("budget_max", "budget_sums", "budget_rows", "sorts") + tuple(
+        f"{p}{r}" for r in range(rounds)
+        for p in ("dst_fits", "src_fits", "draw", "elig"))
+
+
+def budget_accept_attrs(B: int, C: int, NB: int) -> dict:
+    """The built K4 at B brokers, C rows and NB budget dims, as the card
+    reports it (:func:`ops.kernels.attrs`).  Needs the card."""
+    lib = kernels.bind("budget_accept", "budget_accept_attrs",
+                       [_I, _I, _I, ctypes.POINTER(ctypes.c_int)])
+    return kernels.attrs("budget_accept", lib.budget_accept_attrs, B, C,
+                         NB)
 
 
 # ---------------------------------------------------------------------------------

@@ -57,9 +57,9 @@ __device__ __forceinline__ long long clip(long long x, long long hi) {
 }
 
 __global__ void __launch_bounds__(THREADS)
-round_keys_kernel(const float* __restrict__ a, long long na,
-                  const float* __restrict__ b, long long n,
-                  float* __restrict__ key) {
+round_pack_keys_kernel(const float* __restrict__ a, long long na,
+                       const float* __restrict__ b, long long n,
+                       float* __restrict__ key) {
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
        i < n; i += (long long)gridDim.x * blockDim.x) {
     key[i] = -(i < na ? a[i] : b[i - na]);
@@ -126,7 +126,8 @@ int round_keys_launch(const float* a, long long na, const float* b,
     return (int)cudaErrorInvalidValue;
   }
   const long long n = na + nb;
-  round_keys_kernel<<<blocks_for(n), THREADS, 0, (cudaStream_t)stream>>>(
+  round_pack_keys_kernel<<<blocks_for(n), THREADS, 0,
+                           (cudaStream_t)stream>>>(
       a, na, b, n, key);
   return (int)cudaGetLastError();
 }

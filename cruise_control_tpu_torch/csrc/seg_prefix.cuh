@@ -1,8 +1,10 @@
-// The order-free segmented exclusive prefix sum of the cohort kernels:
-// K4 (csrc/budget_accept.cu), which tests each row's inclusive prefix
-// against its broker's budget, and K15 (csrc/corrected_accept.cu), which
-// re-scores each row at its destination's and source's prefix state.  One
-// copy, so the two cannot drift apart.
+// The order-free segmented exclusive prefix sum of K15
+// (csrc/corrected_accept.cu), which re-scores each row at its
+// destination's and source's prefix state, and the fixed-point helpers
+// (column maxima and sums by warp, from_fixed) it shares with K4
+// (csrc/budget_accept.cu), whose own scan runs in registers
+// over block_sort.cuh's order.  One copy of the helpers, so the two cannot
+// drift apart.
 //
 // Exactness.  The plain twin (ops/segment.py: segment_excl_prefix_sorted)
 // sums floats in int64 fixed point: a column is scaled by 2^(60 - e),

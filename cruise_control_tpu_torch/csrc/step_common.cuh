@@ -106,6 +106,39 @@ __device__ __forceinline__ int block_count_before(bool flag, int* warp_tot,
 
 }  // namespace cc_step
 
+// Phase stamps, compiled in only with -DCC_PHASE_STAMPS: tools/
+// time_kernels.py builds such a copy of a one-block kernel to split its
+// device time by phase.  CC_STAMP(i) has thread 0 write %globaltimer (ns)
+// and clock64() (the SM's cycles) as stamp i into the buffer that
+// cc_phase_stamps() set; a kernel stamps right after the barrier that
+// ends a phase (CC_STAMP_SYNC adds that barrier where the phase ends
+// without one).  Without the macro both are nothing.
+#ifdef CC_PHASE_STAMPS
+__device__ unsigned long long* cc_stamp_buf;
+
+__device__ __forceinline__ void cc_stamp(int i) {
+  if (threadIdx.x == 0 && cc_stamp_buf != nullptr) {
+    unsigned long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    cc_stamp_buf[2 * i] = t;
+    cc_stamp_buf[2 * i + 1] = (unsigned long long)clock64();
+  }
+}
+
+extern "C" int cc_phase_stamps(unsigned long long* buf) {
+  return (int)cudaMemcpyToSymbol(cc_stamp_buf, &buf, sizeof(buf));
+}
+#define CC_STAMP(i) cc_stamp(i)
+#define CC_STAMP_SYNC(i) \
+  do {                   \
+    __syncthreads();     \
+    cc_stamp(i);         \
+  } while (0)
+#else
+#define CC_STAMP(i) ((void)0)
+#define CC_STAMP_SYNC(i) ((void)0)
+#endif
+
 // The step loop's carry on the device: indices into the int32 state vector
 // (analyzer/step_state.py holds the same layout).  K8 advances it after each
 // step's commit; K10 and K11 act only when it asks for a repool; K16 decides

@@ -1,7 +1,7 @@
 """Time K1 ``grid_top_r``, K11 ``top_select``, K17 ``grid_patch``, K9
-``recompute_aggregates`` and K12 ``whatif_verdict`` on the card at the
-shapes their paths give them, through a checkout's own ``chip_smoke.py``
-checks.
+``recompute_aggregates``, K12 ``whatif_verdict``, K4 ``budget_accept`` and
+K7 ``compact_rows`` on the card at the shapes their paths give them,
+through a checkout's own ``chip_smoke.py`` checks.
 
     python3 cruise_control_tpu_torch/tools/time_kernels.py [--root DIR]
         [--label NAME] [--only NAME[,NAME...]]
@@ -11,7 +11,7 @@ checkout whose ``chip_smoke.py`` and package are imported, for example an
 older commit unpacked with ``git archive``, so that two versions of the
 kernels can be timed in turns within one run on one card.  Run it by its
 path, not with ``-m``: the package must come from that checkout.
-``--only`` keeps the named kernels (default: all five).
+``--only`` keeps the named kernels (default: all seven).
 
 Each kernel is held bit for bit to its plain twin and timed by
 ``chip_smoke.py`` itself (its records print as it emits them: wrapper ms
@@ -35,7 +35,17 @@ of 5, with its host compile and upload) at 50 / 1 000 × 64 and 1 000 /
 also get every launch's device ms by name (memsets included) and their
 host side (``host_us``): the whole wrapper, its one ctypes call that makes
 every launch, the layout query (a ctypes call with no CUDA work) and the
-``index_add_`` yardstick, each in host µs a call.  Needs a card.
+``index_add_`` yardstick, each in host µs a call.  K4 runs on the
+1 000 / 20 000 first step's cohort and on chip_smoke's cut and skewed
+cohorts (one destination, one source, 777 rows, 1 row, 10 000 brokers),
+K7 on that first step's 5 000 keys and on the tie-rich keys at 5 000
+(C = 1 024, 777, 1) and 50 000; each record adds the kernel's resources
+(``attrs``) and, where the checkout's kernel has phase stamps
+(``CC_STAMP`` in its source), its device time split by phase: the kernel
+is built once more with ``-DCC_PHASE_STAMPS`` and run alone 30 times, and
+``device_ms_by_phase`` / ``phase_cycles`` are the median ms
+(``%globaltimer``) and SM cycles (``clock64``) between its stamps.
+Needs a card.
 """
 
 
@@ -44,6 +54,8 @@ from __future__ import annotations
 import argparse
 import ctypes
 import importlib.util
+import statistics
+import subprocess
 import sys
 import time
 from pathlib import Path
@@ -52,12 +64,14 @@ import torch
 
 KEYS = ("K", "D", "S", "N", "k", "P", "B", "blocks",
         "top_broker_share", "attrs", "ms",
-        "device_ms", "device_ms_by_phase", "launch_ms_by_name", "plain_ms",
+        "C", "NB", "NROW", "distinct_dst", "distinct_src",
+        "device_ms", "device_ms_by_phase", "phase_cycles", "stamped_ms",
+        "launch_ms_by_name", "plain_ms",
         "bound_ms", "bound_by", "library_ms", "library_sort_ms",
         "evaluate_batch_ms", "compile_futures_ms", "h2d_scale_ms",
         "host_us")
 ALL = ("top_select", "grid_top_r", "grid_patch", "recompute_aggregates",
-       "whatif_verdict")
+       "whatif_verdict", "budget_accept", "compact_rows")
 #: K11's (N, k): the repool's top-K (and smaller k), its top-D, the
 #: score-only round's grid and columnar keys, the north star's slots
 TOP_SHAPES = ((60_000, 8192), (60_000, 2048), (60_000, 1024), (1000, 1000),
@@ -118,6 +132,105 @@ def host_split(wrapper, library, launch=None, layout=None):
 def launch_ms(cs, fn):
     """Device ms a call of ``fn`` by launch name, memsets included."""
     return cs.device_ms(fn, "", by_name=True)
+
+
+def stamped_library(kernels, name: str):
+    """Kernel ``name`` built with ``-DCC_PHASE_STAMPS`` beside its library,
+    or None when its source has no stamps (an older checkout)."""
+    src = kernels.CSRC / f"{name}.cu"
+    if "CC_STAMP" not in src.read_text():
+        return None
+    path = kernels.library_path(name)
+    path = path.with_name(path.name.replace(f"lib{name}-",
+                                            f"lib{name}-stamps-"))
+    if not path.exists():
+        proc = subprocess.run(
+            [kernels._nvcc(), *kernels.NVCC_FLAGS, "-DCC_PHASE_STAMPS",
+             "-o", str(path), str(src)], capture_output=True, text=True)
+        path.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            raise RuntimeError(f"stamped build of {name} failed:\n"
+                               f"{proc.stdout}{proc.stderr}")
+    lib = ctypes.CDLL(str(path))
+    lib.cc_phase_stamps.argtypes = [ctypes.c_void_p]
+    lib.cc_phase_stamps.restype = ctypes.c_int
+    return lib
+
+
+def phase_split(kernels, name: str, phases, run, reps: int = 30):
+    """``run()`` (one launch of kernel ``name``'s wrapper) on the stamped
+    build, ``reps`` times alone → {"device_ms_by_phase", "phase_cycles",
+    "stamped_ms"}: the median ms and SM cycles between consecutive stamps,
+    and of the whole stamped launch; {} when the kernel has no stamps."""
+    lib = stamped_library(kernels, name)
+    if lib is None:
+        return {}
+    n = len(phases) + 1
+    buf = torch.zeros(2 * n, dtype=torch.int64, device="cuda")
+    saved = kernels._loaded.get(name)
+    kernels.launched(name, lib.cc_phase_stamps(buf.data_ptr()))
+    kernels._loaded[name] = lib
+    rows = []
+    try:
+        for _ in range(reps):
+            buf.zero_()
+            run()
+            torch.cuda.synchronize()
+            rows.append(buf.view(n, 2).cpu().tolist())
+    finally:
+        lib.cc_phase_stamps(None)
+        if saved is None:
+            kernels._loaded.pop(name, None)
+        else:
+            kernels._loaded[name] = saved
+
+    def med(i, j, col):
+        return statistics.median(r[j][col] - r[i][col] for r in rows)
+    return {
+        "device_ms_by_phase": {p: med(i, i + 1, 0) * 1e-6
+                               for i, p in enumerate(phases)},
+        "phase_cycles": {p: med(i, i + 1, 1) for i, p in enumerate(phases)},
+        "stamped_ms": med(0, n - 1, 0) * 1e-6}
+
+
+def time_budget_accept(cs, summary, random_cluster, dev, here):
+    """K4 on the 1 000 / 20 000 first step's cohort and chip_smoke's cut
+    and skewed cohorts."""
+    from cruise_control_tpu_torch.analyzer import step_kernels as SK
+
+    calls, _ = cs.first_step_calls(random_cluster(**cs.MIDSCALE), {}, dev)
+    cases = {"midscale": calls["budget_accept"],
+             **helper(cs, here, "cohort_cases")(calls, dev)}
+    check = helper(cs, here, "check_budget_accept")
+    phases = getattr(SK, "budget_accept_phases", lambda r: ())(2)
+    for case, (args, kw) in cases.items():
+        rec = check(case, args, kw, False, True)["budget_accept"]
+        rec.update(phase_split(SK.kernels, "budget_accept", phases,
+                               lambda: SK.budget_accept(*args, **kw)))
+        if hasattr(SK, "budget_accept_attrs"):
+            rec["attrs"] = SK.budget_accept_attrs(
+                args[0].capacity.shape[0], *args[4].shape)
+        summary("budget_accept", rec)
+
+
+def time_compact_rows(cs, summary, random_cluster, dev, here):
+    """K7 on the 1 000 / 20 000 first step's keys and chip_smoke's
+    tie-rich keys at 5 000 and 50 000."""
+    from cruise_control_tpu_torch.analyzer import compact_kernel as K7
+
+    calls, _ = cs.first_step_calls(random_cluster(**cs.MIDSCALE), {}, dev)
+    cases = {"midscale": calls["compact_rows"],
+             **{c: (a, {}) for c, a in
+                helper(cs, here, "compaction_cases")(dev).items()}}
+    phases = getattr(K7, "COMPACT_ROWS_PHASES", ())
+    for case, (args, kw) in cases.items():
+        rec = cs.check_compact_rows(case, args, kw, False, True)[
+            "compact_rows"]
+        rec.update(phase_split(K7.kernels, "compact_rows", phases,
+                               lambda: K7.compact_rows(*args, **kw)))
+        if hasattr(K7, "compact_rows_attrs"):
+            rec["attrs"] = K7.compact_rows_attrs(args[11], rec["NROW"])
+        summary("compact_rows", rec)
 
 
 def time_top_select(cs, summary, PK, kernels, dev):
@@ -340,6 +453,10 @@ def main(argv=None) -> int:
         time_recompute_aggregates(cs, summary, random_cluster, dev, here)
     if "whatif_verdict" in only:
         time_whatif_verdict(cs, summary, random_cluster, dev, here)
+    if "budget_accept" in only:
+        time_budget_accept(cs, summary, random_cluster, dev, here)
+    if "compact_rows" in only:
+        time_compact_rows(cs, summary, random_cluster, dev, here)
     return 0
 
 
