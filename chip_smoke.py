@@ -20,7 +20,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
    SM); the repool's tables (K10) also in their incremental form; K1 in
    its three forms and K17 at replication factors 1, 2, 4 and 8 (their
    slot instances); then the candidate scorer on moves and transfers
-   mixed, the compaction on 50 000 tie-rich keys, the aggregate rebuild
+   mixed, the compaction on 50 000 tie-rich keys, the per-broker
+   reductions (K3, bit for bit with the source brokers and row scores it
+   reads itself) over 10 000, 20 000 and 45 000 brokers, on one source
+   broker, all +inf, at Q = 1 and 8, on -0.0 / +0.0 ties and on two
+   cases past shared memory, the
+   aggregate rebuild
    (K9, bit for bit, with its launches' device times) at 3 M replica
    slots and on a skewed placement (one broker hosting a quarter of the
    slots, mean and capacity loads), and the top-k (K11) over a 3 M-slot
@@ -53,13 +58,15 @@ Phases, each printing one JSON line; any failure exits non-zero:
    against the reference's gates: one dispatch, ≥ 64 futures, wall under
    2× one plan search;
 8. search paths (the off-default configs): the score-only round's kernels
-   (K13 ``round_pack``, K14 ``score_columnar``, K11 on their flat key) and
+   (K13 ``round_pack``, K14 ``score_columnar``, which writes the
+   columnar form's flat key itself, K11 on the flat key) and
    the corrected cohort (K15 ``corrected_accept``) against their plain
    versions, bit for bit, on 1 000 / 20 000 first-round and first-step
    inputs (mean and percentile loads, stacking guard off and on), on the
    ragged case and K14 + K11 at the north star's 10 000 brokers /
    1 000 000 partitions; whole rounds against ``round_plain``; one
-   score-only round at 1 000 / 20 000 timed, and its full plan; then the
+   score-only round at 1 000 / 20 000 timed in each form (the columnar
+   one launching no K13 (a)), and its full plan; then the
    paths' plans, each twice with identical actions, verified and under
    the bar: score-only rounds at 50 / 1 000 in the grid and the columnar
    form, 1 000 / 20 000 with ``polish_rounds=4`` after the resident
@@ -684,19 +691,9 @@ def check_step_kernels(label, state, cfg_kw, dev):
     # K6 on the leadership pool, as the step calls it
     args, kw = calls["score_candidates"]
     recs.update(check_score_candidates(label, args, kw, has_cap, timed))
-    # K3
+    # K3, its inputs' gathers folded in
     args, kw = calls["per_src_top"]
-    _, lp, _, _, sb, _, _, Q = args
-    L = lp.shape[0]
-    flat = lambda out: [x for t in out for x in t]  # noqa: E731
-    record("per_src_top", lambda *a: flat(SK.per_src_top(*a)),
-           lambda *a: flat(SK.per_src_top_plain(*a)),
-           args, kw, {"L": L, "K": sb.shape[0], "B": B, "Q": Q},
-           # each input once: the L candidates (lp, lsl, score, two
-           # assignment words), the K rows' source broker and best score;
-           # the best transfer per broker and the Q rows and scores out
-           L * 20 + sb.shape[0] * 8 + B * 16 + Q * B * 8,
-           L * 2 + Q * sb.shape[0] * 2)
+    recs.update(check_per_src_top(label, args, kw, timed, has_cap))
     # K7
     args, kw = calls["compact_rows"]
     recs.update(check_compact_rows(label, args, kw, has_cap, timed))
@@ -966,6 +963,125 @@ def compaction_cases(dev):
             raise AssertionError(f"K7 {case}: no tie straddles key {C}")
         out[case] = args
     return out
+
+
+def check_per_src_top(label, args, kw, timed, has_cap=False,
+                      name="per_src_top", cpu_twin=False):
+    """K3 against ``per_src_top_plain`` on ``per_src_top_inputs_plain``'s
+    rows, bit for bit, the fused inputs ``sb`` and ``row_best`` among the
+    outputs → {name: record}.  With ``cpu_twin`` the bits are held to the
+    twins run on CPU copies, and to the twins on the card only as
+    ``compare`` holds them (equal integers, finite floats within RTOL /
+    ATOL: -0.0 == +0.0): on the card torch's scatter-min keeps whichever
+    of two tied zeros lands last, in no fixed order; on the CPU the first
+    in row order, the lowest row, which K3 picks."""
+    from cruise_control_tpu_torch.analyzer import step_kernels as SK
+
+    m, lp, lsl, ls, slot, src, vals, B, Q = args
+    K, L = slot.shape[0], lp.shape[0]
+
+    def run(*a, **k):
+        bl, top, sb = SK.per_src_top(*a, **k)
+        return [*bl, *top, sb]
+
+    def row_best(*a, **k):
+        rb = torch.empty(K, dtype=torch.float32, device=a[3].device)
+        SK.per_src_top(*a, **k, row_best=rb)
+        return [rb]
+
+    def plain(m, lp, lsl, ls, slot, src, vals, B, Q, dest_terms=False):
+        sb, rb = SK.per_src_top_inputs_plain(m, slot, src, vals, dest_terms)
+        bl, top = SK.per_src_top_plain(m, lp, lsl, ls, sb, rb, B, Q)
+        return [*bl, *top, sb], [rb]
+
+    rec = record_kernel(
+        label, name, run, lambda *a, **k: plain(*a, **k)[0], args, kw,
+        {"percentile_cload": has_cap, "L": L, "K": K, "B": B, "Q": Q,
+         "dest_terms": kw.get("dest_terms", False),
+         "scratch_bytes": SK.per_src_top_scratch_bytes(K, L, B)},
+        # each input once: a candidate's lp, score, leader slot and
+        # leader's placement word; a row's 8-byte slot, placement word,
+        # source term and top destination term, its broker out; a
+        # broker's winner's lsl and destination word, its best transfer
+        # out; the Q rows and scores out
+        L * 16 + K * 24 + B * 24 + Q * B * 8,
+        # a key a candidate and a row (~2 operations), a row's best score
+        # (2), a broker's Q picks over its rows
+        L * 2 + K * 4 + Q * K * 2, timed=timed, exact=not cpu_twin)
+    # the rows' best scores, which the step's launch does not write out
+    bitwise(f"{label} {name} row_best", row_best(*args, **kw),
+            [SK.per_src_top_inputs_plain(m, slot, src, vals, **kw)[1]])
+    if cpu_twin:
+        cpu = dataclasses.replace(m, assignment=m.assignment.cpu(),
+                                  leader_slot=m.leader_slot.cpu(),
+                                  capacity=m.capacity.cpu())
+        want, want_rb = plain(cpu, lp.cpu(), lsl.cpu(), ls.cpu(), slot.cpu(),
+                              src.cpu(), vals.cpu(), B, Q, **kw)
+        bitwise(f"{label} {name} (twins on the CPU)", run(*args, **kw), want)
+        bitwise(f"{label} {name} row_best (twins on the CPU)",
+                row_best(*args, **kw), want_rb)
+        rec["bit_equal_to"] = "the plain twins on CPU copies"
+        emit({"phase": "kernel_twin_cpu", "case": label, "name": name,
+              "bit_equal": True})
+    return {name: rec}
+
+
+def src_top_cases(args, kw, dev, seed=29):
+    """K3's first-step call (``(m, lp, lsl, l_scores, slot, src_term,
+    vals, B, Q)``, ``{"dest_terms": ...}``) made hard: its rows and
+    candidates spread over 10 000, 20 000 and 45 000 brokers, every row
+    on one source broker, every row and candidate scored +inf, Q = 1 and
+    Q = 8, tie-rich scores of the incremental form (``dest_terms``) where
+    -0.0 and +0.0 tie on one broker in either order, and two cases whose
+    keys do not fit in shared memory: 1 024 rows and candidates over
+    45 000 brokers, and the rows four times over → {case: (args, kw)}."""
+    m, lp, lsl, ls, slot, src, vals, B, Q = args
+    g = torch.Generator().manual_seed(seed)
+    rand = lambda *s: torch.randint(0, 1 << 30, s, generator=g).to(dev)  # noqa: E731,E501
+    cases = {}
+    for tile in (10, 20, 45):
+        a = m.assignment
+        big = dataclasses.replace(
+            m, assignment=torch.where(a >= 0, a + (rand(*a.shape) % tile)
+                                      .to(a) * B, a),
+            capacity=m.capacity.repeat(tile, 1))
+        cases[f"b{tile}k"] = ((big, lp, lsl, ls, slot, src, vals, B * tile,
+                               Q), kw)
+    a = m.assignment.clone()
+    hot = int(torch.mode(a.view(-1)[slot.long()].cpu()).values)
+    a.view(-1)[slot.long()] = hot
+    cases["one_src"] = ((dataclasses.replace(m, assignment=a), lp, lsl, ls,
+                         slot, src, vals, B, Q), kw)
+    inf = vals.clone()
+    inf[:, 0] = float("inf")
+    cases["all_inf"] = ((m, lp, lsl, torch.full_like(ls, float("inf")), slot,
+                         src, inf, B, Q), kw)
+    cases["q1"] = (args[:8] + (1,), kw)
+    cases["q8"] = (args[:8] + (8,), kw)
+    # past shared memory: 45 000 brokers with 1 024 rows and candidates (a
+    # two-block launch: one leadership block of all 45 000 brokers), and
+    # the rows four times over (32 768 rows)
+    big = cases["b45k"][0][0]
+    n = 1024
+    cases["b45k_small"] = ((big, lp[:n], lsl[:n], ls[:n], slot[:n], src[:n],
+                            vals[:n], B * 45, Q), kw)
+    cases["k32k"] = ((m, lp, lsl, ls, slot.repeat(4), src.repeat(4),
+                      vals.repeat(4, 1), B, Q), kw)
+    # row scores src + dt in {-0.0, +0.0, ±1}: -0.0 only where both terms
+    # are -0.0; the leadership scores in {-0.0, +0.0, 0.5}
+    zero = torch.tensor([-0.0, 0.0], device=dev)
+    zsrc = zero[rand(src.shape[0]) % 2]
+    dt = vals.clone()
+    dt[:, 0] = torch.tensor([-0.0, 0.0, -0.0, 1.0, -1.0], device=dev)[
+        rand(vals.shape[0]) % 5]
+    zls = torch.tensor([-0.0, 0.0, 0.5], device=dev)[rand(ls.shape[0]) % 3]
+    best = zsrc + dt[:, 0]
+    neg = (best == 0) & torch.signbit(best)
+    if not bool(neg.any()) or not bool(((best == 0) & ~neg).any()):
+        raise AssertionError("K3 zero_ties: the scores lack a -0.0 / +0.0 tie")
+    cases["zero_ties"] = ((m, lp, lsl, zls, slot, zsrc, dt, B, Q),
+                          {"dest_terms": True})
+    return cases
 
 
 def check_compact_rows(label, args, kw, has_cap, timed, name="compact_rows"):
@@ -1667,11 +1783,13 @@ def whatif_phase(dev):
 # ---- phase 8: the search's off-default paths -------------------------------
 
 def round_inputs(state, cfg_kw, dev):
-    """The first score-only round's scores at ``state``, made by the
-    search's own first half of a round (``cuda_optimizer._round_scores``:
-    a full repool, then K2/K1 + K6 or K14) on the model and constants the
-    search uploads, in the grid and the columnar form → the round's inputs
-    and ``forms``: {form: (scores, layout, pools)}."""
+    """The first score-only round's inputs at ``state``, made as the search
+    makes them (``cuda_optimizer._round_scores``): a full repool, then the
+    grid form's scores (``_grid_round_scores``: K2/K1 + K6), on the model
+    and constants the search uploads → the round's inputs and ``forms``:
+    {form: (key_args, layout, pools)}, ``key_args`` the arguments of what
+    makes the form's flat key — K13 (a)'s (K1's [K, R] and K6's [L]
+    scores), K14's (the model, pools and constants)."""
     from cruise_control_tpu_torch.analyzer import cuda_optimizer as C
     from cruise_control_tpu_torch.analyzer.context import AnalyzerContext
     from cruise_control_tpu_torch.ops.grid import grid_consts, terms_consts
@@ -1683,9 +1801,14 @@ def round_inputs(state, cfg_kw, dev):
     cfg = opt.config
     K, D = opt._pool_sizes(ctx.num_partitions, ctx.max_rf, ctx.num_brokers)
     consts, tconsts = grid_consts(cfg, ca, dev), terms_consts(cfg, ca, dev)
-    forms = {f: C._round_scores(m, dataclasses.replace(cfg, scoring=f), ca,
-                                K, D, consts, tconsts)
-             for f in ("grid", "columnar")}
+    pools = C._build_pools(m, cfg, ca, K, D)
+    kp, ks, dp, lp, lsl = pools
+    vals, ls, best_i = C._grid_round_scores(m, cfg, ca, pools, consts,
+                                            tconsts)
+    forms = {"grid": ((vals, ls), {"best_i": best_i, "lp": lp, "lsl": lsl},
+                      pools),
+             "columnar": ((m, cfg, ca, kp, ks, dp, consts, tconsts),
+                          {"S": m.assignment.shape[1]}, pools)}
     torch.cuda.synchronize()
     return dict(m=m, cfg=cfg, ca=ca, K=K, D=D, consts=consts,
                 tconsts=tconsts, forms=forms)
@@ -1704,7 +1827,8 @@ def score_columnar_ops(scores, K, D, B, S, NR, has_cap):
     its feasibility (the capacity test, 2·NR, the rack and duplicate scan,
     3·S, ~8 flags), a feasible one also the destination's new cost and the
     delta's sums; a leadership transfer needs ~12 operations of
-    feasibility, a feasible one its two new costs and ~30 more."""
+    feasibility, a feasible one its two new costs and ~30 more; every
+    candidate's score is negated into the key."""
     n_mv = K * D
     feas_mv = int(torch.isfinite(scores[:n_mv]).sum())
     feas_ld = int(torch.isfinite(scores[n_mv:]).sum())
@@ -1712,17 +1836,20 @@ def score_columnar_ops(scores, K, D, B, S, NR, has_cap):
             + feas_mv * (BROKER_COST_OPS + (NR if has_cap else 0) + 2)
             + K * (BROKER_COST_OPS + 30) + B * BROKER_COST_OPS
             + (scores.shape[0] - n_mv) * 12
-            + feas_ld * (2 * BROKER_COST_OPS + 30)), feas_mv, feas_ld
+            + feas_ld * (2 * BROKER_COST_OPS + 30)
+            + scores.shape[0]), feas_mv, feas_ld
 
 
 def check_round_kernels(label, r, timed, whole=True):
-    """K13's two entry points and K11 on the round's flat key, in each form
-    of ``r["forms"]`` (the columnar one with K14), each against its plain
-    twin bit for bit → {name: record}; with ``whole`` the search's round
-    (``_round``) equals ``round_plain`` bit for bit in both forms.  K13 (a)
-    is timed beside ``torch.neg`` of the columnar scores (its library
-    call; the grid key takes two calls, ``torch.cat`` and ``torch.neg``),
-    K13 (b) beside ``torch.topk`` of the key."""
+    """The flat key, K11 on it and K13 (b) after it, in each form of
+    ``r["forms"]``, each against its plain twins bit for bit → {name:
+    record}: the grid form's key from K13 (a), the columnar form's from
+    K14, which negates each score as it stores it (held to
+    ``round_keys_plain(score_columnar_plain(...))``, -score bit for bit);
+    with ``whole`` the search's round (``_round``) equals ``round_plain``
+    bit for bit in both forms.  K13 (a) is timed beside
+    ``torch.neg(torch.cat(...))`` (its library yardstick, two calls), K13
+    (b) beside ``torch.topk`` of the key."""
     from cruise_control_tpu_torch.analyzer import cuda_optimizer as C
     from cruise_control_tpu_torch.analyzer import round_kernels as RK
     from cruise_control_tpu_torch.analyzer import pool_kernels as PK
@@ -1735,51 +1862,52 @@ def check_round_kernels(label, r, timed, whole=True):
     has_cap = m.broker_cload is not None
     one = lambda f: lambda *a, **k: [f(*a, **k)]  # noqa: E731
     recs = {}
-    if "columnar" in r["forms"]:
-        (scores,), _, (kp, ks, dp, _, _) = r["forms"]["columnar"]
-        N = scores.shape[0]
-        ops, feas_mv, feas_ld = score_columnar_ops(scores, K, D, B, S, NR,
-                                                   has_cap)
-        # K14: each input once — the pools, every partition's row (slots,
-        # origins, must-move flags, leader slot, load row), the broker
-        # tables, the constants — and N scores out
-        recs["score_columnar"] = record_kernel(
-            label, "score_columnar", one(RK.score_columnar),
-            lambda *a: [RK.score_columnar_plain(*a[:6])],
-            (m, cfg, ca, kp, ks, dp, r["consts"], r["tconsts"]), {},
-            {"percentile_cload": has_cap, "K": K, "D": D, "P": P, "S": S,
-             "N": N, "feasible_moves": feas_mv,
-             "feasible_transfers": feas_ld},
-            K * 8 + D * 4 + P * (9 * S + 4 + 4 * W)
-            + B * (4 * (NR * (3 if has_cap else 2) + 4) + 6) + 4 * 28
-            + N * 4, ops,
-            plain_kw={}, timed=timed, exact=True)
     for form, (key_args, layout, pools) in r["forms"].items():
         sfx = "" if form == "grid" else "[columnar]"
         kp, ks, dp = pools[:3]
-        key = RK.round_keys(*key_args)
-        N = key.shape[0]
-        k = min(cfg.topk_per_round, N)
-        rec = record_kernel(
-            label, f"round_pack[keys]{sfx}", one(RK.round_keys),
-            one(RK.round_keys_plain), key_args, {},
-            {"percentile_cload": has_cap, "N": N},
-            # the scores read once, the key written once; a negation each
-            N * 8, N, timed=timed, tag="round_pack_keys_kernel", exact=True)
         if form == "columnar":
-            rec["library_ms"] = cuda_ms(lambda: torch.neg(key_args[0]))
+            key = RK.score_columnar(*key_args)
+            N = key.shape[0]
+            ops, feas_mv, feas_ld = score_columnar_ops(key, K, D, B, S, NR,
+                                                       has_cap)
+            # K14: each input once — the pools, every partition's row
+            # (slots, origins, must-move flags, leader slot, load row), the
+            # broker tables, the constants — and the N keys out
+            recs["score_columnar"] = record_kernel(
+                label, "score_columnar", one(RK.score_columnar),
+                lambda *a: [RK.round_keys_plain(
+                    RK.score_columnar_plain(*a[:6]))],
+                key_args, {},
+                {"percentile_cload": has_cap, "K": K, "D": D, "P": P,
+                 "S": S, "N": N, "feasible_moves": feas_mv,
+                 "feasible_transfers": feas_ld, "writes": "the flat key"},
+                K * 8 + D * 4 + P * (9 * S + 4 + 4 * W)
+                + B * (4 * (NR * (3 if has_cap else 2) + 4) + 6) + 4 * 28
+                + N * 4, ops,
+                plain_kw={}, timed=timed, exact=True)
         else:
+            key = RK.round_keys(*key_args)
+            N = key.shape[0]
+            rec = record_kernel(
+                label, "round_pack[keys]", one(RK.round_keys),
+                one(RK.round_keys_plain), key_args, {},
+                {"percentile_cload": has_cap, "N": N},
+                # the scores read once, the key written once; a negation
+                # each
+                N * 8, N, timed=timed, tag="round_pack_keys_kernel",
+                exact=True)
             vals, ls = key_args
             rec["library_two_calls_ms"] = cuda_ms(
                 lambda: torch.neg(torch.cat((vals.reshape(-1), ls))))
-        rec["library_note"] = ("torch.neg of the columnar scores "
-                               "(library_ms); the grid key is torch.cat then "
-                               "torch.neg, two calls (library_two_calls_ms)")
-        emit({"phase": "kernel_library", "case": label,
-              "name": f"round_pack[keys]{sfx}",
-              **{k2: rec[k2] for k2 in ("library_ms", "library_two_calls_ms",
-                                        "library_note") if k2 in rec}})
-        recs[f"round_pack[keys]{sfx}"] = rec
+            rec["library_note"] = ("the grid key is torch.cat then "
+                                   "torch.neg, two calls "
+                                   "(library_two_calls_ms)")
+            emit({"phase": "kernel_library", "case": label,
+                  "name": "round_pack[keys]",
+                  **{k2: rec[k2] for k2 in ("library_two_calls_ms",
+                                            "library_note")}})
+            recs["round_pack[keys]"] = rec
+        k = min(cfg.topk_per_round, N)
         sel = torch.empty(k, dtype=torch.int32, device=key.device)
         recs.update(check_top_select(label, f"top_select[round]{sfx}",
                                      (key, sel), {}, timed, has_cap))
@@ -1860,7 +1988,9 @@ def search_path_plan(label, path, opt, state, bar):
     captures); every kernel counter is zeroed just before the second and
     read just after → the emitted record.  Both runs must give identical
     actions, verify and score within ``bar``; every kernel of ``path``
-    must have launched, and K13's two entry points equally often."""
+    must have launched, and K13's first entry point (``round_keys``) as
+    often as its second in the grid form, never in the columnar form
+    (K14 makes that key)."""
     from cruise_control_tpu_torch.analyzer import round_kernels as RK
     from cruise_control_tpu_torch.analyzer.goal_optimizer import make_goals
     from cruise_control_tpu_torch.analyzer.verifier import (
@@ -1895,10 +2025,11 @@ def search_path_plan(label, path, opt, state, bar):
     for name in PATHS[path]:
         if launches[name] <= 0:
             raise AssertionError(f"{label} never launched {name}")
-    if RK.round_keys.launches != launches["round_pack"]:
-        raise AssertionError(f"{label}: K13's entry points launched "
-                             f"{RK.round_keys.launches} and "
-                             f"{launches['round_pack']} times")
+    want = 0 if path == "score_only_columnar" else launches["round_pack"]
+    if RK.round_keys.launches != want:
+        raise AssertionError(f"{label}: K13 (a) launched "
+                             f"{RK.round_keys.launches} times, not {want} "
+                             f"(K13 (b): {launches['round_pack']})")
     return rec, launches
 
 
@@ -2312,6 +2443,7 @@ def search_paths_phase(dev, mid, small, g_small, main_launches,
     and K17's acting launches on the incremental plan); ``main_plan`` is
     phase 6's default plan, which the incremental plan is recorded
     beside."""
+    from cruise_control_tpu_torch.analyzer import round_kernels as RK
     from cruise_control_tpu_torch.analyzer.cuda_optimizer import (
         CudaGoalOptimizer,
         CudaSearchConfig,
@@ -2366,10 +2498,19 @@ def search_paths_phase(dev, mid, small, g_small, main_launches,
         opt = CudaGoalOptimizer(config=CudaSearchConfig(
             steps_per_call=0, max_rounds=1, scoring=scoring))
         run_plan(opt, mid)
+        RK.round_keys.launches = RK.score_columnar.launches = 0
         res, s = run_plan(opt, mid)
         one_round[scoring] = {"wallclock_s": s, "actions": len(res.actions),
-                              "timing_s": res.goal_summaries[0]["timing_s"]}
+                              "timing_s": res.goal_summaries[0]["timing_s"],
+                              "round_keys_launches": RK.round_keys.launches,
+                              "score_columnar_launches":
+                              RK.score_columnar.launches}
     emit({"phase": "score_only_round_1000b_20k", **one_round})
+    # the columnar round's key is K14's: no K13 (a) launch
+    if one_round["columnar"]["round_keys_launches"] != 0 \
+            or one_round["columnar"]["score_columnar_launches"] < 1 \
+            or one_round["grid"]["round_keys_launches"] < 1:
+        raise AssertionError(f"K13 (a) / K14 launches a round: {one_round}")
 
     launches = {}
     for label, path, cfg, state, bar in (
@@ -2480,6 +2621,24 @@ def main() -> int:
                                         name=f"compact_rows[{case}]"))
     if extra["compact_rows[nrow_50k]"]["NROW"] < 50_000:
         raise AssertionError("synthetic compaction is below 50 000 keys")
+    # K3 over 10 000, 20 000 and 45 000 brokers, on one source broker, all
+    # +inf, at Q = 1 and 8, on -0.0 / +0.0 ties and past shared memory
+    a3, kw3 = calls["per_src_top"]
+    for case, (a, kw) in src_top_cases(a3, kw3, dev).items():
+        extra.update(check_per_src_top(case, a, kw, False,
+                                       name=f"per_src_top[{case}]",
+                                       cpu_twin=case == "zero_ties"))
+    # the scratch holds the gathered keys and brokers alone, and more
+    # where the leadership's (b45k_small) or the rows' (k32k) keys do not
+    # fit in shared memory
+    for case, spill in (("midscale", False), ("b45k", False),
+                        ("b45k_small", True), ("k32k", True)):
+        k3 = (steps["midscale"]["per_src_top"] if case == "midscale"
+              else extra[f"per_src_top[{case}]"])
+        gathered = k3["K"] * 8 + -(-k3["L"] * 4 // 8) * 8
+        if (k3["scratch_bytes"] > gathered) != spill:
+            raise AssertionError(f"K3 {case}: scratch of "
+                                 f"{k3['scratch_bytes']} bytes")
     m_ns = north_star_placement(dev)
     extra["recompute_aggregates"] = check_recompute_aggregates(
         "north_star_slots", m_ns, True, True)

@@ -508,18 +508,15 @@ def _step(lp: _StepLoop, checked: bool) -> None:
         ls, _ = score_candidates(m, cfg, ca, lp.kind_l, pb.lp, pb.lsl,
                                  lp.cd_l, lp.consts, lp.tconsts,
                                  checked=checked)
-        # the rows' best scores re-add the destination terms to the source
-        # term, as the reference does (bit-parity of the row scores)
-        row_best = src_term + (vals[:, 0] - src_term)
     else:
         src_term = _incremental_rescore(lp, checked)
         vals, best_d, ls = lp.sc.dt, lp.sc.bd, lp.sc.ls
-        row_best = src_term + vals[:, 0]
 
-    # ---- reduce: per-broker best transfer + top-Q move rows (K3) ---------
-    sb = m.assignment.view(-1)[pb.slot].clamp_min(0)
-    bl, (rows_q, q_scores) = per_src_top(m, pb.lp, pb.lsl, ls, sb, row_best,
-                                         lp.B, lp.Q)
+    # ---- reduce: per-broker best transfer + top-Q move rows (K3), from
+    # the rows' slots and scores (it writes their source brokers, sb) ------
+    bl, (rows_q, q_scores), sb = per_src_top(
+        m, pb.lp, pb.lsl, ls, pb.slot, src_term, vals, lp.B, lp.Q,
+        dest_terms=lp.sc is not None)
 
     # ---- compact to the best C rows and the cohort's inputs (K7) ---------
     c = compact_rows(m, q_scores, rows_q, bl, src_term, vals, best_d,
@@ -695,26 +692,14 @@ def _resync_device_model(m: DeviceModel, ctx: AnalyzerContext) -> DeviceModel:
 # The score-only round
 # ---------------------------------------------------------------------------------
 
-def _round_scores(m: DeviceModel, cfg: CudaSearchConfig, ca, K: int, D: int,
-                  consts=None, tconsts=None):
-    """The first half of a score-only round: the scores it selects from →
-    ``(scores, layout, pools)``.
-
-    A full repool (K10 + K11: the reference rebuilds the pools from
-    scratch every round) gives ``pools`` = (kp, ks, dest_pool, lp, lsl).
-    The grid form scores each pool row's top-R raw grid scores (K2 + K1)
-    and the leadership pool (K6): ``scores`` = ([K, R], [L]), K·R + L
-    flat; the columnar form scores the K·D + P·S flat candidates (K14):
-    ``scores`` = ([N],).  ``layout`` is what K13 (b) decodes the selected
-    indices with (:func:`_round_pick`)."""
-    S = m.assignment.shape[1]
-    dev = m.assignment.device
-    pools = _build_pools(m, cfg, ca, K, D)
+def _grid_round_scores(m: DeviceModel, cfg: CudaSearchConfig, ca, pools,
+                       consts=None, tconsts=None):
+    """The grid form's scores on ``pools`` → (vals f32 [K, R], ls f32 [L],
+    best_i int32 [K, R]): each pool row's top-R raw grid scores and their
+    pool indices (K2 + K1) and the leadership pool's scores (K6)."""
     kp, ks, dest_pool, lp, lsl = pools
-    if _resolve_scoring(cfg) == "columnar":
-        return ((score_columnar(m, cfg, ca, kp, ks, dest_pool, consts,
-                                tconsts),), {"S": S}, pools)
-    R = min(DESTS_PER_SOURCE, D)
+    dev = m.assignment.device
+    R = min(DESTS_PER_SOURCE, dest_pool.shape[0])
     _, vals, best_i = grid_rescore(m, cfg, ca, kp, ks, dest_pool, R, consts,
                                    tconsts)
     L = lp.shape[0]
@@ -723,14 +708,36 @@ def _round_scores(m: DeviceModel, cfg: CudaSearchConfig, ca, K: int, D: int,
         torch.full((L,), KIND_LEADERSHIP, dtype=torch.int32, device=dev),
         lp, lsl, torch.zeros(L, dtype=torch.int32, device=dev), consts,
         tconsts)
-    return (vals, ls), {"best_i": best_i, "lp": lp, "lsl": lsl}, pools
+    return vals, ls, best_i
 
 
-def _round_pick(scores, layout, pools, topk: int) -> torch.Tensor:
-    """The second half of a score-only round: K13 (a) negates ``scores``
-    into the flat key, K11 keeps its ``min(topk, N)`` largest
-    (``top_k``'s order) and K13 (b) decodes and packs them → f32 [5, k]."""
-    key = round_keys(*scores)
+def _round_scores(m: DeviceModel, cfg: CudaSearchConfig, ca, K: int, D: int,
+                  consts=None, tconsts=None):
+    """The first half of a score-only round: the flat key it selects from
+    → ``(key, layout, pools)``.
+
+    A full repool (K10 + K11: the reference rebuilds the pools from
+    scratch every round) gives ``pools`` = (kp, ks, dest_pool, lp, lsl).
+    The grid form scores each pool row's top-R raw grid scores and the
+    leadership pool (:func:`_grid_round_scores`), K·R + L flat, and K13 (a)
+    negates them into the key; the columnar form's K14 scores the K·D + P·S
+    flat candidates and stores the key itself.  ``layout`` is what K13 (b)
+    decodes the selected indices with (:func:`_round_pick`)."""
+    S = m.assignment.shape[1]
+    pools = _build_pools(m, cfg, ca, K, D)
+    kp, ks, dest_pool, lp, lsl = pools
+    if _resolve_scoring(cfg) == "columnar":
+        return (score_columnar(m, cfg, ca, kp, ks, dest_pool, consts,
+                               tconsts), {"S": S}, pools)
+    vals, ls, best_i = _grid_round_scores(m, cfg, ca, pools, consts, tconsts)
+    return (round_keys(vals, ls), {"best_i": best_i, "lp": lp, "lsl": lsl},
+            pools)
+
+
+def _round_pick(key, layout, pools, topk: int) -> torch.Tensor:
+    """The second half of a score-only round: K11 keeps the ``min(topk,
+    N)`` largest of the flat ``key`` (``top_k``'s order) and K13 (b)
+    decodes and packs them → f32 [5, k]."""
     sel = torch.empty(min(topk, key.shape[0]), dtype=torch.int32,
                       device=key.device)
     top_select(key, sel)

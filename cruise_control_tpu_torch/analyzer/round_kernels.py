@@ -21,16 +21,18 @@ Then ``lax.top_k(-scores, k)``, the decode (``_decode_flat_idx``,
 ``:2875``) and the pack (``_pack_round_result``, ``:2059``).
 
 * K13 (``csrc/round_pack.cu``), two entry points around K11's top-k:
-  :func:`round_keys` builds the literally negated flat key (plain twin
-  :func:`round_keys_plain`), K11 (:func:`analyzer.pool_kernels.top_select`,
-  twin ``_top_desc``) keeps its k largest, and :func:`round_pack` gathers
-  their scores back, decodes them in either layout and packs them (plain
-  twin :func:`round_pack_plain` over :func:`decode_flat_idx` /
+  :func:`round_keys` builds the grid form's literally negated flat key
+  (plain twin :func:`round_keys_plain`), K11
+  (:func:`analyzer.pool_kernels.top_select`, twin ``_top_desc``) keeps its
+  k largest, and :func:`round_pack` gathers their scores back, decodes
+  them in either layout and packs them (plain twin
+  :func:`round_pack_plain` over :func:`decode_flat_idx` /
   :func:`decode_columnar` and :func:`pack_round_result`).
 * K14 :func:`score_columnar` (``csrc/score_columnar.cu``): the columnar
-  form's K·D + P·S scores, each candidate derived from its flat index —
-  plain twin :func:`score_columnar_plain`, which materializes the columns
-  and calls ``_score_candidates``.
+  form's flat key, its K·D + P·S scores negated as they are stored, each
+  candidate derived from its flat index — plain twins
+  :func:`score_columnar_plain`, which materializes the columns and calls
+  ``_score_candidates``, then :func:`round_keys_plain`.
 
 :func:`round_plain` is the whole round of plain twins.  Each wrapper runs
 its plain twin for tensors that lie on the CPU, and for CUDA tensors
@@ -242,7 +244,8 @@ def _contiguous_f32(name: str, x, dev) -> None:
 def round_keys(scores, l_scores=None) -> torch.Tensor:
     """K13 (a): the negated flat key of the plain twin
     :func:`round_keys_plain` → f32 [scores.numel() + L].  ``scores`` is
-    K1's [K, R] (then ``l_scores`` K6's [L]) or K14's flat scores."""
+    K1's [K, R], ``l_scores`` K6's [L] (the grid form's round; K14 makes
+    the columnar key itself)."""
     if kernels.on_cpu(scores):
         return round_keys_plain(scores, l_scores)
     dev = scores.device
@@ -330,12 +333,14 @@ round_pack.launches = 0
 
 def score_columnar(m, cfg, ca, kp, ks, dest_pool, consts=None,
                    tconsts=None) -> torch.Tensor:
-    """K14: the f32 [K·D + P·S] scores of the plain twin
-    :func:`score_columnar_plain`, the candidate columns never
+    """K14: the columnar round's flat key, f32 [K·D + P·S] — the plain
+    twins ``round_keys_plain(score_columnar_plain(...))``: each candidate's
+    score negated as it is stored, the candidate columns never
     materialized.  ``consts`` / ``tconsts`` as K6's
     (:func:`analyzer.score_kernel.score_candidates`)."""
     if kernels.on_cpu(kp):
-        return score_columnar_plain(m, cfg, ca, kp, ks, dest_pool)
+        return round_keys_plain(score_columnar_plain(m, cfg, ca, kp, ks,
+                                                     dest_pool))
     dev = kp.device
     P, S = m.assignment.shape
     B = m.capacity.shape[0]
@@ -381,7 +386,7 @@ def score_columnar(m, cfg, ca, kp, ks, dest_pool, consts=None,
           if has_cap else ()),
     ):
         chk(name, x, dt, shape)
-    delta = torch.empty(N, dtype=f32, device=dev)
+    key = torch.empty(N, dtype=f32, device=dev)
     lib = kernels.bind("score_columnar", "score_columnar_launch",
                        [_P] * 20 + [_I] * 5 + [_P] * 2)
     if not getattr(lib, "_cc_checked", False):
@@ -403,12 +408,12 @@ def score_columnar(m, cfg, ca, kp, ks, dest_pool, consts=None,
         m.leader_nwin.data_ptr(), m.pot_nwout.data_ptr(),
         m.rcount.data_ptr(), m.lcount.data_ptr(), kp.data_ptr(),
         ks.data_ptr(), dest_pool.data_ptr(), consts.data_ptr(),
-        tconsts.data_ptr(), K, D, P, S, W, delta.data_ptr(),
+        tconsts.data_ptr(), K, D, P, S, W, key.data_ptr(),
         kernels.stream(dev),
     )
     kernels.launched("score_columnar", err)
     score_columnar.launches += 1
-    return delta
+    return key
 
 
 score_columnar.launches = 0

@@ -2,8 +2,10 @@
 hand-written CUDA kernels that replace them on the card.
 
 * K3 :func:`per_src_top` (``csrc/per_src_top.cu``): the best leadership
-  transfer per leader broker and the top-Q move rows per source broker —
-  plain twins :func:`_reduce_leadership_per_src`, :func:`_topq_rows_per_src`.
+  transfer per leader broker and the top-Q move rows per source broker,
+  from the rows' slots and scores — plain twins
+  :func:`per_src_top_inputs_plain`, then :func:`_reduce_leadership_per_src`
+  and :func:`_topq_rows_per_src`.
 * K4 :func:`budget_accept` (``csrc/budget_accept.cu``): the cohort's
   water-filling budgets and its two rounds of segmented-prefix acceptance
   — plain twins :func:`_cohort_budgets` (:func:`_step_budgets`) and
@@ -36,6 +38,9 @@ from cruise_control_tpu_torch.ops.segment import (
     segment_sum,
 )
 
+#: brokers K3 takes (``csrc/per_src_top.cu: MAX_B``: its per-broker
+#: counts stay in shared memory)
+PER_SRC_TOP_MAX_B = 50_000
 #: K15 (``analyzer/corrected_kernel.py``) sorts its n2 keys in shared
 #: memory up to this many bytes (the block's static shared memory takes
 #: the rest)
@@ -317,59 +322,126 @@ def _match_batch(cand_score, cand_dst, cand_src, cand_p, tol: float, B: int,
 # ---------------------------------------------------------------------------------
 
 def per_src_top_plain(m, lp, lsl, l_scores, sb, row_best, B: int, Q: int):
-    """Plain twin of K3."""
+    """Plain twin of K3 on the rows' source brokers and best scores (see
+    :func:`per_src_top_inputs_plain`)."""
     return (_reduce_leadership_per_src(m, lp, lsl, l_scores),
             _topq_rows_per_src(sb, row_best, B, Q))
 
 
-def per_src_top(m, lp, lsl, l_scores, sb, row_best, B: int, Q: int):
+def per_src_top_inputs_plain(m, slot, src_term, vals,
+                             dest_terms: bool = False):
+    """The inputs K3 reads for itself → (sb int32 [K], row_best f32 [K]):
+    each move row's source broker, the broker in its flat slot ``slot``
+    (0 for an empty one), and its best score — its top destination term
+    re-added to its source term, ``src_term + (vals[:, 0] - src_term)``,
+    as the reference does (bit-parity of the row scores); with
+    ``dest_terms`` (``vals`` the incremental rescore's carried destination
+    terms) ``src_term + vals[:, 0]``."""
+    sb = m.assignment.view(-1)[slot].clamp_min(0)
+    v0 = vals[:, 0]
+    return sb, (src_term + v0 if dest_terms else src_term + (v0 - src_term))
+
+
+#: K3's device phases by the phase stamps that close them
+#: (``csrc/per_src_top.cu``, built with ``-DCC_PHASE_STAMPS`` by
+#: ``tools/time_kernels.py``), as block 0 (the first rows block) sees
+#: them: its share of the gathers, the grid barrier, then its range's
+#: counts, scan, scatter and picks; then, from the first leadership
+#: block's own stamp after the barrier, its reduction and write-out.
+#: None names the span between the two blocks' stamps.
+PER_SRC_TOP_PHASES = ("gather", "grid_sync", "rows_count", "rows_scan",
+                      "rows_scatter", "rows_pick", None, "lead_reduce",
+                      "lead_out")
+
+
+def per_src_top_attrs(K: int, L: int, B: int) -> dict:
+    """The built K3 at K rows, L candidates and B brokers, as the card
+    reports it (:func:`ops.kernels.attrs`).  Needs the card."""
+    lib = kernels.bind("per_src_top", "per_src_top_attrs",
+                       [_I, _I, _I, ctypes.POINTER(ctypes.c_int)])
+    return kernels.attrs("per_src_top", lib.per_src_top_attrs, K, L, B)
+
+
+def per_src_top_scratch_bytes(K: int, L: int, B: int) -> int:
+    """Bytes of device scratch K3 takes at K rows, L candidates and B
+    brokers: the gathered keys and brokers, and the keys that do not fit
+    in the card's shared memory.  Needs the card."""
+    lib = kernels.bind("per_src_top", "per_src_top_scratch_bytes",
+                       [_I, _I, _I])
+    lib.per_src_top_scratch_bytes.restype = ctypes.c_longlong
+    nbytes = lib.per_src_top_scratch_bytes(K, L, B)
+    if nbytes < 0:
+        raise RuntimeError("per_src_top: the card's shared memory could "
+                           "not be read")
+    return nbytes
+
+
+def per_src_top(m, lp, lsl, l_scores, slot, src_term, vals, B: int, Q: int,
+                dest_terms: bool = False, row_best=None):
     """→ ((score f32, p, s, dst int32) [B] of the best leadership transfer
     per leader broker, (rows int32 [Q, B], scores f32 [Q, B]) of the top-Q
-    move rows per source broker) — the plain twins
-    :func:`_reduce_leadership_per_src` and :func:`_topq_rows_per_src`.
+    move rows per source broker, sb int32 [K]) — the plain twins
+    :func:`_reduce_leadership_per_src` and :func:`_topq_rows_per_src` on
+    :func:`per_src_top_inputs_plain`'s (sb, row_best), and that ``sb``
+    (K7 takes it).
 
-    ``row_best`` may be a strided 1-D view (the rows' best scores, column
-    0 of the [K, R] row scores)."""
+    ``slot`` int64 [K] are the move rows' flat slots, ``src_term`` their
+    source terms (may be a strided 1-D view: the source term column of
+    K2's table) and ``vals`` f32 [K, R] their top-R destination scores, or
+    with ``dest_terms`` the carried destination terms.  ``row_best``, if
+    given, is an f32 [K] tensor the rows' best scores are written into
+    (what the kernel ranks; for checks)."""
     if kernels.on_cpu(l_scores):
-        return per_src_top_plain(m, lp, lsl, l_scores, sb, row_best, B, Q)
+        sb, rb = per_src_top_inputs_plain(m, slot, src_term, vals,
+                                          dest_terms)
+        if row_best is not None:
+            row_best.copy_(rb)
+        return (*per_src_top_plain(m, lp, lsl, l_scores, sb, rb, B, Q), sb)
     dev = l_scores.device
     P, S = m.assignment.shape
-    L, K = lp.shape[0], sb.shape[0]
+    L, K = lp.shape[0], slot.shape[0]
+    R = vals.shape[1] if vals.dim() == 2 else -1
     i32, f32 = torch.int32, torch.float32
     chk = functools.partial(kernels.check, "per_src_top", device=dev)
     chk("lp", lp, i32, (L,))
     chk("lsl", lsl, i32, (L,))
     chk("l_scores", l_scores, f32, (L,))
-    chk("sb", sb, i32, (K,))
+    chk("slot", slot, torch.int64, (K,))
+    chk("vals", vals, f32, (K, R))
     chk("assignment", m.assignment, i32, (P, S))
     chk("leader_slot", m.leader_slot, i32, (P,))
-    if row_best.dtype != f32 or tuple(row_best.shape) != (K,) \
-            or row_best.device != dev or row_best.stride(0) < 1:
-        raise ValueError("per_src_top: row_best must be a 1-D f32 tensor "
+    if row_best is not None:
+        chk("row_best", row_best, f32, (K,))
+    if src_term.dtype != f32 or tuple(src_term.shape) != (K,) \
+            or src_term.device != dev or src_term.stride(0) < 1:
+        raise ValueError("per_src_top: src_term must be a 1-D f32 tensor "
                          f"of {K} entries on {dev} with a positive stride")
-    if L < 1 or B != m.capacity.shape[0] or Q < 0:
-        raise ValueError(f"per_src_top: L={L}, B={B}, Q={Q} out of range")
+    if L < 1 or R < 1 or B != m.capacity.shape[0] or Q < 0 \
+            or K >= 1 << 30 or B > PER_SRC_TOP_MAX_B:
+        raise ValueError(f"per_src_top: L={L}, K={K}, R={R}, B={B}, Q={Q} "
+                         "out of range")
     out = (torch.empty(B, dtype=f32, device=dev),
            *(torch.empty(B, dtype=i32, device=dev) for _ in range(3)))
     rows = torch.empty((Q, B), dtype=i32, device=dev)
     scores = torch.empty((Q, B), dtype=f32, device=dev)
-    keys = None if 2 * B * 8 <= kernels.SMEM_LIMIT else torch.empty(
-        2 * B, dtype=torch.int64, device=dev)
-    cur = torch.empty(K, dtype=f32, device=dev)
+    sb = torch.empty(K, dtype=i32, device=dev)
     lib = kernels.bind("per_src_top", "per_src_top_launch",
-                       [_P, _P, _P, _I, _P, _P, _I, _P, _P, _I, _I, _I, _I]
-                       + [_P] * 9)
+                       [_P, _P, _P, _I, _P, _P, _I, _P, _P, _I, _P]
+                       + [_I] * 5 + [_P] * 10)
+    scratch = torch.empty(-(-per_src_top_scratch_bytes(K, L, B) // 8),
+                          dtype=torch.int64, device=dev)
     err = lib.per_src_top_launch(
         lp.data_ptr(), lsl.data_ptr(), l_scores.data_ptr(), L,
-        m.assignment.data_ptr(), m.leader_slot.data_ptr(), S, sb.data_ptr(),
-        row_best.data_ptr(), row_best.stride(0), K, B, Q,
+        m.assignment.data_ptr(), m.leader_slot.data_ptr(), S,
+        slot.data_ptr(), src_term.data_ptr(), src_term.stride(0),
+        vals.data_ptr(), R, int(dest_terms), K, B, Q,
         *(t.data_ptr() for t in out), rows.data_ptr(), scores.data_ptr(),
-        None if keys is None else keys.data_ptr(), cur.data_ptr(),
-        kernels.stream(dev),
+        sb.data_ptr(), None if row_best is None else row_best.data_ptr(),
+        scratch.data_ptr(), kernels.stream(dev),
     )
     kernels.launched("per_src_top", err)
     per_src_top.launches += 1
-    return out, (rows, scores)
+    return out, (rows, scores), sb
 
 
 per_src_top.launches = 0

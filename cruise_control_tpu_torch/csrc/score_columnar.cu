@@ -1,22 +1,27 @@
-// K14 — the columnar score-only round's candidate scores, for Hopper
-// (sm_90a).
+// K14 — the columnar score-only round's flat key, its candidates' negated
+// scores, for Hopper (sm_90a).
 //
 // What it replaces.  cruise_control_tpu/analyzer/tpu_optimizer.py:720
 // `_build_round_candidates` (the K×D move grid flattened — `repeat(kp, D)`,
 // `repeat(ks, D)`, `tile(dest_pool, K)` — then every P·S leadership
 // transfer appended) and :513 `_score_candidates` over all of them, as
-// :2902 `columnar_topk` calls it before its top-k.  Flat index i < K·D is
+// :2902 `columnar_topk` calls it before its top-k, and the negation of
+// that top-k's input, `lax.top_k(-scores)` (:2905, :2956).  Flat index
+// i < K·D is
 // the move of pool row i / D to destination dest_pool[i % D]; any other i
 // is the leadership transfer of partition (i - K·D) / S to its slot
-// (i - K·D) % S.  The plain twin (analyzer/round_kernels.py:
-// score_columnar_plain) materializes those four columns and calls
-// `_score_candidates`; this kernel derives each candidate from its index
-// and never writes the columns (4 × 33 MB at 1000b/20k).
+// (i - K·D) % S.  The plain twins (analyzer/round_kernels.py:
+// score_columnar_plain, then round_keys_plain) materialize those four
+// columns, call `_score_candidates` and negate; this kernel derives each
+// candidate from its index, never writes the columns (4 × 33 MB at
+// 1000b/20k) and stores each score negated, so the round needs no second
+// pass over the 33 MB of scores to make its key (K13's first entry point
+// makes only the grid form's).
 //
 // Rounding.  Each candidate is scored by K6's body (csrc/score_common.cuh:
 // score_one), the plain twin's operations in its order, built without FMA
-// contraction: delta[i] equals the plain twin's bit for bit, +inf where
-// the candidate is infeasible.
+// contraction: -key[i] equals the plain twin's score bit for bit, +inf
+// where the candidate is infeasible; negation flips the sign bit only.
 //
 // What bounds it.  N = K·D + P·S = 8 252 000 candidates at 1000b/20k.
 // Per candidate four broker costs (~85 operations each) and ~60 more:
@@ -51,7 +56,7 @@ score_columnar_kernel(Model m, const int* __restrict__ kp,
                       const float* __restrict__ consts,
                       const float* __restrict__ tconsts, long long KD, int D,
                       long long N, int S, int W,
-                      float* __restrict__ delta) {
+                      float* __restrict__ key) {
   float c[NC], t[NT];
 #pragma unroll
   for (int q = 0; q < NC; ++q) c[q] = consts[q];
@@ -73,8 +78,10 @@ score_columnar_kernel(Model m, const int* __restrict__ kp,
       cs = (int)(j % S);
       cd = 0;
     }
+    float delta;
     uint8_t feasible;
-    score_one(m, c, t, kind, cp, cs, cd, S, W, delta + i, &feasible);
+    score_one(m, c, t, kind, cp, cs, cd, S, W, &delta, &feasible);
+    key[i] = -delta;
   }
 }
 
@@ -89,8 +96,9 @@ void score_columnar_layout(int* out) {
   out[2] = MAX_S;
 }
 
-// Launches K14 on `stream` over the N = K·D + P·S flat candidates;
-// returns the CUDA error code (0 = launched).
+// Launches K14 on `stream`: key[i] = -score of the i-th of the
+// N = K·D + P·S flat candidates; returns the CUDA error code (0 =
+// launched).
 int score_columnar_launch(const int* assignment, const int* leader_slot,
                           const int* offline_origin,
                           const uint8_t* must_move, const float* pload,
@@ -102,7 +110,7 @@ int score_columnar_launch(const int* assignment, const int* leader_slot,
                           const int* kp, const int* ks,
                           const int* dest_pool, const float* consts,
                           const float* tconsts, int K, int D, int P, int S,
-                          int W, float* delta, void* stream) {
+                          int W, float* key, void* stream) {
   if (K < 0 || D < 1 || P < 0 || S < 1 || S > MAX_S ||
       (W != 2 * NR + 1 && W != 4 * NR + 1) ||
       ((W == 4 * NR + 1) != (cload != nullptr))) {
@@ -117,7 +125,7 @@ int score_columnar_launch(const int* assignment, const int* leader_slot,
   const long long blocks = (N + THREADS - 1) / THREADS;
   const int grid = (int)(blocks < 0x7fffffffLL ? blocks : 0x7fffffffLL);
   score_columnar_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      m, kp, ks, dest_pool, consts, tconsts, KD, D, N, S, W, delta);
+      m, kp, ks, dest_pool, consts, tconsts, KD, D, N, S, W, key);
   return (int)cudaGetLastError();
 }
 

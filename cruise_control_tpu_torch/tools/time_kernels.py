@@ -1,7 +1,8 @@
 """Time K1 ``grid_top_r``, K11 ``top_select``, K17 ``grid_patch``, K9
-``recompute_aggregates``, K12 ``whatif_verdict``, K4 ``budget_accept`` and
-K7 ``compact_rows`` on the card at the shapes their paths give them,
-through a checkout's own ``chip_smoke.py`` checks.
+``recompute_aggregates``, K12 ``whatif_verdict``, K4 ``budget_accept``,
+K7 ``compact_rows``, K3 ``per_src_top`` and K13 (a) ``round_keys`` on the
+card at the shapes their paths give them, through a checkout's own
+``chip_smoke.py`` checks.
 
     python3 cruise_control_tpu_torch/tools/time_kernels.py [--root DIR]
         [--label NAME] [--only NAME[,NAME...]]
@@ -11,7 +12,7 @@ checkout whose ``chip_smoke.py`` and package are imported, for example an
 older commit unpacked with ``git archive``, so that two versions of the
 kernels can be timed in turns within one run on one card.  Run it by its
 path, not with ``-m``: the package must come from that checkout.
-``--only`` keeps the named kernels (default: all seven).
+``--only`` keeps the named kernels (default: all nine).
 
 Each kernel is held bit for bit to its plain twin and timed by
 ``chip_smoke.py`` itself (its records print as it emits them: wrapper ms
@@ -44,7 +45,18 @@ K7 on that first step's 5 000 keys and on the tie-rich keys at 5 000
 (``CC_STAMP`` in its source), its device time split by phase: the kernel
 is built once more with ``-DCC_PHASE_STAMPS`` and run alone 30 times, and
 ``device_ms_by_phase`` / ``phase_cycles`` are the median ms
-(``%globaltimer``) and SM cycles (``clock64``) between its stamps.
+(``%globaltimer``) and SM cycles (``clock64``) between its stamps.  K3
+runs as the step calls it, its inputs' gathers included (a checkout whose
+K3 takes the rows' source brokers and best scores gets them from the four
+torch ops the step ran before it; ``launch_ms_by_name`` shows each), on
+the 1 000 / 20 000 first step and chip_smoke's ``src_top_cases`` (10 000,
+20 000 and 45 000 brokers, every row on one broker, every score +inf,
+Q = 1 and 8, -0.0 / +0.0 ties, 1 024 rows over 45 000 brokers, 32 768
+rows), held bit for bit to its plain twins on CPU copies, with its phases
+where stamped.  K13 (a) runs on the 1 000 / 20 000 first
+score-only round: the grid key beside ``torch.neg(torch.cat(...))`` with
+the wrapper's host side split, and the columnar key as the round makes
+it (K14, and K13 (a) where the round still launches it, counted).
 Needs a card.
 """
 
@@ -62,16 +74,18 @@ from pathlib import Path
 
 import torch
 
-KEYS = ("K", "D", "S", "N", "k", "P", "B", "blocks",
+KEYS = ("K", "D", "S", "N", "k", "P", "B", "L", "Q", "blocks",
         "top_broker_share", "attrs", "ms",
         "C", "NB", "NROW", "distinct_dst", "distinct_src",
         "device_ms", "device_ms_by_phase", "phase_cycles", "stamped_ms",
         "launch_ms_by_name", "plain_ms",
         "bound_ms", "bound_by", "library_ms", "library_sort_ms",
         "evaluate_batch_ms", "compile_futures_ms", "h2d_scale_ms",
-        "host_us")
+        "host_us", "bit_equal", "wrapper_ms", "key_ms", "k14_ms",
+        "library_two_calls_ms", "round_keys_launches_a_round")
 ALL = ("top_select", "grid_top_r", "grid_patch", "recompute_aggregates",
-       "whatif_verdict", "budget_accept", "compact_rows")
+       "whatif_verdict", "budget_accept", "compact_rows", "per_src_top",
+       "round_keys")
 #: K11's (N, k): the repool's top-K (and smaller k), its top-D, the
 #: score-only round's grid and columnar keys, the north star's slots
 TOP_SHAPES = ((60_000, 8192), (60_000, 2048), (60_000, 1024), (1000, 1000),
@@ -160,8 +174,9 @@ def stamped_library(kernels, name: str):
 def phase_split(kernels, name: str, phases, run, reps: int = 30):
     """``run()`` (one launch of kernel ``name``'s wrapper) on the stamped
     build, ``reps`` times alone → {"device_ms_by_phase", "phase_cycles",
-    "stamped_ms"}: the median ms and SM cycles between consecutive stamps,
-    and of the whole stamped launch; {} when the kernel has no stamps."""
+    "stamped_ms"}: the median ms and SM cycles between consecutive stamps
+    (of one block: SM cycles of two blocks do not compare), and of the
+    whole stamped launch; {} when the kernel has no stamps."""
     lib = stamped_library(kernels, name)
     if lib is None:
         return {}
@@ -186,11 +201,17 @@ def phase_split(kernels, name: str, phases, run, reps: int = 30):
 
     def med(i, j, col):
         return statistics.median(r[j][col] - r[i][col] for r in rows)
+    # a kernel of several blocks stamps each block's phases in turn: a
+    # phase named None spans two blocks' stamps and is not reported, and
+    # the launch spans its earliest and latest stamp
     return {
         "device_ms_by_phase": {p: med(i, i + 1, 0) * 1e-6
-                               for i, p in enumerate(phases)},
-        "phase_cycles": {p: med(i, i + 1, 1) for i, p in enumerate(phases)},
-        "stamped_ms": med(0, n - 1, 0) * 1e-6}
+                               for i, p in enumerate(phases) if p},
+        "phase_cycles": {p: med(i, i + 1, 1)
+                         for i, p in enumerate(phases) if p},
+        "stamped_ms": statistics.median(
+            max(t for t, _ in r) - min(t for t, _ in r) for r in rows)
+        * 1e-6}
 
 
 def time_budget_accept(cs, summary, random_cluster, dev, here):
@@ -231,6 +252,160 @@ def time_compact_rows(cs, summary, random_cluster, dev, here):
         if hasattr(K7, "compact_rows_attrs"):
             rec["attrs"] = K7.compact_rows_attrs(args[11], rec["NROW"])
         summary("compact_rows", rec)
+
+
+# Parent-only paths, for an older checkout timed in turns through
+# ``--root``: one whose K3 takes the rows' source brokers and best scores
+# from four torch ops the step runs before it, and whose columnar round
+# launches K13 (a) after K14.  They are k3_step_args' rebuild,
+# k3_inputs, k3_calls' second branch and time_round_keys' ``n_keys``
+# branch; none of them runs on this checkout's own package, and they go
+# once no checkout to be compared with predates K3's fused inputs.
+
+def k3_step_args(calls):
+    """K3's first-step call in its fused form: ``(m, lp, lsl, l_scores,
+    slot, src_term, vals, B, Q), {"dest_terms": ...}`` — as recorded where
+    the checkout's K3 takes the fused inputs, else rebuilt from its call
+    (``sb``, ``row_best``) and K7's (``src_term``, ``vals``, ``kp``,
+    ``ks``)."""
+    args, kw = calls["per_src_top"]
+    if len(args) == 9:
+        return args, kw
+    m, lp, lsl, ls, _, _, B, Q = args
+    c, ckw = calls["compact_rows"]
+    src, vals, kp, ks = c[4], c[5], c[8], c[9]
+    slot = kp.long() * m.assignment.shape[1] + ks
+    return ((m, lp, lsl, ls, slot, src, vals, B, Q),
+            {"dest_terms": ckw.get("dest_terms", False)})
+
+
+def k3_inputs(m, slot, src_term, vals, dest_terms=False):
+    """The rows' source brokers and best scores as the step computed them
+    before K3 took them in (four torch ops)."""
+    sb = m.assignment.view(-1)[slot].clamp_min(0)
+    v0 = vals[:, 0]
+    return sb, (src_term + v0 if dest_terms else
+                src_term + (v0 - src_term))
+
+
+def k3_calls(SK, args, kw):
+    """→ (step, kernel): K3 as the step calls it, its inputs included, and
+    the wrapper's call alone (the same call where K3 takes the fused
+    inputs); each gives the flat outputs (best transfer, rows, scores,
+    sb)."""
+    m, lp, lsl, ls, slot, src, vals, B, Q = args
+    flat = lambda bl, top, sb: [*bl, *top, sb]  # noqa: E731
+    if hasattr(SK, "per_src_top_inputs_plain"):
+        step = lambda: flat(*SK.per_src_top(*args, **kw))  # noqa: E731
+        return step, step
+    sb, rb = k3_inputs(m, slot, src, vals, **kw)
+
+    def step():
+        sb, rb = k3_inputs(m, slot, src, vals, **kw)
+        return flat(*SK.per_src_top(m, lp, lsl, ls, sb, rb, B, Q), sb)
+    return step, lambda: flat(*SK.per_src_top(m, lp, lsl, ls, sb, rb, B, Q),
+                              sb)
+
+
+def time_per_src_top(cs, summary, random_cluster, dev, here):
+    """K3 on the 1 000 / 20 000 first step and chip_smoke's
+    ``src_top_cases``, as the step calls it."""
+    import dataclasses
+
+    from cruise_control_tpu_torch.analyzer import step_kernels as SK
+
+    calls, _ = cs.first_step_calls(random_cluster(**cs.MIDSCALE), {}, dev)
+    base = k3_step_args(calls)
+    del calls
+    cases = {"midscale": base,
+             **helper(cs, here, "src_top_cases")(*base, dev)}
+    bitwise = helper(cs, here, "bitwise")
+    phases = getattr(SK, "PER_SRC_TOP_PHASES", ())
+    for case, (args, kw) in cases.items():
+        m, lp, lsl, ls, slot, src, vals, B, Q = args
+        step, kernel = k3_calls(SK, args, kw)
+        got = step()
+        # the plain twin on CPU copies: on the card its scatter-min keeps
+        # whichever of two tied zeros comes last, in no fixed order
+        pm = dataclasses.replace(m, assignment=m.assignment.cpu(),
+                                 leader_slot=m.leader_slot.cpu(),
+                                 capacity=m.capacity.cpu())
+        sb, rb = k3_inputs(pm, slot.cpu(), src.cpu(), vals.cpu(), **kw)
+        bl, top = SK.per_src_top_plain(pm, lp.cpu(), lsl.cpu(), ls.cpu(), sb,
+                                       rb, B, Q)
+        bitwise(f"{case} per_src_top", got, [*bl, *top, sb])
+        rec = {"case": case, "B": B, "Q": Q, "L": lp.shape[0],
+               "K": slot.shape[0], "dest_terms": kw.get("dest_terms", False),
+               "bit_equal": True,
+               "ms": cs.cuda_ms(step), "wrapper_ms": cs.cuda_ms(kernel),
+               "device_ms": cs.device_ms(step, "per_src_top_"),
+               "launch_ms_by_name": launch_ms(cs, step),
+               "host_us": {"step": host_us(step), "wrapper": host_us(kernel)}}
+        rec.update(phase_split(SK.kernels, "per_src_top", phases, kernel))
+        if hasattr(SK, "per_src_top_attrs"):
+            rec["attrs"] = SK.per_src_top_attrs(slot.shape[0], lp.shape[0],
+                                                B)
+        summary("per_src_top", rec)
+        del got, step, kernel
+
+
+def time_round_keys(cs, summary, random_cluster, dev):
+    """K13 (a) on the 1 000 / 20 000 first score-only round: the grid key
+    beside ``torch.neg(torch.cat(...))``, the wrapper's host side split;
+    the columnar key as the round makes it."""
+    import dataclasses
+
+    from cruise_control_tpu_torch.analyzer import cuda_optimizer as C
+    from cruise_control_tpu_torch.analyzer import round_kernels as RK
+
+    r = cs.round_inputs(random_cluster(**cs.MIDSCALE), {}, dev)
+    kernels = RK.kernels
+    bitwise = cs.bitwise
+    vals, ls = r["forms"]["grid"][0]
+    n = vals.numel() + ls.numel()
+    keys = lambda: RK.round_keys(vals, ls)  # noqa: E731
+    lib = lambda: torch.neg(torch.cat((vals.reshape(-1), ls)))  # noqa: E731
+    bitwise("round_keys grid", keys(), RK.round_keys_plain(vals, ls))
+    key = torch.empty(n, dtype=torch.float32, device=dev)
+    clib = kernels.load("round_pack")
+    st = kernels.stream(dev)
+    summary("round_keys", {
+        "case": "grid", "N": n, "bit_equal": True, "ms": cs.cuda_ms(keys),
+        "device_ms": cs.device_ms(keys, "round_pack_keys"),
+        "library_two_calls_ms": cs.cuda_ms(lib),
+        "host_us": {
+            "wrapper": host_us(keys), "library": host_us(lib),
+            "launch_call": host_us(lambda: clib.round_keys_launch(
+                vals.data_ptr(), vals.numel(), ls.data_ptr(), ls.numel(),
+                key.data_ptr(), st)),
+            "empty": host_us(lambda: torch.empty(n, dtype=torch.float32,
+                                                 device=dev)),
+            "stream": host_us(lambda: kernels.stream(dev)),
+            "bind": host_us(lambda: kernels.bind(
+                "round_pack", "round_keys_launch", ())),
+        }})
+    # the columnar key as the round makes it: K14, then K13 (a) where the
+    # round launches it
+    m, cfg, ca, K, D = (r[k] for k in ("m", "cfg", "ca", "K", "D"))
+    cfg = dataclasses.replace(cfg, scoring="columnar")
+    kp, ks, dp = r["forms"]["columnar"][2][:3]
+    a14 = (m, cfg, ca, kp, ks, dp, r["consts"], r["tconsts"])
+    before = RK.round_keys.launches
+    C._round(m, cfg, ca, K, D, r["consts"], r["tconsts"])
+    torch.cuda.synchronize()
+    n_keys = RK.round_keys.launches - before
+    k14 = lambda: RK.score_columnar(*a14)  # noqa: E731
+    key_fn = (lambda: RK.round_keys(k14())) if n_keys else k14
+    want = RK.round_keys_plain(RK.score_columnar_plain(*a14[:6]))
+    bitwise("round_keys columnar", key_fn(), want)
+    del want
+    s14 = k14()
+    summary("round_keys", {
+        "case": "columnar", "N": s14.numel(), "bit_equal": True,
+        "round_keys_launches_a_round": n_keys,
+        "k14_ms": cs.cuda_ms(k14), "key_ms": cs.cuda_ms(key_fn),
+        "launch_ms_by_name": launch_ms(cs, key_fn),
+        "library_ms": cs.cuda_ms(lambda: torch.neg(s14))})
 
 
 def time_top_select(cs, summary, PK, kernels, dev):
@@ -457,6 +632,10 @@ def main(argv=None) -> int:
         time_budget_accept(cs, summary, random_cluster, dev, here)
     if "compact_rows" in only:
         time_compact_rows(cs, summary, random_cluster, dev, here)
+    if "per_src_top" in only:
+        time_per_src_top(cs, summary, random_cluster, dev, here)
+    if "round_keys" in only:
+        time_round_keys(cs, summary, random_cluster, dev)
     return 0
 
 

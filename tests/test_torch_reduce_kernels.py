@@ -47,24 +47,35 @@ def _reduce_inputs(seed):
     K = kp.shape[0]
     best = rng.standard_normal(K).astype(np.float32)
     best[rng.random(K) < 0.2] = np.inf
-    sb = np.maximum(np.asarray(m.assignment)[np.asarray(kp), np.asarray(ks)],
+    S = np.asarray(m.assignment).shape[1]
+    slot = np.asarray(kp).astype(np.int64) * S + np.asarray(ks)
+    sb = np.maximum(np.asarray(m.assignment).reshape(-1)[slot],
                     0).astype(np.int32)
-    return m, pm, lp, lsl, np.asarray(ls_r), sb, best
+    return m, pm, lp, lsl, np.asarray(ls_r), slot, sb, best
 
 
 @pytest.mark.parametrize("seed", [4, 9])
 def test_per_src_top_matches_reference(seed):
-    """K3's wrapper (plain twin on the CPU) against the reference's two
+    """K3's wrapper (plain twins on the CPU) against the reference's two
     reductions: +inf scores, brokers with no rows (index K or L) and a
-    dead broker come out alike."""
-    m, pm, lp, lsl, ls, sb, best = _reduce_inputs(seed)
+    dead broker come out alike.  The wrapper reads each row's source
+    broker from its slot and its best score as source term plus carried
+    destination term (``dest_terms``): slots hold ``sb``, the source terms
+    are 0 and the destination terms ``best``."""
+    m, pm, lp, lsl, ls, slot, sb, best = _reduce_inputs(seed)
     B, Q = 16, 4
-    sb[sb == 3] = 0              # broker 3 has no rows,
+    moved = sb == 3              # broker 3 has no rows: its rows' slots
+    sb[moved] = 0                # point at one of broker 0,
+    slot[moved] = np.flatnonzero(np.asarray(m.assignment).reshape(-1)
+                                 == 0)[0]
     best[sb == 5] = np.inf       # broker 5 only infeasible ones
+    dt = np.stack([best, np.zeros_like(best)], axis=1)
     before = SK.per_src_top.launches
-    (score, p, s, dst), (rows, scores) = SK.per_src_top(
-        pm, as_t(lp), as_t(lsl), as_t(ls), as_t(sb), as_t(best), B, Q)
+    (score, p, s, dst), (rows, scores), got_sb = SK.per_src_top(
+        pm, as_t(lp), as_t(lsl), as_t(ls), as_t(slot),
+        torch.zeros(len(best)), as_t(dt), B, Q, dest_terms=True)
     assert SK.per_src_top.launches == before
+    assert np.array_equal(got_sb.numpy(), sb)
     red = T._reduce_leadership_per_src(m, lp, lsl, jnp.asarray(ls))
     for a, b in zip(red, (score, p, s, dst)):
         assert np.array_equal(np.asarray(a), b.numpy())
