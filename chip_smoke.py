@@ -647,7 +647,6 @@ def check_step_kernels(label, state, cfg_kw, dev):
     from cruise_control_tpu_torch.analyzer import commit_kernels as K89
     from cruise_control_tpu_torch.analyzer import compact_kernel as K7
     from cruise_control_tpu_torch.analyzer import score_kernel as K6
-    from cruise_control_tpu_torch.analyzer import step_kernels as SK
     from cruise_control_tpu_torch.ops import grid as G
 
     calls, has_cap = first_step_calls(state, cfg_kw, dev)
@@ -703,22 +702,9 @@ def check_step_kernels(label, state, cfg_kw, dev):
     # K5 from the cohort's rows (as the step calls it), on the track_bars
     # branch, and from the footprint's occupancy tables
     args, kw = calls["match_batch"]
-    N, A = args[0].shape
-    acc = kw["acc"]
-    used = SK._cohort_footprint(acc, args[1], args[2], args[3], B, args[6])
-    masked = (args[0].masked_fill(acc[:, None], float("inf")),) + args[1:]
-    for name, a5, kw5 in (
-            ("match_batch", args, kw),
-            ("match_batch[track_bars]", args,
-             dict(kw, dest_cap=2, src_cap=2)),
-            ("match_batch[init_used]", masked,
-             dict(kw, acc=None, init_used=used))):
-        record(name, SK.match_batch, SK.match_batch_plain, a5, kw5,
-               {"N": N, "A": A, "B": B, "cohort_rows": int(acc.sum())},
-               # the alternates, ids and cohort flags (or the three
-               # occupancy tables) in; take, score, destination out
-               N * A * 8 + N * 17 + 2 * B + args[6] + N * 13,
-               (kw5.get("rounds") or A) * N * 20)
+    for name, a5, kw5 in match_forms(args, kw):
+        recs.update(check_match_batch(label, a5, kw5, has_cap,
+                                      timed and "[" not in name, name=name))
     # K8
     args, kw = calls["commit_batch"]
     recs.update(check_commit_batch(label, args, kw, has_cap, timed))
@@ -966,15 +952,10 @@ def compaction_cases(dev):
 
 
 def check_per_src_top(label, args, kw, timed, has_cap=False,
-                      name="per_src_top", cpu_twin=False):
+                      name="per_src_top"):
     """K3 against ``per_src_top_plain`` on ``per_src_top_inputs_plain``'s
     rows, bit for bit, the fused inputs ``sb`` and ``row_best`` among the
-    outputs → {name: record}.  With ``cpu_twin`` the bits are held to the
-    twins run on CPU copies, and to the twins on the card only as
-    ``compare`` holds them (equal integers, finite floats within RTOL /
-    ATOL: -0.0 == +0.0): on the card torch's scatter-min keeps whichever
-    of two tied zeros lands last, in no fixed order; on the CPU the first
-    in row order, the lowest row, which K3 picks."""
+    outputs → {name: record}."""
     from cruise_control_tpu_torch.analyzer import step_kernels as SK
 
     m, lp, lsl, ls, slot, src, vals, B, Q = args
@@ -1007,22 +988,10 @@ def check_per_src_top(label, args, kw, timed, has_cap=False,
         L * 16 + K * 24 + B * 24 + Q * B * 8,
         # a key a candidate and a row (~2 operations), a row's best score
         # (2), a broker's Q picks over its rows
-        L * 2 + K * 4 + Q * K * 2, timed=timed, exact=not cpu_twin)
+        L * 2 + K * 4 + Q * K * 2, timed=timed, exact=True)
     # the rows' best scores, which the step's launch does not write out
     bitwise(f"{label} {name} row_best", row_best(*args, **kw),
             [SK.per_src_top_inputs_plain(m, slot, src, vals, **kw)[1]])
-    if cpu_twin:
-        cpu = dataclasses.replace(m, assignment=m.assignment.cpu(),
-                                  leader_slot=m.leader_slot.cpu(),
-                                  capacity=m.capacity.cpu())
-        want, want_rb = plain(cpu, lp.cpu(), lsl.cpu(), ls.cpu(), slot.cpu(),
-                              src.cpu(), vals.cpu(), B, Q, **kw)
-        bitwise(f"{label} {name} (twins on the CPU)", run(*args, **kw), want)
-        bitwise(f"{label} {name} row_best (twins on the CPU)",
-                row_best(*args, **kw), want_rb)
-        rec["bit_equal_to"] = "the plain twins on CPU copies"
-        emit({"phase": "kernel_twin_cpu", "case": label, "name": name,
-              "bit_equal": True})
     return {name: rec}
 
 
@@ -1116,11 +1085,53 @@ def check_compact_rows(label, args, kw, has_cap, timed, name="compact_rows"):
         plain_kw={}, timed=timed, exact=True)}
 
 
-def check_commit_batch(label, args, kw, has_cap, timed):
-    """K8 against ``commit_batch_plain`` → {name: record}: the returned
-    model, touched marks and count, the output rows written and the loop's
-    carry advanced.  The carry is restored before every call (a small
-    copy), so each timed call commits as the first did."""
+def commit_plan(args):
+    """What the plain twin of K8 commits from its arguments → (rows
+    committed, distinct brokers they touch as source or destination)."""
+    acc, take_d, ws_d, wd_d, cs, d0 = (x.cpu() for x in args[1:7])
+    cand_src, M_step = args[10].cpu(), args[11]
+    take = acc | take_d
+    vals, order = torch.sort(torch.where(take, torch.where(
+        acc, cs[:, 0], ws_d), float("inf")), stable=True)
+    rows = order[:M_step][torch.isfinite(vals[:M_step])]
+    dst = torch.where(acc, d0.long(), wd_d)
+    touched = torch.cat([cand_src[rows], dst[rows]]).clamp_min(0)
+    return int(rows.numel()), int(torch.unique(touched).numel())
+
+
+def commit_bytes(args, has_cap, n_commit, touched, extra=0):
+    """Bytes K8's function must move: every candidate row's 40 bytes, its
+    partition's leader slot and load row (the excluded-load column aside:
+    a row's gated contribution reaches the column maxima even when it is
+    not committed, as a NaN times 0 would), every broker aggregate read
+    (an untouched one changes only if it holds -0.0), the touched
+    brokers' aggregates written, the M_step output rows, a commit's
+    placement entry and mark, and the carry."""
+    m = args[0]
+    C, W = args[5].shape[0], m.pload.shape[1]
+    B, NR = m.capacity.shape
+    ncol = NR * (2 if has_cap else 1) + 4
+    return (C * (40 + 4 + 4 * (W - 1)) + B * ncol * 4 + touched * ncol * 4
+            + args[11] * 16 + n_commit * 6 + 16 * 4 * 2 + 4 * 4 + extra)
+
+
+def commit_ops(args, has_cap, n_commit):
+    """Operations of K8's function: a key a row, the sort of the committed
+    keys, a row's gated contributions, a commit's ~12 operations a column,
+    an add an aggregate."""
+    m = args[0]
+    C, B, NR = args[5].shape[0], *m.capacity.shape
+    ncol = NR * (2 if has_cap else 1) + 4
+    log_n = max(n_commit - 1, 1).bit_length()
+    return (4 * C + n_commit * log_n * (log_n + 1) // 2 + C * 2 * ncol
+            + n_commit * 12 * ncol + B * ncol)
+
+
+def check_commit_batch(label, args, kw, has_cap, timed, name="commit_batch"):
+    """K8 against ``commit_batch_plain``, bit for bit → {name: record}: the
+    returned model, touched marks and count, the output rows written and
+    the loop's carry advanced.  The carry is restored before every call (a
+    small copy), so each timed call commits as the first did."""
     from cruise_control_tpu_torch.analyzer import commit_kernels as K89
 
     state0 = args[15].state.clone()
@@ -1134,26 +1145,189 @@ def check_commit_batch(label, args, kw, has_cap, timed):
         return run
 
     m = args[0]
-    C, R = args[5].shape
-    M_step = args[11]
-    B, NR = m.capacity.shape
-    W = m.pload.shape[1]
-    ncol = NR * (2 if has_cap else 1) + 4
-    n_commit = int(K89.commit_batch_plain(*copy.deepcopy(args))[2])
-    log_c = max(C - 1, 1).bit_length()
-    return {"commit_batch": record_kernel(
-        label, "commit_batch", outs(K89.commit_batch),
-        outs(K89.commit_batch_plain), args, kw,
-        {"percentile_cload": has_cap, "C": C, "M_step": M_step,
-         "commits": n_commit},
-        # each input once: ~39 B a candidate row and its partition's leader
-        # slot and load row; the broker aggregates read and written; a
-        # commit's placement entries, output row and touched mark
-        C * (39 + 4 + 4 * W) + 2 * B * ncol * 4 + n_commit * (4 + 1 + 16 + 1),
-        # the sort of C keys; a commit's ~12 operations a column; the
-        # aggregate update
-        C * log_c * (log_c + 1) // 2 + n_commit * 12 * ncol + 2 * B * ncol,
-        plain_kw={}, timed=timed)}
+    C = args[5].shape[0]
+    n_commit, touched = commit_plan(args)
+    return {name: record_kernel(
+        label, name, outs(K89.commit_batch), outs(K89.commit_batch_plain),
+        args, kw,
+        {"percentile_cload": has_cap, "C": C, "M_step": args[11],
+         "B": m.capacity.shape[0], "commits": n_commit,
+         "touched_brokers": touched},
+        commit_bytes(args, has_cap, n_commit, touched),
+        commit_ops(args, has_cap, n_commit),
+        plain_kw={}, timed=timed, exact=True)}
+
+
+def commit_cases(calls, dev, seed=31):
+    """K8's first-step call (``calls["commit_batch"]``) made hard: no row
+    taken (every merged score +inf; some aggregates -0.0, which the zero
+    sums turn into +0.0), every row committed up to M_step = C, tie-rich
+    merged scores with -0.0 / +0.0 across the M_step-th, every taken row
+    on one destination and on one source, and the rows over 10 000
+    brokers (the model's broker tables tiled ten times, the rows' brokers
+    spread at random) → {case: (args, kw)}.  The synthetic cases give the
+    rows distinct partitions, as the step's disjoint batch has them."""
+    args, kw = calls["commit_batch"]
+    (m, acc, take_d, ws_d, wd_d, cs, d0, is_move, cand_p, cand_s, cand_src,
+     M_step, out, tpp, improving, st) = args
+    C = acc.shape[0]
+    P = m.assignment.shape[0]
+    B = m.capacity.shape[0]
+    g = torch.Generator().manual_seed(seed)
+    on = lambda x: x.to(dev)  # noqa: E731
+    rand = lambda n, hi: on(torch.randint(0, hi, (n,), generator=g))  # noqa: E731,E501
+    distinct_p = on(torch.randperm(P, generator=g)[:C]).to(cand_p)
+    mode = lambda x: torch.mode(x.cpu()).values.item()  # noqa: E731
+
+    def neg_zero(m):
+        # a few brokers' aggregates -0.0 (an add of +0.0 makes them +0.0)
+        m = copy.deepcopy(m)
+        for f in ("broker_load", "leader_nwin", "pot_nwout", "rcount",
+                  "lcount"):
+            getattr(m, f)[B // 3::97] = -0.0
+        return m
+
+    def case(**over):
+        a = dict(zip(("m", "acc", "take_d", "ws_d", "wd_d", "cs", "d0",
+                      "is_move", "cand_p", "cand_s", "cand_src", "M_step",
+                      "out", "tpp", "improving", "st"), args))
+        a.update(over)
+        return tuple(a.values()), kw
+
+    none = torch.zeros_like(acc)
+    cases = {"no_commit": case(m=neg_zero(m), acc=none, take_d=none)}
+    # every row committed: the cohort takes all C rows with finite scores
+    full = cs.clone()
+    full[:, 0] = -1.0 - on(torch.rand(C, generator=g))
+    wide = torch.full((4, max(out.shape[1], C)), -1.0, device=dev)
+    cases["all_commit"] = case(
+        acc=torch.ones_like(acc), cs=full, cand_p=distinct_p, M_step=C,
+        out=wide, st=dataclasses.replace(st, slot_limit=wide.shape[1] - C))
+    # tie-rich merged scores, -0.0 / +0.0 among them
+    vals = on(torch.tensor([-0.0, 0.0, -1.0, -2.0]))
+    tie = cs.clone()
+    tie[:, 0] = vals[rand(C, 4)]
+    t_acc = rand(C, 5) < 2
+    t_take = (rand(C, 5) < 2) & ~t_acc
+    cases["ties"] = case(m=neg_zero(m), acc=t_acc, take_d=t_take,
+                         ws_d=vals[rand(C, 4)], cs=tie, cand_p=distinct_p)
+    # every taken row on one destination, on one source
+    taken = (acc | take_d).cpu()
+    hot = mode(torch.where(acc, d0.long(), wd_d).cpu()[taken])
+    cases["one_dst"] = case(d0=torch.full_like(d0, hot),
+                            wd_d=torch.full_like(wd_d, hot))
+    cases["one_src"] = case(cand_src=torch.full_like(
+        cand_src, mode(cand_src.cpu()[taken])))
+    # 10 000 brokers
+    tile = 10
+    big = dataclasses.replace(m, **{
+        f.name: getattr(m, f.name).repeat(
+            tile, *([1] * (getattr(m, f.name).dim() - 1)))
+        for f in dataclasses.fields(m)
+        if getattr(m, f.name) is not None
+        and getattr(m, f.name).shape[:1] == (B,)})
+    cases["b10k"] = case(
+        m=big, d0=(d0 + rand(C, tile).to(d0) * B),
+        wd_d=wd_d + rand(C, tile).to(wd_d) * B,
+        cand_src=cand_src + rand(C, tile).to(cand_src) * B)
+    # the cases are what they say
+    for name, (a, _) in cases.items():
+        n, _ = commit_plan(a)
+        if (name == "no_commit") != (n == 0) or (
+                name == "all_commit" and n != C):
+            raise AssertionError(f"K8 {name}: {n} commits")
+    merged = torch.where(t_acc | t_take, torch.where(t_acc, tie[:, 0],
+                                                     cases["ties"][0][3]),
+                         float("inf")).cpu()
+    ranked = torch.sort(merged).values
+    if not bool(ranked[M_step - 1] == ranked[M_step]) \
+            or not bool((merged == 0).any()):
+        raise AssertionError("K8 ties: no tie straddles the M_step-th key")
+    return cases
+
+
+def match_forms(args, kw):
+    """K5's first-step call in the step's three forms → [(name, args,
+    kw)]: from the cohort's rows (as the step calls it), with
+    destination and source caps of 2 (the ``track_bars`` branch), and
+    from the occupancy tables the cohort's footprint gives."""
+    from cruise_control_tpu_torch.analyzer import step_kernels as SK
+
+    acc = kw["acc"]
+    used = SK._cohort_footprint(acc, args[1], args[2], args[3], args[5],
+                                args[6])
+    masked = (args[0].masked_fill(acc[:, None], float("inf")),) + args[1:]
+    return [("match_batch", args, kw),
+            ("match_batch[track_bars]", args,
+             dict(kw, dest_cap=2, src_cap=2)),
+            ("match_batch[init_used]", masked,
+             dict(kw, acc=None, init_used=used))]
+
+
+def auction_rounds(args, kw):
+    """The rounds after which the plain twin's auction stops changing its
+    outputs (take, score, destination) → int."""
+    from cruise_control_tpu_torch.analyzer import step_kernels as SK
+
+    A = args[0].shape[1]
+    last = kw.get("rounds") or A
+    want = SK.match_batch_plain(*args, **kw)
+    for r in range(1, last + 1):
+        got = SK.match_batch_plain(*args, **dict(kw, rounds=r))
+        if all(torch.equal(a, b) for a, b in zip(got, want)):
+            return r
+    return last
+
+
+def check_match_batch(label, args, kw, has_cap, timed, name="match_batch"):
+    """K5 against ``match_batch_plain``, bit for bit → {name: record}."""
+    from cruise_control_tpu_torch.analyzer import step_kernels as SK
+
+    N, A = args[0].shape
+    B, P = args[5], args[6]
+    acc = kw.get("acc")
+    return {name: record_kernel(
+        label, name, SK.match_batch, SK.match_batch_plain, args, kw,
+        {"percentile_cload": has_cap, "N": N, "A": A, "B": B, "P": P,
+         "cohort_rows": 0 if acc is None else int(acc.sum()),
+         "dest_cap": kw.get("dest_cap", 1), "src_cap": kw.get("src_cap", 1),
+         "rounds_to_fixed_outputs": auction_rounds(args, kw)},
+        # the alternates, ids and cohort flags (or the three occupancy
+        # tables) in; take, score, destination out
+        N * A * 8 + N * 16 + (N if acc is not None else 2 * B + P) + N * 13,
+        (kw.get("rounds") or A) * N * 20, timed=timed, exact=True)}
+
+
+def match_cases(calls, dev, seed=37):
+    """K5's first-step call (``calls["match_batch"]``) made hard: every
+    score +inf, no cohort (every row bids), tie-rich scores with -0.0 /
+    +0.0, every row on one destination and on one source, and the rows
+    over 10 000 brokers (destinations and sources spread over ten copies
+    of the brokers), with caps of 1 and of 2 (``track_bars``) →
+    {case: (args, kw)}."""
+    args, kw = calls["match_batch"]
+    score, dst, src, rep, tol, B, P = args
+    N, A = score.shape
+    g = torch.Generator().manual_seed(seed)
+    rand = lambda *s, hi: torch.randint(0, hi, s, generator=g).to(dev)  # noqa: E731,E501
+    mode = lambda x: torch.mode(x.reshape(-1).cpu()).values.item()  # noqa: E731,E501
+    solo = dict(kw, acc=torch.zeros_like(kw["acc"]))
+    vals = torch.tensor([-0.0, 0.0, -0.5, -1.0, -2.0], device=dev)
+    cases = {
+        "all_inf": ((torch.full_like(score, float("inf")),) + args[1:], kw),
+        "no_cohort": (args, solo),
+        "ties": ((vals[rand(N, A, hi=5)],) + args[1:], solo),
+        "one_dst": ((score, torch.full_like(dst, mode(dst))) + args[2:],
+                    solo),
+        "one_src": ((score, dst, torch.full_like(src, mode(src)))
+                    + args[3:], solo),
+    }
+    tile = 10
+    big = (score, dst + rand(N, A, hi=tile).to(dst) * B,
+           src + rand(N, hi=tile).to(src) * B, rep, tol, B * tile, P)
+    cases["b10k"] = (big, kw)
+    cases["b10k_track"] = (big, dict(kw, dest_cap=2, src_cap=2))
+    return cases
 
 
 def check_recompute_aggregates(label, m, has_cap, timed):
@@ -2223,23 +2397,20 @@ def check_incremental_kernels(label, state, cfg_kw, dev, timed):
                     a[15].counts, a[16], a[17]]
         return run
 
-    Cn = a8[5].shape[0]
-    n_commit = int(K89.commit_batch_plain(*copy.deepcopy(a8))[2])
-    ncol = NR * (2 if has_cap else 1) + 4
-    log_c = max(Cn - 1, 1).bit_length()
+    n_commit, touched = commit_plan(a8)
     prev = int((kw8["marks"][0] >= 0).sum())
     recs["commit_batch[marks]"] = record_kernel(
         label, "commit_batch[marks]",
         lambda *a: commit(K89.commit_batch, checked=True,
                           marks=a[18])(*a),
         commit(K89.commit_batch_plain), args8, {},
-        dict(base, C=Cn, M_step=a8[11], commits=n_commit,
-             marks_cleared=prev),
+        dict(base, C=a8[5].shape[0], M_step=a8[11], commits=n_commit,
+             touched_brokers=touched, marks_cleared=prev),
         # as phase 3's K8 record, and the marks: the lists read and
         # written, a mark a broker or partition set and cleared
-        Cn * (39 + 4 + 4 * W) + 2 * B * ncol * 4 + n_commit * (4 + 1 + 16 + 1)
-        + 2 * 3 * a8[11] * 4 + 3 * (prev + n_commit),
-        Cn * log_c * (log_c + 1) // 2 + n_commit * 12 * ncol + 2 * B * ncol,
+        commit_bytes(a8, has_cap, n_commit, touched,
+                     2 * 3 * a8[11] * 4 + 3 * (prev + n_commit)),
+        commit_ops(a8, has_cap, n_commit),
         plain_kw={}, timed=timed, exact=True)
     return recs
 
@@ -2626,8 +2797,19 @@ def main() -> int:
     a3, kw3 = calls["per_src_top"]
     for case, (a, kw) in src_top_cases(a3, kw3, dev).items():
         extra.update(check_per_src_top(case, a, kw, False,
-                                       name=f"per_src_top[{case}]",
-                                       cpu_twin=case == "zero_ties"))
+                                       name=f"per_src_top[{case}]"))
+    # K8 with nothing, everything and ties committed, on one destination,
+    # one source and 10 000 brokers; K5 from no cohort, on ties, one
+    # destination, one source and 10 000 brokers (caps 1 and 2)
+    for case, (a, kw) in commit_cases(calls, dev).items():
+        extra.update(check_commit_batch(case, a, kw, False, False,
+                                        name=f"commit_batch[{case}]"))
+    for case, (a, kw) in match_cases(calls, dev).items():
+        extra.update(check_match_batch(case, a, kw, False, False,
+                                       name=f"match_batch[{case}]"))
+    if extra["commit_batch[b10k]"]["B"] < 10_000 \
+            or extra["match_batch[b10k_track]"]["B"] < 10_000:
+        raise AssertionError("the 10 000-broker K5 / K8 cases are smaller")
     # the scratch holds the gathered keys and brokers alone, and more
     # where the leadership's (b45k_small) or the rows' (k32k) keys do not
     # fit in shared memory

@@ -288,21 +288,23 @@ def commit_batch(m, acc, take_d, win_score_d, win_dst_d, cand_score, d0,
                              f"{st.slot_limit}, slots={slots}, table width "
                              f"{W} out of range")
     lib = kernels.bind("commit_batch", "commit_batch_launch",
-                       [_P] * 5 + [_I] + [_P] * 5 + [_I] * 3 + [_P] * 10
+                       [_P] * 5 + [_I] + [_P] * 5 + [_I] * 2 + [_P] * 10
                        + [_I] * 3 + [_P, _I] + [_P] * 3 + [_I] * 3
                        + [_P] * 8)
-    n2 = 1 << max(C - 1, 0).bit_length()
+    lib.commit_batch_scratch_bytes.restype = ctypes.c_longlong
     ncol = 2 * NR + 4 if has_cap else NR + 4
     sums = torch.empty((B, ncol), dtype=torch.int64, device=dev)
     c_step = torch.empty(1, dtype=torch.int32, device=dev)
-    ws = n2 * 8 + C
-    gws = None if ws <= kernels.SMEM_LIMIT - 1024 else torch.empty(
-        ws, dtype=torch.uint8, device=dev)
+    # the keys, row lists and flags: in shared memory where they fit (0
+    # bytes), else in a device scratch
+    nbytes = lib.commit_batch_scratch_bytes(C, B)
+    gws = None if nbytes == 0 else torch.empty(nbytes, dtype=torch.uint8,
+                                               device=dev)
     err = lib.commit_batch_launch(
         acc.data_ptr(), take_d.data_ptr(), win_score_d.data_ptr(),
         win_dst_d.data_ptr(), cand_score.data_ptr(), R, d0.data_ptr(),
         is_move_row.data_ptr(), cand_p.data_ptr(), cand_s.data_ptr(),
-        cand_src.data_ptr(), C, n2, M_step, m.assignment.data_ptr(),
+        cand_src.data_ptr(), C, M_step, m.assignment.data_ptr(),
         m.leader_slot.data_ptr(), m.must_move.data_ptr(), m.pload.data_ptr(),
         m.broker_load.data_ptr(), m.leader_nwin.data_ptr(),
         m.pot_nwout.data_ptr(), m.rcount.data_ptr(), m.lcount.data_ptr(),
@@ -320,6 +322,12 @@ def commit_batch(m, acc, take_d, win_score_d, win_dst_d, cand_score, d0,
 
 
 commit_batch.launches = 0
+
+#: K8's device phases in the order its phase stamps close them
+#: (``csrc/commit_batch.cu``, built with ``-DCC_PHASE_STAMPS`` by
+#: ``tools/time_kernels.py``)
+COMMIT_BATCH_PHASES = ("merge", "sort", "commit_rows", "colmax", "sums",
+                       "apply")
 
 
 # ---------------------------------------------------------------------------------

@@ -41,6 +41,9 @@ from cruise_control_tpu_torch.ops.segment import (
 #: brokers K3 takes (``csrc/per_src_top.cu: MAX_B``: its per-broker
 #: counts stay in shared memory)
 PER_SRC_TOP_MAX_B = 50_000
+#: alternates K5 takes (``csrc/match_batch.cu``: a candidate's pointer
+#: shares a word with its round flags)
+MATCH_BATCH_MAX_A = 1 << 26
 #: K15 (``analyzer/corrected_kernel.py``) sorts its n2 keys in shared
 #: memory up to this many bytes (the block's static shared memory takes
 #: the rest)
@@ -97,18 +100,42 @@ def _reduce_leadership_per_src(m, lp, lsl, l_scores):
     return score, p, s, m.assignment[p.long(), s.long()].clamp_min(0)
 
 
+_SIGN = 1 << 31
+_MASK = (1 << 32) - 1
+
+
+def _total_key(x: torch.Tensor) -> torch.Tensor:
+    """int64 keys in the f32 total order, -0.0 below +0.0 (the order the
+    reference's scatter-min gives tied zeros) and NaN below everything, so
+    that a NaN in a minimum still poisons it as the float minimum does."""
+    u = x.contiguous().view(torch.int32).long() & _MASK
+    k = torch.where(u >= _SIGN, ~u & _MASK, u | _SIGN)
+    return torch.where(torch.isnan(x), torch.zeros_like(k), k)
+
+
+def _from_total_key(k: torch.Tensor) -> torch.Tensor:
+    """The f32 a :func:`_total_key` stands for (key 0: a NaN)."""
+    u = torch.where(k >= _SIGN, k & (_SIGN - 1), ~k & _MASK)
+    return torch.where(u >= _SIGN, u - (1 << 32), u).to(torch.int32) \
+        .view(torch.float32)
+
+
 def _topq_rows_per_src(sb, row_best, B: int, Q: int):
     """Top-Q candidate rows per source broker by score → (rows int32
     [Q, B], scores f32 [Q, B]): the q-th best row index of each broker (K
-    where a broker has fewer than q+1 rows) and that row's score (inf where
-    invalid).  Q sequential scatter-min passes, ties to the lowest row."""
+    where a broker has fewer than q+1 rows) and the minimum of its rows
+    still in play (inf where invalid).  Q sequential scatter-min passes,
+    ties to the lowest row.  The minimum is taken on :func:`_total_key`:
+    a zero is -0.0 when any tied zero row in play holds -0.0, as the
+    reference's scatter-min writes it, on the CPU and on CUDA alike."""
     K = sb.shape[0]
     sbl = sb.long()
     cur = row_best
     idx = torch.arange(K, device=sb.device)
+    inf_key = int(_total_key(torch.tensor([_INF]))[0])
     outs, out_scores = [], []
     for _ in range(Q):
-        seg = _scatter_min(B, sbl, cur, _INF)
+        seg = _from_total_key(_scatter_min(B, sbl, _total_key(cur), inf_key))
         r = _scatter_min(
             B, sbl,
             torch.where(torch.isfinite(cur) & (cur <= seg[sbl]), idx, K), K,
@@ -614,18 +641,24 @@ def match_batch(cand_score, cand_dst, cand_src, cand_p, tol: float, B: int,
             ("used_p", used_p, b8, (P,)))),
     ):
         chk(name, x, dt, shape)
-    if A < 1 or B < 1 or P < 1 or dest_cap < 1 or src_cap < 1:
+    if not 1 <= A <= MATCH_BATCH_MAX_A or B < 1 or P < 1 or dest_cap < 1 \
+            or src_cap < 1:
         raise ValueError(f"match_batch: A={A}, B={B}, P={P}, caps "
-                         f"({dest_cap}, {src_cap}) out of range")
+                         f"({dest_cap}, {src_cap}) out of range (A <= "
+                         f"{MATCH_BATCH_MAX_A})")
     take = torch.empty(N, dtype=b8, device=dev)
     win_score = torch.empty(N, dtype=torch.float32, device=dev)
     win_dst = torch.empty(N, dtype=torch.int64, device=dev)
     lib = kernels.bind("match_batch", "match_batch_launch",
                        [_P] * 4 + [_I] * 4 + [_F, _I, _I, _F, _I]
                        + [_P] * 9)
-    words = 2 * (2 * B + P) + 5 * B + 4 * N
-    gws = None if 4 * words <= kernels.SMEM_LIMIT else torch.empty(
-        words, dtype=torch.int32, device=dev)
+    lib.match_batch_scratch_bytes.restype = ctypes.c_longlong
+    # the tables and the candidates' state: in shared memory where they
+    # fit (0 bytes), else in a device scratch
+    nbytes = lib.match_batch_scratch_bytes(N, A, B, P,
+                                           int(dest_cap > 1 or src_cap > 1))
+    gws = None if nbytes == 0 else torch.empty(-(-nbytes // 4),
+                                               dtype=torch.int32, device=dev)
     err = lib.match_batch_launch(
         cand_score.data_ptr(), cand_dst.data_ptr(), cand_src.data_ptr(),
         cand_p.data_ptr(), N, A, B, P, float(tol), dest_cap, src_cap,
@@ -641,3 +674,15 @@ def match_batch(cand_score, cand_dst, cand_src, cand_p, tol: float, B: int,
 
 
 match_batch.launches = 0
+
+
+def match_batch_phases(rounds: int) -> tuple:
+    """K5's device phases in the order its phase stamps close them
+    (``csrc/match_batch.cu``, built with ``-DCC_PHASE_STAMPS`` by
+    ``tools/time_kernels.py``): the tables' set-up and the first bids,
+    then per round the tied best's stakes, the winners, and the losers'
+    advance with the next round's bids (none after the last round, and no
+    stamps for a round after the auction's fixed point)."""
+    return ("init", "propose") + tuple(
+        f"{p}{r}" for r in range(rounds)
+        for p in ("win", "winners", "advance"))

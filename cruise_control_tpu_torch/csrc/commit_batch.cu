@@ -46,32 +46,56 @@
 // to int64, summed, and scaled back once; the f32 result is then added to
 // the stored f32 aggregate.  The kernel does the same operations: integer
 // atomics are exact and order free, so the result equals the plain twin's
-// bit for bit.  The commit order uses the 64-bit key (order-preserving
-// score bits, row), so -0.0 and +0.0 tie and ties go to the lowest row, as
-// in the stable sort.
+// bit for bit.  A broker no commit touches gets `a + 0.0f`, which changes
+// a -0.0 into +0.0 and nothing else: the kernel reads every aggregate and
+// writes the ones that change.  An uncommitted row still reaches the
+// column maxima (its load times 0 is ±0, or NaN from a non-finite load),
+// so every row's load row is read.  The commit order uses the 64-bit key
+// (order-preserving score bits, row), so -0.0 and +0.0 tie and ties go to
+// the lowest row, as in the stable sort.
 //
 // What bounds it.  It reads the C candidate rows (~40 B each) and their
-// partitions' load rows, and reads and writes the broker aggregates
-// (B·(2R+4)·4 B each way) and the committed actions' placement entries:
-// ~0.1 MB at C = 1 024, B = 1 000 — bound by bytes (~0.03 us at 3.35
-// TB/s).  Its real limit is its chain of dependent phases: the sort of C
-// keys (55 bitonic stages at C = 1 024), the column maxima, the sums, the
-// aggregate update and the scatters, each needing the last.
+// partitions' load rows, every broker aggregate, and writes the touched
+// brokers' aggregates, the output rows and the committed actions'
+// placement entries: ~0.1 MB at C = 1 024, B = 1 000 — bound by bytes
+// (~0.04 us at 3.35 TB/s).  Its real limit is its chain of dependent
+// phases on one SM.  The first design took 25 us on an H100 at
+// 1000b/20k: a bitonic sort of all C keys (55 barrier stages at C =
+// 1 024), 8-12 contended shared atomicMax a row for the column maxima,
+// and every broker's int64 sums zeroed, read and divided each step.
 //
-// What the design does about it.  One block of 1 024 threads runs the
-// chain with block barriers; the sort keys and commit flags sit in shared
-// memory (in a global scratch the wrapper allocates when C is too large),
-// the per-broker int64 sums in a global scratch the kernel zeroes itself.
+// What the design does about it.  One block of 1 024 threads.  Only the
+// rows with a merged score below +inf need ordering — the taken rows, a
+// few dozen a step — and the rows keyed +inf follow them in row order, so
+// a block count compacts the first into a short list (sorted on
+// block_sort.cuh: warp sorts in registers, a merge level a barrier) and
+// the second into a row list; a position reads its row from one or the
+// other.  The column maxima reduce in each warp (`__reduce_max_sync`)
+// before one shared atomicMax a warp and column, and the step's counts
+// likewise.  The sums touch only the commits' brokers: the first commit
+// to mark a broker in a shared bitmap zeroes its int64 sums, then every
+// commit adds its fixed-point contributions with global atomics; the last
+// pass adds each marked broker's sums (scaled back by the power-of-two
+// scale's exact inverse) and only renormalises the others, a thread's
+// loads of two brokers issued before its stores.  The keys, row list,
+// commit flags and bitmap sit in shared memory (22 KB at C = 1 024, B =
+// 1 000), or in a global scratch the wrapper allocates when they do not
+// fit.  What did not pay (PERF.md §6): sums in shared memory
+// (slower 64-bit atomics at a few dozen commits), the column maxima folded
+// into other phases, L1 prefetches, eight lanes a row — every row's load
+// row is read through one SM's L1, ~3.5 us wherever it goes.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "block_sort.cuh"
 #include "step_common.cuh"
 
 namespace {
 
 using namespace cc_step;
+using cc_sort::u64;
 
 constexpr int THREADS = 1024;
 constexpr int NR = 4;              // resources (common/resources.py)
@@ -79,7 +103,8 @@ constexpr int NW_IN = 1;
 constexpr int NW_OUT = 2;
 constexpr int MAX_COL = 2 * NR + 4;
 constexpr int KIND_MOVE = 0, KIND_LEADERSHIP = 1;
-constexpr unsigned long long PAD = ~0ull;
+constexpr u64 PAD = ~0ull;
+constexpr unsigned FULL = 0xffffffffu;
 
 struct Rows {
   const uint8_t* acc;          // [C] cohort rows (K4)
@@ -143,7 +168,8 @@ __device__ void contributions(const Rows& c, const Model& m, int i, int W,
   }
 }
 
-__device__ __forceinline__ float* column(const Model& m, int b, int col) {
+// broker b's aggregate in column `col` (a constant once unrolled)
+__device__ __forceinline__ float* agg(const Model& m, int b, int col) {
   if (col < NR) return m.load + (size_t)b * NR + col;
   if (col == NR) return m.leader_nwin + b;
   if (col == NR + 1) return m.pot_nwout + b;
@@ -167,25 +193,58 @@ struct Loop {
   int slot_limit;              // the slot budget less one step's commits
 };
 
+// Shared memory a block's workspace may take (the rest of the 227 KB
+// holds its static arrays)
+constexpr long long SMEM_MAX = 232448 - 1024;
+
+// the workspace's layout for C rows over B brokers: the keys and the
+// sort's second buffer (n2 each, n2 a power of two >= max(C, 32)), the
+// +inf rows' list [C], the touched brokers' bitmap and the commit flags
+struct Layout {
+  long long n2, tmp, grow, bits, take, bytes;
+};
+
+__host__ __device__ inline Layout layout(int C, int B) {
+  Layout l;
+  l.n2 = 32;
+  while (l.n2 < C) l.n2 <<= 1;
+  l.tmp = 8 * l.n2;
+  l.grow = 16 * l.n2;
+  l.bits = l.grow + 4ll * C;
+  l.take = l.bits + 4ll * ((B + 31) / 32);
+  l.bytes = l.take + C;
+  return l;
+}
+
 __global__ void __launch_bounds__(THREADS)
-commit_batch_kernel(Rows c, Model m, int C, int n2, int M_step, int B,
-                    int S, int W, float* __restrict__ out, int slots,
-                    Loop lp, uint8_t* __restrict__ tpp, Marks mk,
+commit_batch_kernel(Rows c, Model m, int C, int M_step, int B, int S,
+                    int W, float* __restrict__ out, int slots, Loop lp,
+                    uint8_t* __restrict__ tpp, Marks mk,
                     long long* __restrict__ sums, int* __restrict__ c_step,
                     void* gws) {
-  extern __shared__ unsigned long long sws[];
-  unsigned long long* key = gws ? (unsigned long long*)gws : sws;  // [n2]
-  uint8_t* take_f = (uint8_t*)(key + n2);                          // [C]
+  extern __shared__ u64 sws[];
+  const Layout ly = layout(C, B);
+  unsigned char* ws = gws ? (unsigned char*)gws : (unsigned char*)sws;
+  u64* key = (u64*)ws;                             // [n2]
+  u64* tmp = (u64*)(ws + ly.tmp);                  // [n2]
+  int* grow = (int*)(ws + ly.grow);                // [C]
+  unsigned* bits = (unsigned*)(ws + ly.bits);      // [(B + 31) / 32]
+  uint8_t* take_f = ws + ly.take;                  // [C]
   __shared__ unsigned colmax[MAX_COL];
-  __shared__ double scale[MAX_COL];
-  __shared__ int s_count, s_improving, s_cohort, s_auction;
-  const int tid = threadIdx.x, nt = blockDim.x;
+  __shared__ double scale[MAX_COL], inv[MAX_COL];
+  __shared__ float scf[MAX_COL];
+  __shared__ int warp_tot[THREADS / 32];
+  // the step's commits, improving rows, cohort rows, auction rows, and
+  // the keys below +inf
+  __shared__ int s_cnt[5];
+  const int tid = threadIdx.x, nt = blockDim.x, lane = tid & 31;
   const int ncol = m.cload != nullptr ? MAX_COL : NR + 4;
   if (!lp.state[cc_state::ACTIVE]) {
     if (tid == 0) *c_step = 0;
     return;
   }
   const int count = lp.state[cc_state::COUNT];
+  CC_STAMP(0);
 
   // ---- the step before's marks cleared (its lists; -1 = no commit) ------
   if (mk.tb != nullptr) {
@@ -197,51 +256,95 @@ commit_batch_kernel(Rows c, Model m, int C, int n2, int M_step, int B,
       mk.tb[mk.list[2 * M_step + k]] = 0;
     }
   }
-
-  // ---- merge the cohort and the auction; key the merged scores ----------
-  for (int x = tid; x < B * ncol; x += nt) sums[x] = 0;
-  for (int x = tid; x < n2; x += nt) {
-    unsigned long long k = PAD;
-    if (x < C) {
-      const bool take = c.acc[x] || c.take_d[x];
-      const float ws = c.acc[x] ? c.cand_score[(size_t)x * c.R]
-                                : c.win_score_d[x];
-      k = ((unsigned long long)ord32(take ? ws : INFINITY) << 32) |
-          (unsigned)x;
-      take_f[x] = 0;
-    }
-    key[x] = k;
-  }
+  for (int x = tid; x < (B + 31) / 32; x += nt) bits[x] = 0u;
   if (tid < MAX_COL) colmax[tid] = 0u;
-  if (tid == 0) {
-    s_count = 0;
-    s_improving = 0;
-    s_cohort = 0;
-    s_auction = 0;
-  }
-  __syncthreads();
-  // the step's diagnostics (the reference's meta rows 1-3)
-  for (int x = tid; x < C; x += nt) {
-    if (lp.improving[x]) atomicAdd(&s_improving, 1);
-    if (c.acc[x]) {
-      atomicAdd(&s_cohort, 1);
-    } else if (c.take_d[x]) {
-      atomicAdd(&s_auction, 1);
-    }
-  }
+  if (tid < 5) s_cnt[tid] = 0;
 
-  // ---- the M best in score order: output rows, commit flags, count ------
-  bitonic_sort(key, n2);
+  // ---- merge the cohort and the auction: the rows keyed below or above
+  // +inf to the key list, the rows keyed +inf to the row list, each in
+  // row order; the step's diagnostics (the reference's meta rows 1-3) ----
+  const unsigned kinf = ord32(INFINITY);
+  int n_f = 0;                           // keys listed so far
+  for (int c0 = 0; c0 < C; c0 += nt) {   // every thread, chunk by chunk
+    const int i = c0 + tid;
+    unsigned ku = kinf;
+    int imp = 0, coh = 0, auc = 0;
+    if (i < C) {
+      const bool a = c.acc[i] != 0, d = c.take_d[i] != 0;
+      ku = ord32(a || d ? (a ? c.cand_score[(size_t)i * c.R]
+                             : c.win_score_d[i])
+                        : INFINITY);
+      take_f[i] = 0;
+      imp = lp.improving[i] != 0;
+      coh = a;
+      auc = !a && d;
+    }
+    const int less = __reduce_add_sync(FULL, (int)(ku < kinf));
+    imp = __reduce_add_sync(FULL, imp);
+    coh = __reduce_add_sync(FULL, coh);
+    auc = __reduce_add_sync(FULL, auc);
+    int tot;
+    const bool listed = ku != kinf;
+    // (its barriers also order the counters' zeroing before the adds)
+    const int before = n_f + block_count_before(listed, warp_tot, &tot);
+    if (lane == 0) {
+      if (imp) atomicAdd(&s_cnt[1], imp);
+      if (coh) atomicAdd(&s_cnt[2], coh);
+      if (auc) atomicAdd(&s_cnt[3], auc);
+      if (less) atomicAdd(&s_cnt[4], less);
+    }
+    if (i < C) {
+      if (listed) {
+        key[before] = ((u64)ku << 32) | (unsigned)i;
+      } else {
+        grow[i - before] = i;
+      }
+    }
+    n_f += tot;
+  }
+  int n2f = 32;
+  while (n2f < n_f) n2f <<= 1;
+  for (int x = n_f + tid; x < n2f; x += nt) key[x] = PAD;
+  __syncthreads();
+  CC_STAMP(1);
+
+  // ---- the listed keys in order: the rows keyed below +inf, then (after
+  // the +inf rows) the ones above ----------------------------------------
+  const u64* sorted = cc_sort::block_sort(key, tmp, n2f, n2f);
+  CC_STAMP(2);
+
+  // ---- the M best in score order: output rows, commit flags, the
+  // commits' brokers (their sums zeroed, their bits set) and marks -------
+  const int n_less = s_cnt[4], n_inf = C - n_f;
+  int n_ok = 0;
   for (int k = tid; k < M_step; k += nt) {
-    const int i = (int)(key[k] & 0xffffffffu);
-    const bool ok = isfinite(from_ord32((unsigned)(key[k] >> 32)));
+    int i;
+    bool ok = false;
+    if (k >= n_less && k < n_less + n_inf) {
+      i = grow[k - n_less];
+    } else {
+      const u64 kk = sorted[k < n_less ? k : k - n_inf];
+      i = (int)(kk & 0xffffffffu);
+      ok = isfinite(from_ord32((unsigned)(kk >> 32)));
+    }
     take_f[i] = ok ? 1 : 0;
-    if (ok) atomicAdd(&s_count, 1);
+    n_ok += ok;
+    const int sb = (int)max(c.cand_src[i], 0ll);
+    const int db = (int)max(win_dst(c, i), 0ll);
+    if (ok) {
+      tpp[max(c.cand_p[i], 0)] = 1;
+      // the first commit to touch a broker zeroes its sums
+      const unsigned ms = 1u << (sb & 31), md = 1u << (db & 31);
+      if (!(atomicOr(&bits[sb >> 5], ms) & ms)) {
+        for (int col = 0; col < ncol; ++col) sums[(size_t)sb * ncol + col] = 0;
+      }
+      if (!(atomicOr(&bits[db >> 5], md) & md)) {
+        for (int col = 0; col < ncol; ++col) sums[(size_t)db * ncol + col] = 0;
+      }
+    }
     if (mk.tb != nullptr) {
       // this step's marks (cleared above, a barrier before) and its lists
       const int p = ok ? max(c.cand_p[i], 0) : -1;
-      const int sb = (int)max(c.cand_src[i], 0ll);
-      const int db = (int)max(win_dst(c, i), 0ll);
       mk.list[k] = p;
       mk.list[M_step + k] = sb;
       mk.list[2 * M_step + k] = db;
@@ -257,23 +360,38 @@ commit_batch_kernel(Rows c, Model m, int C, int n2, int M_step, int B,
     o[2 * slots] = (float)c.cand_s[i];
     o[3 * slots] = (float)win_dst(c, i);
   }
+  n_ok = __reduce_add_sync(FULL, n_ok);
+  if (lane == 0 && n_ok) atomicAdd(&s_cnt[0], n_ok);
   __syncthreads();
+  CC_STAMP(3);
 
-  // ---- exact column maxima of the gated contributions -------------------
-  for (int i = tid; i < C; i += nt) {
-    const bool taken = take_f[i] != 0;
-    if (taken) tpp[max(c.cand_p[i], 0)] = 1;
+  // ---- exact column maxima of the gated contributions: each warp's
+  // maximum, then one shared atomic a warp and column --------------------
+  for (int c0 = 0; c0 < C; c0 += nt) {
+    const int i = c0 + tid;
     float v[MAX_COL];
-    contributions(c, m, i, W, taken, v);
-    for (int col = 0; col < ncol; ++col) {
-      atomicMax(&colmax[col], __float_as_uint(fabsf(v[col])));
+#pragma unroll
+    for (int col = 0; col < MAX_COL; ++col) v[col] = 0.0f;
+    if (i < C) contributions(c, m, i, W, take_f[i] != 0, v);
+#pragma unroll
+    for (int col = 0; col < MAX_COL; ++col) {
+      if (col >= ncol) break;
+      const unsigned r =
+          __reduce_max_sync(FULL, __float_as_uint(fabsf(v[col])));
+      if (lane == 0 && r != 0u) atomicMax(&colmax[col], r);
     }
   }
   __syncthreads();
-  if (tid < ncol) scale[tid] = fixed_scale(__uint_as_float(colmax[tid]), 2 * C);
+  if (tid < ncol) {
+    const double sc = fixed_scale(__uint_as_float(colmax[tid]), 2 * C);
+    scale[tid] = sc;
+    inv[tid] = 1.0 / sc;               // exact: sc is a power of two
+    scf[tid] = fixed_scale_f(sc);
+  }
   __syncthreads();
+  CC_STAMP(4);
 
-  // ---- the ± segment sums over source and destination brokers -----------
+  // ---- the ± segment sums over the commits' brokers ---------------------
   for (int i = tid; i < C; i += nt) {
     if (!take_f[i]) continue;
     float v[MAX_COL];
@@ -281,7 +399,7 @@ commit_batch_kernel(Rows c, Model m, int C, int n2, int M_step, int B,
     const long long src = max(c.cand_src[i], 0ll);
     const long long dst = max(win_dst(c, i), 0ll);
     for (int col = 0; col < ncol; ++col) {
-      const long long q = __double2ll_rn((double)v[col] * scale[col]);
+      const long long q = fixed_q(v[col], scf[col], scale[col]);
       atomicAdd((unsigned long long*)&sums[src * ncol + col],
                 (unsigned long long)(-q));
       atomicAdd((unsigned long long*)&sums[dst * ncol + col],
@@ -289,12 +407,41 @@ commit_batch_kernel(Rows c, Model m, int C, int n2, int M_step, int B,
     }
   }
   __syncthreads();
+  CC_STAMP(5);
 
-  // ---- aggregates += sums (every broker, as the plain twin adds) --------
-  for (int x = tid; x < B * ncol; x += nt) {
-    const int b = x / ncol, col = x % ncol;
-    float* a = column(m, b, col);
-    *a = *a + __double2float_rn((double)sums[x] / scale[col]);
+  // ---- aggregates += sums: a touched broker adds its sums (scaled back
+  // by the exact inverse of the column's power-of-two scale), every other
+  // adds 0.0f, as the plain twin adds a zero sum to it; stored only where
+  // the bits change.  Two brokers a thread at a time, every load issued
+  // before the stores --------------------------------------------------
+  for (int b0 = tid; b0 < B; b0 += 2 * nt) {
+    float old[2][MAX_COL];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int b = b0 + h * nt;
+#pragma unroll
+      for (int col = 0; col < MAX_COL; ++col) {
+        old[h][col] = (b < B && col < ncol) ? *agg(m, b, col) : 0.0f;
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int b = b0 + h * nt;
+      if (b >= B) continue;
+      const bool t = (bits[b >> 5] >> (b & 31)) & 1u;
+#pragma unroll
+      for (int col = 0; col < MAX_COL; ++col) {
+        if (col >= ncol) continue;
+        const float add =
+            t ? __double2float_rn((double)sums[(size_t)b * ncol + col] *
+                                  inv[col])
+              : 0.0f;
+        const float now = old[h][col] + add;
+        if (__float_as_uint(now) != __float_as_uint(old[h][col])) {
+          *agg(m, b, col) = now;
+        }
+      }
+    }
   }
   // ---- placement: the committed moves and leadership transfers ----------
   for (int i = tid; i < C; i += nt) {
@@ -311,12 +458,12 @@ commit_batch_kernel(Rows c, Model m, int C, int n2, int M_step, int B,
     // ---- the loop's carry: meta, done, since_pool, count, t, next step -
     using namespace cc_state;
     int* st = lp.state;
-    const int cs = s_count, t = st[STEP];
+    const int cs = s_cnt[0], t = st[STEP];
     *c_step = cs;
     lp.counts[t] = cs;
-    lp.counts[lp.T + t] = s_improving;
-    lp.counts[2 * lp.T + t] = s_cohort;
-    lp.counts[3 * lp.T + t] = s_auction;
+    lp.counts[lp.T + t] = s_cnt[1];
+    lp.counts[2 * lp.T + t] = s_cnt[2];
+    lp.counts[3 * lp.T + t] = s_cnt[3];
     const int done = st[DONE] | (cs == 0 && st[SINCE_POOL] == 0 ? 1 : 0);
     const int since = cs == 0 ? lp.repool : st[SINCE_POOL] + 1;
     const int total = count + cs;
@@ -328,32 +475,36 @@ commit_batch_kernel(Rows c, Model m, int C, int n2, int M_step, int B,
     st[ACTIVE] = !done && t + 1 < t_end && total <= lp.slot_limit ? 1 : 0;
     st[NEED_POOL] = since >= lp.repool ? 1 : 0;
   }
+  CC_STAMP_SYNC(6);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Bytes of the sort keys and commit flags for C rows: shared memory when
-// they fit, else the wrapper passes a device scratch as `gws`.
-long long commit_batch_workspace_bytes(int C) {
-  long long n2 = 1;
-  while (n2 < C) n2 <<= 1;
-  return n2 * 8 + C;
+// Bytes of device scratch the wrapper passes as `gws` for C rows over B
+// brokers: 0 where the workspace (the keys and the sort's second buffer,
+// the +inf rows' list, the touched brokers' bitmap, the commit flags) fits
+// in shared memory.
+long long commit_batch_scratch_bytes(int C, int B) {
+  const long long bytes = layout(C, B).bytes;
+  return bytes <= SMEM_MAX ? 0 : bytes;
 }
 
-// Launches K8 on `stream` (one block); `sums` is a [B, ncol] int64 scratch.
-// `state` is the step loop's carry (the write offset is its count),
-// `counts` its [4, T] meta; `slot_limit + M_step <= slots` keeps every
-// active step's rows inside `out`.  `tb`, `tpm` and `marks` ([3, M_step]
-// int32) are the incremental rescore's marks, all given or all null.
-// Returns the CUDA error code.
+// Launches K8 on `stream` (one block); `sums` is a [B, ncol] int64 scratch
+// (the kernel zeroes the touched brokers' rows itself).  `state` is the
+// step loop's carry (the write offset is its count), `counts` its [4, T]
+// meta; `slot_limit + M_step <= slots` keeps every active step's rows
+// inside `out`.  `tb`, `tpm` and `marks` ([3, M_step] int32) are the
+// incremental rescore's marks, all given or all null.  `gws` is null or
+// commit_batch_scratch_bytes(C, B) of device scratch.  Returns the CUDA
+// error code.
 int commit_batch_launch(const uint8_t* acc, const uint8_t* take_d,
                         const float* win_score_d, const long long* win_dst_d,
                         const float* cand_score, int R, const int* d0,
                         const uint8_t* is_move, const int* cand_p,
                         const int* cand_s, const long long* cand_src, int C,
-                        int n2, int M_step, int* assignment, int* leader_slot,
+                        int M_step, int* assignment, int* leader_slot,
                         uint8_t* must_move, const float* pload, float* load,
                         float* leader_nwin, float* pot_nwout, float* rcount,
                         float* lcount, float* cload, int B, int S, int W,
@@ -362,8 +513,8 @@ int commit_batch_launch(const uint8_t* acc, const uint8_t* take_d,
                         int slot_limit, uint8_t* tpp, uint8_t* tb,
                         uint8_t* tpm, int* marks, long long* sums,
                         int* c_step, void* gws, void* stream) {
-  if (C < 1 || R < 1 || n2 < C || (n2 & (n2 - 1)) != 0 || M_step < 0 ||
-      M_step > C || B < 1 || S < 1 || T < 1 || repool < 1 ||
+  if (C < 1 || R < 1 || M_step < 0 || M_step > C || B < 1 || S < 1 ||
+      T < 1 || repool < 1 ||
       slot_limit < 0 || slot_limit + M_step > slots ||
       (tb == nullptr) != (tpm == nullptr) ||
       (tb == nullptr) != (marks == nullptr) ||
@@ -376,13 +527,14 @@ int commit_batch_launch(const uint8_t* acc, const uint8_t* take_d,
           pot_nwout, rcount, lcount, cload};
   Loop lp{state, counts, improving, T, repool, slot_limit};
   Marks mk{tb, tpm, marks};
-  const int smem = gws == nullptr ? (int)commit_batch_workspace_bytes(C) : 0;
+  const long long bytes = layout(C, B).bytes;
+  if (gws == nullptr && bytes > SMEM_MAX) return (int)cudaErrorInvalidValue;
+  const int smem = gws == nullptr ? (int)bytes : 0;
   cudaError_t e = cudaFuncSetAttribute(
       commit_batch_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   commit_batch_kernel<<<1, THREADS, smem, (cudaStream_t)stream>>>(
-      c, m, C, n2, M_step, B, S, W, out, slots, lp, tpp, mk, sums, c_step,
-      gws);
+      c, m, C, M_step, B, S, W, out, slots, lp, tpp, mk, sums, c_step, gws);
   return (int)cudaGetLastError();
 }
 

@@ -18,9 +18,15 @@
 // (the zeros tie, as under `<=`), so ties fall to the lowest row as the
 // scatter-min of the row index does.  A key is 64 bits: ord32(score) << 32
 // | row << 1 | whether the score is -0.0, the last bit never deciding an
-// order (rows differ above it) but keeping the picked row's own score to
-// the bit, as the plain twin (analyzer/step_kernels.py:
-// per_src_top_plain) writes it on the CPU.  The row scores are made with
+// order (rows differ above it) but keeping each zero's sign.  The score
+// the reference writes for a pick is its scatter-min over the broker's
+// rows still in play, -0.0 below +0.0: so a pick that scores a zero is
+// written -0.0 when its own row or any later row of the broker's zero run
+// holds -0.0 (a suffix OR over the run: the run's last -0.0 row, looked
+// for once a broker, only when one of its picks scores a zero, and only
+// in the kernel's incremental form: the default form's row scores are
+// never -0.0), as the plain twin (analyzer/step_kernels.py:
+// per_src_top_plain) writes it.  The row scores are made with
 // __fadd_rn / __fsub_rn, torch's rounding, so `row_best` is the plain
 // inputs' to the bit.  The leadership keys are (ord32(score), candidate)
 // and its pick a 64-bit min: the same in any order.
@@ -141,14 +147,42 @@ __device__ __forceinline__ u64 row_key(float x, int i) {
   return ((u64)ord32(x) << 32) | ((unsigned int)i << 1) | nz;
 }
 
-// The picked key k as the q-th row and score of broker b
+constexpr unsigned int ZERO_ORD = 0x80000000u;  // ord32(±0.0)
+
+// Whether the pick k needs the broker's other rows to know its sign: it
+// scores a zero and its own row holds +0.0
+__device__ __forceinline__ bool zero_pick(u64 k) {
+  return k != NONE && (unsigned int)(k >> 32) == ZERO_ORD && !(k & 1);
+}
+
+// The largest row among key[lo], key[lo + step], ... (below hi) whose
+// score is -0.0, or -1: a zero pick of a lower row is written -0.0 (that
+// row is still in play).  Out of line: only a broker with a zero pick
+// calls it, once.
+__device__ __noinline__ int last_neg_zero(const u64* key, int lo, int hi,
+                                          int step) {
+  int row = -1;
+  for (int j = lo; j < hi; j += step) {
+    const u64 x = key[j];
+    if ((unsigned int)(x >> 32) == ZERO_ORD && (x & 1)) {
+      row = max(row, (int)((unsigned int)x >> 1));
+    }
+  }
+  return row;
+}
+
+// The picked key k as the q-th row and score of broker b.  The reference
+// writes the minimum of the broker's rows still in play: -0.0 when the
+// pick scores a zero and its own row or a later row of the broker's zero
+// run holds -0.0 (`neg`, looked for only for a zero pick).
 __device__ __forceinline__ void put_pick(int* rows, float* scores, int K,
-                                         int B, int q, int b, u64 k) {
+                                         int B, int q, int b, u64 k,
+                                         bool neg) {
   const size_t o = (size_t)q * B + b;
   rows[o] = k == NONE ? K : (int)((unsigned int)k >> 1);
-  scores[o] = k == NONE
-                  ? INFINITY
-                  : ((k & 1) ? -0.0f : from_ord32((unsigned int)(k >> 32)));
+  scores[o] = k == NONE ? INFINITY
+              : ((k & 1) || neg) ? -0.0f
+                                 : from_ord32((unsigned int)(k >> 32));
 }
 
 // Runs: the lanes of a warp with `v` whose item's broker b equals their
@@ -276,7 +310,7 @@ __device__ __forceinline__ void smallest(const u64* key, int lo, int hi,
 // The Q smallest keys of each broker b0 + l, l < nb, its segment
 // [end[l - 1], end[l]), in passes of N: a thread a broker, a warp (lanes'
 // lists merged by warp minima) a broker of more than WIDE rows
-template <int N>
+template <int N, bool SIGN>
 __device__ __forceinline__ void pick(const Args& a, const u64* key,
                                      const int* end, int b0, int nb,
                                      int* wide, int* n_wide) {
@@ -289,13 +323,19 @@ __device__ __forceinline__ void pick(const Args& a, const u64* key,
       continue;
     }
     u64 last = 0;
+    int zneg = -2;                     // -2: not looked for yet
     for (int q0 = 0; q0 < a.Q; q0 += N) {
       u64 top[N];
       smallest(key, lo, hi, 1, last, top);
 #pragma unroll
       for (int t = 0; t < N; ++t) {
-        if (q0 + t < a.Q) put_pick(a.rows, a.scores, a.K, a.B, q0 + t,
-                                   b0 + l, top[t]);
+        if (q0 + t >= a.Q) continue;
+        bool neg = false;
+        if (SIGN && zero_pick(top[t])) {
+          if (zneg == -2) zneg = last_neg_zero(key, lo, hi, 1);
+          neg = (int)((unsigned int)top[t] >> 1) < zneg;
+        }
+        put_pick(a.rows, a.scores, a.K, a.B, q0 + t, b0 + l, top[t], neg);
       }
       last = top[N - 1];
     }
@@ -305,6 +345,7 @@ __device__ __forceinline__ void pick(const Args& a, const u64* key,
     const int l = wide[w];
     const int lo = l ? end[l - 1] : 0, hi = end[l];
     u64 last = 0;
+    int zneg = -2;                     // -2: not looked for yet
     for (int q0 = 0; q0 < a.Q; q0 += N) {
       u64 top[N];
       smallest(key, lo + lane, hi, 32, last, top);
@@ -321,8 +362,17 @@ __device__ __forceinline__ void pick(const Args& a, const u64* key,
           for (int s = 0; s < N - 1; ++s) top[s] = top[s + 1];
           top[N - 1] = NONE;
         }
+        // (m is the warp's: the branch is the warp's too)
+        bool neg = false;
+        if (SIGN && zero_pick(m)) {
+          if (zneg == -2) {
+            zneg = __reduce_max_sync(FULL,
+                                     last_neg_zero(key, lo + lane, hi, 32));
+          }
+          neg = (int)((unsigned int)m >> 1) < zneg;
+        }
         if (lane == 0 && q0 + t < a.Q) {
-          put_pick(a.rows, a.scores, a.K, a.B, q0 + t, b0 + l, m);
+          put_pick(a.rows, a.scores, a.K, a.B, q0 + t, b0 + l, m, neg);
         }
         last = m;
       }
@@ -357,6 +407,7 @@ __device__ __forceinline__ void gather(const Args a) {
 
 // Phase B, rows block g: the top-Q move rows of each source broker in
 // [g·Rr, (g + 1)·Rr), from every gathered key
+template <bool SIGNS>
 __device__ __forceinline__ void top_rows(const Args a, int g,
                                          unsigned char* smem) {
   __shared__ int tot[32];
@@ -414,9 +465,9 @@ __device__ __forceinline__ void top_rows(const Args a, int g,
   // ---- each broker's Q smallest keys (keys are distinct; every key is
   // above 0)
   if (a.Q <= 4) {
-    pick<4>(a, key, end, b0, nb, wide, &n_wide);
+    pick<4, SIGNS>(a, key, end, b0, nb, wide, &n_wide);
   } else {
-    pick<8>(a, key, end, b0, nb, wide, &n_wide);
+    pick<8, SIGNS>(a, key, end, b0, nb, wide, &n_wide);
   }
   if (g == 0) CC_STAMP_SYNC(6);
 }
@@ -479,6 +530,10 @@ __device__ __forceinline__ void top_lead(const Args a, int g,
   if (g == 0) CC_STAMP_SYNC(9);
 }
 
+// SIGNS: the rows' scores may hold -0.0 (the incremental form, `dest_terms`:
+// src + dt is -0.0 where both terms are; the default form's src + (v - src)
+// never is), so a zero pick looks for the sign the reference writes
+template <bool SIGNS>
 __global__ void __launch_bounds__(THREADS) per_src_top_kernel(Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
   if (blockIdx.x == 0) CC_STAMP(0);
@@ -488,7 +543,7 @@ __global__ void __launch_bounds__(THREADS) per_src_top_kernel(Args a) {
   const int g = blockIdx.x;
   if (g < a.Gr) {
     if (g == 0) CC_STAMP(2);
-    if (g * a.Rr < a.B) top_rows(a, g, smem);
+    if (g * a.Rr < a.B) top_rows<SIGNS>(a, g, smem);
   } else {
     if (g == a.Gr) CC_STAMP(7);
     if ((g - a.Gr) * a.Rl < a.B) top_lead(a, g - a.Gr, smem);
@@ -570,13 +625,14 @@ int per_src_top_launch(const int* lp, const int* lsl, const float* ls, int L,
   }
   const Plan pl = plan_for(K, L, B);
   if (pl.smem < 0) return (int)cudaErrorInvalidValue;
+  void (*kernel)(Args) = dest_terms ? per_src_top_kernel<true>
+                                    : per_src_top_kernel<false>;
   cudaError_t e = cudaFuncSetAttribute(
-      per_src_top_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)pl.smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)pl.smem);
   if (e != cudaSuccess) return (int)e;
   int per_sm = 0;
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, per_src_top_kernel, THREADS, (size_t)pl.smem);
+      &per_sm, kernel, THREADS, (size_t)pl.smem);
   if (e != cudaSuccess) return (int)e;
   if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
   unsigned char* w = (unsigned char*)scratch;
@@ -603,25 +659,27 @@ int per_src_top_launch(const int* lp, const int* lsl, const float* ls, int L,
   attr[0].val.cooperative = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, per_src_top_kernel, a);
+  e = cudaLaunchKernelEx(&cfg, kernel, a);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
-// The built kernel's resources at (K, L, B) (ops/kernels.py: ATTR_KEYS).
+// The built kernel's resources at (K, L, B) (ops/kernels.py: ATTR_KEYS):
+// the default form's.
 int per_src_top_attrs(int K, int L, int B, int* out) {
+  void (*kernel)(Args) = per_src_top_kernel<false>;
   cudaFuncAttributes fa;
-  cudaError_t e = cudaFuncGetAttributes(&fa, per_src_top_kernel);
+  cudaError_t e = cudaFuncGetAttributes(&fa, kernel);
   if (e != cudaSuccess) return (int)e;
   const Plan pl = plan_for(K, L, B);
   if (pl.smem < 0) return (int)cudaErrorInvalidValue;
-  e = cudaFuncSetAttribute(per_src_top_kernel,
+  e = cudaFuncSetAttribute(kernel,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)pl.smem);
   if (e != cudaSuccess) return (int)e;
   int blocks = 0;
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, per_src_top_kernel, THREADS, (size_t)pl.smem);
+      &blocks, kernel, THREADS, (size_t)pl.smem);
   if (e != cudaSuccess) return (int)e;
   out[0] = fa.numRegs;
   out[1] = (int)fa.localSizeBytes;

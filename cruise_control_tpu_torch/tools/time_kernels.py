@@ -1,8 +1,8 @@
 """Time K1 ``grid_top_r``, K11 ``top_select``, K17 ``grid_patch``, K9
 ``recompute_aggregates``, K12 ``whatif_verdict``, K4 ``budget_accept``,
-K7 ``compact_rows``, K3 ``per_src_top`` and K13 (a) ``round_keys`` on the
-card at the shapes their paths give them, through a checkout's own
-``chip_smoke.py`` checks.
+K7 ``compact_rows``, K3 ``per_src_top``, K13 (a) ``round_keys``, K8
+``commit_batch`` and K5 ``match_batch`` on the card at the shapes their
+paths give them, through a checkout's own ``chip_smoke.py`` checks.
 
     python3 cruise_control_tpu_torch/tools/time_kernels.py [--root DIR]
         [--label NAME] [--only NAME[,NAME...]]
@@ -12,7 +12,7 @@ checkout whose ``chip_smoke.py`` and package are imported, for example an
 older commit unpacked with ``git archive``, so that two versions of the
 kernels can be timed in turns within one run on one card.  Run it by its
 path, not with ``-m``: the package must come from that checkout.
-``--only`` keeps the named kernels (default: all nine).
+``--only`` keeps the named kernels (default: all eleven).
 
 Each kernel is held bit for bit to its plain twin and timed by
 ``chip_smoke.py`` itself (its records print as it emits them: wrapper ms
@@ -46,17 +46,21 @@ K7 on that first step's 5 000 keys and on the tie-rich keys at 5 000
 is built once more with ``-DCC_PHASE_STAMPS`` and run alone 30 times, and
 ``device_ms_by_phase`` / ``phase_cycles`` are the median ms
 (``%globaltimer``) and SM cycles (``clock64``) between its stamps.  K3
-runs as the step calls it, its inputs' gathers included (a checkout whose
-K3 takes the rows' source brokers and best scores gets them from the four
-torch ops the step ran before it; ``launch_ms_by_name`` shows each), on
-the 1 000 / 20 000 first step and chip_smoke's ``src_top_cases`` (10 000,
-20 000 and 45 000 brokers, every row on one broker, every score +inf,
-Q = 1 and 8, -0.0 / +0.0 ties, 1 024 rows over 45 000 brokers, 32 768
-rows), held bit for bit to its plain twins on CPU copies, with its phases
-where stamped.  K13 (a) runs on the 1 000 / 20 000 first
-score-only round: the grid key beside ``torch.neg(torch.cat(...))`` with
-the wrapper's host side split, and the columnar key as the round makes
-it (K14, and K13 (a) where the round still launches it, counted).
+runs as the step calls it on the 1 000 / 20 000 first step and
+chip_smoke's ``src_top_cases`` (10 000, 20 000 and 45 000 brokers, every
+row on one broker, every score +inf, Q = 1 and 8, -0.0 / +0.0 ties,
+1 024 rows over 45 000 brokers, 32 768 rows), held bit for bit to its
+plain twins on CPU copies, with its phases where stamped.  K13 (a) runs
+on the 1 000 / 20 000 first score-only round: the grid key beside
+``torch.neg(torch.cat(...))`` with the wrapper's host side split, and the
+columnar key as the round makes it (K14, and the round's K13 (a)
+launches, counted).  K8 runs on the 1 000 / 20 000 first step and
+chip_smoke's ``commit_cases``, K5 in the step's three forms
+(``match_forms``) and on ``match_cases``, both through this script's own
+checkout's checks (so an older ``--root`` is held the same way; a
+mismatch is recorded, not raised), with their phases where stamped
+(``phases_run`` counts the stamped ones: the auction stamps no round after
+its fixed point) and K5's ``rounds_to_fixed_outputs``.
 Needs a card.
 """
 
@@ -64,7 +68,9 @@ Needs a card.
 from __future__ import annotations
 
 import argparse
+import copy
 import ctypes
+import functools
 import importlib.util
 import statistics
 import subprocess
@@ -81,11 +87,13 @@ KEYS = ("K", "D", "S", "N", "k", "P", "B", "L", "Q", "blocks",
         "launch_ms_by_name", "plain_ms",
         "bound_ms", "bound_by", "library_ms", "library_sort_ms",
         "evaluate_batch_ms", "compile_futures_ms", "h2d_scale_ms",
-        "host_us", "bit_equal", "wrapper_ms", "key_ms", "k14_ms",
-        "library_two_calls_ms", "round_keys_launches_a_round")
+        "host_us", "bit_equal", "k14_ms",
+        "library_two_calls_ms", "round_keys_launches_a_round",
+        "M_step", "commits", "touched_brokers", "A", "cohort_rows",
+        "dest_cap", "rounds_to_fixed_outputs", "phases_run", "error")
 ALL = ("top_select", "grid_top_r", "grid_patch", "recompute_aggregates",
        "whatif_verdict", "budget_accept", "compact_rows", "per_src_top",
-       "round_keys")
+       "round_keys", "commit_batch", "match_batch")
 #: K11's (N, k): the repool's top-K (and smaller k), its top-D, the
 #: score-only round's grid and columnar keys, the north star's slots
 TOP_SHAPES = ((60_000, 8192), (60_000, 2048), (60_000, 1024), (1000, 1000),
@@ -103,16 +111,23 @@ def load_smoke(root: Path):
     return cs
 
 
-def helper(cs, here: Path, name: str):
-    """chip_smoke's function ``name``, from this script's own checkout
-    when ``cs`` (an older one) has none."""
-    if hasattr(cs, name):
-        return getattr(cs, name)
+@functools.lru_cache(maxsize=None)
+def own_smoke(here: Path):
+    """This script's own checkout's chip_smoke.py as a module: its checks
+    and cases hold an older ``--root`` checkout's kernels too (they reach
+    the kernels through the package that checkout put first)."""
     spec = importlib.util.spec_from_file_location(
         "chip_smoke_here", here / "chip_smoke.py")
     own = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(own)
-    return getattr(own, name)
+    return own
+
+
+def helper(cs, here: Path, name: str):
+    """chip_smoke's function ``name``, from this script's own checkout
+    when ``cs`` (an older one) has none."""
+    return getattr(cs, name) if hasattr(cs, name) \
+        else getattr(own_smoke(here), name)
 
 
 def host_us(fn, reps: int = 50, rounds: int = 7):
@@ -200,18 +215,25 @@ def phase_split(kernels, name: str, phases, run, reps: int = 30):
             kernels._loaded[name] = saved
 
     def med(i, j, col):
-        return statistics.median(r[j][col] - r[i][col] for r in rows)
+        d = [r[j][col] - r[i][col] for r in rows if r[i][0] and r[j][0]]
+        return statistics.median(d) if d else None
     # a kernel of several blocks stamps each block's phases in turn: a
     # phase named None spans two blocks' stamps and is not reported, and
-    # the launch spans its earliest and latest stamp
+    # the launch spans its earliest and latest stamp; a phase the launch
+    # skipped (an auction's rounds after its fixed point) has no stamp
+    # and is left out, and `phases_run` counts the stamped ones
+    ms = {p: med(i, i + 1, 0) for i, p in enumerate(phases) if p}
     return {
-        "device_ms_by_phase": {p: med(i, i + 1, 0) * 1e-6
-                               for i, p in enumerate(phases) if p},
+        "device_ms_by_phase": {p: t * 1e-6 for p, t in ms.items()
+                               if t is not None},
         "phase_cycles": {p: med(i, i + 1, 1)
-                         for i, p in enumerate(phases) if p},
+                         for i, p in enumerate(phases)
+                         if p and ms[p] is not None},
+        "phases_run": statistics.median(
+            sum(1 for t, _ in r[1:] if t) for r in rows),
         "stamped_ms": statistics.median(
-            max(t for t, _ in r) - min(t for t, _ in r) for r in rows)
-        * 1e-6}
+            max(t for t, _ in r if t) - min(t for t, _ in r if t)
+            for r in rows) * 1e-6}
 
 
 def time_budget_accept(cs, summary, random_cluster, dev, here):
@@ -254,59 +276,6 @@ def time_compact_rows(cs, summary, random_cluster, dev, here):
         summary("compact_rows", rec)
 
 
-# Parent-only paths, for an older checkout timed in turns through
-# ``--root``: one whose K3 takes the rows' source brokers and best scores
-# from four torch ops the step runs before it, and whose columnar round
-# launches K13 (a) after K14.  They are k3_step_args' rebuild,
-# k3_inputs, k3_calls' second branch and time_round_keys' ``n_keys``
-# branch; none of them runs on this checkout's own package, and they go
-# once no checkout to be compared with predates K3's fused inputs.
-
-def k3_step_args(calls):
-    """K3's first-step call in its fused form: ``(m, lp, lsl, l_scores,
-    slot, src_term, vals, B, Q), {"dest_terms": ...}`` — as recorded where
-    the checkout's K3 takes the fused inputs, else rebuilt from its call
-    (``sb``, ``row_best``) and K7's (``src_term``, ``vals``, ``kp``,
-    ``ks``)."""
-    args, kw = calls["per_src_top"]
-    if len(args) == 9:
-        return args, kw
-    m, lp, lsl, ls, _, _, B, Q = args
-    c, ckw = calls["compact_rows"]
-    src, vals, kp, ks = c[4], c[5], c[8], c[9]
-    slot = kp.long() * m.assignment.shape[1] + ks
-    return ((m, lp, lsl, ls, slot, src, vals, B, Q),
-            {"dest_terms": ckw.get("dest_terms", False)})
-
-
-def k3_inputs(m, slot, src_term, vals, dest_terms=False):
-    """The rows' source brokers and best scores as the step computed them
-    before K3 took them in (four torch ops)."""
-    sb = m.assignment.view(-1)[slot].clamp_min(0)
-    v0 = vals[:, 0]
-    return sb, (src_term + v0 if dest_terms else
-                src_term + (v0 - src_term))
-
-
-def k3_calls(SK, args, kw):
-    """→ (step, kernel): K3 as the step calls it, its inputs included, and
-    the wrapper's call alone (the same call where K3 takes the fused
-    inputs); each gives the flat outputs (best transfer, rows, scores,
-    sb)."""
-    m, lp, lsl, ls, slot, src, vals, B, Q = args
-    flat = lambda bl, top, sb: [*bl, *top, sb]  # noqa: E731
-    if hasattr(SK, "per_src_top_inputs_plain"):
-        step = lambda: flat(*SK.per_src_top(*args, **kw))  # noqa: E731
-        return step, step
-    sb, rb = k3_inputs(m, slot, src, vals, **kw)
-
-    def step():
-        sb, rb = k3_inputs(m, slot, src, vals, **kw)
-        return flat(*SK.per_src_top(m, lp, lsl, ls, sb, rb, B, Q), sb)
-    return step, lambda: flat(*SK.per_src_top(m, lp, lsl, ls, sb, rb, B, Q),
-                              sb)
-
-
 def time_per_src_top(cs, summary, random_cluster, dev, here):
     """K3 on the 1 000 / 20 000 first step and chip_smoke's
     ``src_top_cases``, as the step calls it."""
@@ -315,38 +284,101 @@ def time_per_src_top(cs, summary, random_cluster, dev, here):
     from cruise_control_tpu_torch.analyzer import step_kernels as SK
 
     calls, _ = cs.first_step_calls(random_cluster(**cs.MIDSCALE), {}, dev)
-    base = k3_step_args(calls)
+    base = calls["per_src_top"]
     del calls
     cases = {"midscale": base,
              **helper(cs, here, "src_top_cases")(*base, dev)}
-    bitwise = helper(cs, here, "bitwise")
     phases = getattr(SK, "PER_SRC_TOP_PHASES", ())
     for case, (args, kw) in cases.items():
         m, lp, lsl, ls, slot, src, vals, B, Q = args
-        step, kernel = k3_calls(SK, args, kw)
+
+        def step():
+            bl, top, sb = SK.per_src_top(*args, **kw)
+            return [*bl, *top, sb]
         got = step()
-        # the plain twin on CPU copies: on the card its scatter-min keeps
-        # whichever of two tied zeros comes last, in no fixed order
+        # the plain twins on CPU copies: an older checkout's twin keeps, on
+        # the card, whichever of two tied zeros its scatter-min meets last
         pm = dataclasses.replace(m, assignment=m.assignment.cpu(),
                                  leader_slot=m.leader_slot.cpu(),
                                  capacity=m.capacity.cpu())
-        sb, rb = k3_inputs(pm, slot.cpu(), src.cpu(), vals.cpu(), **kw)
+        sb, rb = SK.per_src_top_inputs_plain(pm, slot.cpu(), src.cpu(),
+                                             vals.cpu(), **kw)
         bl, top = SK.per_src_top_plain(pm, lp.cpu(), lsl.cpu(), ls.cpu(), sb,
                                        rb, B, Q)
-        bitwise(f"{case} per_src_top", got, [*bl, *top, sb])
+        cs.bitwise(f"{case} per_src_top", got, [*bl, *top, sb])
         rec = {"case": case, "B": B, "Q": Q, "L": lp.shape[0],
                "K": slot.shape[0], "dest_terms": kw.get("dest_terms", False),
-               "bit_equal": True,
-               "ms": cs.cuda_ms(step), "wrapper_ms": cs.cuda_ms(kernel),
+               "bit_equal": True, "ms": cs.cuda_ms(step),
                "device_ms": cs.device_ms(step, "per_src_top_"),
                "launch_ms_by_name": launch_ms(cs, step),
-               "host_us": {"step": host_us(step), "wrapper": host_us(kernel)}}
-        rec.update(phase_split(SK.kernels, "per_src_top", phases, kernel))
+               "host_us": host_us(step)}
+        rec.update(phase_split(SK.kernels, "per_src_top", phases, step))
         if hasattr(SK, "per_src_top_attrs"):
             rec["attrs"] = SK.per_src_top_attrs(slot.shape[0], lp.shape[0],
                                                 B)
         summary("per_src_top", rec)
-        del got, step, kernel
+        del got, step
+
+
+def time_commit_batch(cs, summary, random_cluster, dev, here):
+    """K8 on the 1 000 / 20 000 first step and chip_smoke's
+    ``commit_cases``, each launch on the step's carry restored."""
+    from cruise_control_tpu_torch.analyzer import commit_kernels as K89
+
+    own = own_smoke(here)
+    calls, has_cap = cs.first_step_calls(random_cluster(**cs.MIDSCALE), {},
+                                         dev)
+    cases = {"midscale": calls["commit_batch"],
+             **own.commit_cases(calls, dev)}
+    phases = getattr(K89, "COMMIT_BATCH_PHASES", ())
+    for case, (args, kw) in cases.items():
+        try:
+            rec = own.check_commit_batch(case, args, kw, has_cap, True)[
+                "commit_batch"]
+        except AssertionError as e:
+            summary("commit_batch", {"case": case, "bit_equal": False,
+                                     "error": str(e)})
+            continue
+        rec["bit_equal"] = True
+        a = copy.deepcopy(args)
+        state0 = a[15].state.clone()
+
+        def run():
+            a[15].state.copy_(state0)
+            K89.commit_batch(*a, **kw)
+        rec.update(phase_split(K89.kernels, "commit_batch", phases, run))
+        summary("commit_batch", rec)
+        del a
+
+
+def time_match_batch(cs, summary, random_cluster, dev, here):
+    """K5 on the 1 000 / 20 000 first step in the step's three forms and
+    on chip_smoke's ``match_cases``."""
+    from cruise_control_tpu_torch.analyzer import step_kernels as SK
+
+    own = own_smoke(here)
+    calls, has_cap = cs.first_step_calls(random_cluster(**cs.MIDSCALE), {},
+                                         dev)
+    args, kw = calls["match_batch"]
+    cases = {("midscale" if n == "match_batch" else
+              "midscale_" + n.split("[")[1][:-1]): (a, k)
+             for n, a, k in own.match_forms(args, kw)}
+    cases.update(own.match_cases(calls, dev))
+    for case, (args, kw) in cases.items():
+        try:
+            rec = own.check_match_batch(case, args, kw, has_cap, True)[
+                "match_batch"]
+        except AssertionError as e:
+            summary("match_batch", {"case": case, "bit_equal": False,
+                                    "error": str(e)})
+            continue
+        rec["bit_equal"] = True
+        rounds = kw.get("rounds") or args[0].shape[1]
+        phases = (SK.match_batch_phases(rounds)
+                  if hasattr(SK, "match_batch_phases") else ())
+        rec.update(phase_split(SK.kernels, "match_batch", phases,
+                               lambda: SK.match_batch(*args, **kw)))
+        summary("match_batch", rec)
 
 
 def time_round_keys(cs, summary, random_cluster, dev):
@@ -384,8 +416,8 @@ def time_round_keys(cs, summary, random_cluster, dev):
             "bind": host_us(lambda: kernels.bind(
                 "round_pack", "round_keys_launch", ())),
         }})
-    # the columnar key as the round makes it: K14, then K13 (a) where the
-    # round launches it
+    # the columnar key as the round makes it: K14 alone (a round launches
+    # no K13 (a) there, counted)
     m, cfg, ca, K, D = (r[k] for k in ("m", "cfg", "ca", "K", "D"))
     cfg = dataclasses.replace(cfg, scoring="columnar")
     kp, ks, dp = r["forms"]["columnar"][2][:3]
@@ -393,18 +425,15 @@ def time_round_keys(cs, summary, random_cluster, dev):
     before = RK.round_keys.launches
     C._round(m, cfg, ca, K, D, r["consts"], r["tconsts"])
     torch.cuda.synchronize()
-    n_keys = RK.round_keys.launches - before
     k14 = lambda: RK.score_columnar(*a14)  # noqa: E731
-    key_fn = (lambda: RK.round_keys(k14())) if n_keys else k14
-    want = RK.round_keys_plain(RK.score_columnar_plain(*a14[:6]))
-    bitwise("round_keys columnar", key_fn(), want)
-    del want
+    bitwise("round_keys columnar", k14(),
+            RK.round_keys_plain(RK.score_columnar_plain(*a14[:6])))
     s14 = k14()
     summary("round_keys", {
         "case": "columnar", "N": s14.numel(), "bit_equal": True,
-        "round_keys_launches_a_round": n_keys,
-        "k14_ms": cs.cuda_ms(k14), "key_ms": cs.cuda_ms(key_fn),
-        "launch_ms_by_name": launch_ms(cs, key_fn),
+        "round_keys_launches_a_round": RK.round_keys.launches - before,
+        "k14_ms": cs.cuda_ms(k14),
+        "launch_ms_by_name": launch_ms(cs, k14),
         "library_ms": cs.cuda_ms(lambda: torch.neg(s14))})
 
 
@@ -636,6 +665,10 @@ def main(argv=None) -> int:
         time_per_src_top(cs, summary, random_cluster, dev, here)
     if "round_keys" in only:
         time_round_keys(cs, summary, random_cluster, dev)
+    if "commit_batch" in only:
+        time_commit_batch(cs, summary, random_cluster, dev, here)
+    if "match_batch" in only:
+        time_match_batch(cs, summary, random_cluster, dev, here)
     return 0
 
 

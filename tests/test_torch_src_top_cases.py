@@ -105,18 +105,15 @@ CASES = ["base", "one_src", "all_inf", "q1", "q8", "incremental",
 
 @pytest.mark.parametrize("case", CASES)
 def test_src_top_twins_match_reference(case):
-    """Integers exact; the reduced scores and the row scores to the bit
-    (-0.0 / +0.0 ties: equal as floats, their sign pinned apart)."""
+    """Integers exact; the reduced scores and the row scores to the bit,
+    -0.0 / +0.0 ties included."""
     x, Q, dest_terms = make_case(case)
     ref, port = run_both(x, Q, dest_terms)
     names = ("score", "p", "s", "dst", "rows", "scores", "sb", "row_best")
     for name, r, p in zip(names, ref, port):
         assert r.shape == p.shape, name
         if p.dtype == np.float32:
-            assert np.array_equal(r, p), name            # -0.0 == +0.0
-            if name != "scores" or case != "zero_ties":
-                assert np.array_equal(r.view(np.int32), p.view(np.int32)), \
-                    name
+            assert np.array_equal(r.view(np.int32), p.view(np.int32)), name
         else:
             assert np.array_equal(r.astype(p.dtype), p), name
     rows, sb = port[4], port[6]
@@ -134,21 +131,26 @@ def test_src_top_twins_match_reference(case):
 
 def test_zero_tie_sign_against_reference():
     """Where a broker's best score is a zero tied across its rows, the
-    reference's scatter-min writes -0.0 if any tied row holds -0.0; the
-    port's twin on the CPU (and K3 on the card) writes the picked row's
-    own zero, the lowest row's.  Rows 0 (+0.0) and 1 (-0.0) on broker 0:
-    both pick row 0 first, then row 1; the reference scores them -0.0 and
-    -0.0, the port +0.0 and -0.0."""
-    sb = np.zeros(2, np.int32)
-    best = np.array([0.0, -0.0], np.float32)
-    rows_r, scores_r = T._topq_rows_per_src(jnp.asarray(sb),
-                                            jnp.asarray(best), 1, 2)
-    rows, scores = SK._topq_rows_per_src(torch.tensor(sb),
-                                         torch.tensor(best), 1, 2)
-    assert np.array_equal(np.asarray(rows_r), rows.numpy())
-    assert rows.numpy().ravel().tolist() == [0, 1]
-    assert np.signbit(np.asarray(scores_r)).ravel().tolist() == [True, True]
-    assert np.signbit(scores.numpy()).ravel().tolist() == [False, True]
+    reference's scatter-min writes -0.0 if any tied row still in play
+    holds -0.0, whatever the rows' order; the port's twin (and K3 on the
+    card) writes the same.  Rows of one broker in either order and three
+    rows with the -0.0 last, first and between: the rows picked and every
+    score's bits equal the reference's."""
+    for best in ([0.0, -0.0], [-0.0, 0.0], [0.0, 0.0, -0.0],
+                 [-0.0, 0.0, 0.0], [0.0, -0.0, 0.0]):
+        best = np.array(best, np.float32)
+        n = best.shape[0]
+        sb = np.zeros(n, np.int32)
+        rows_r, scores_r = T._topq_rows_per_src(jnp.asarray(sb),
+                                                jnp.asarray(best), 1, n)
+        rows, scores = SK._topq_rows_per_src(torch.tensor(sb),
+                                             torch.tensor(best), 1, n)
+        assert rows.numpy().ravel().tolist() == list(range(n))
+        assert np.array_equal(np.asarray(rows_r), rows.numpy())
+        assert np.array_equal(np.asarray(scores_r).view(np.int32),
+                              scores.numpy().view(np.int32)), best
+        # the last pick's score is its own row's zero
+        assert np.signbit(scores.numpy()).ravel()[-1] == np.signbit(best[-1])
 
 
 def test_columnar_round_key_is_k14s_negated_scores():
