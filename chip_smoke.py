@@ -15,12 +15,17 @@ Phases, each printing one JSON line; any failure exits non-zero:
    version on the card, on the inputs the search's first step hands it —
    at the main path's mid-scale shapes, with percentile capacity loads
    on, and on a ragged case — with its wrapper time, its device time, the
-   plain version's time and the card's bound for the same work (K1 and
-   K11 bit for bit, with their registers, spills and resident blocks an
-   SM); the repool's tables (K10) also in their incremental form; K1 in
+   plain version's time and the card's bound for the same work (K1, K2,
+   K6 and K11 bit for bit, with their registers, spills and resident
+   blocks an SM); the repool's tables (K10) also in their incremental form; K1 in
    its three forms and K17 at replication factors 1, 2, 4 and 8 (their
-   slot instances); then the candidate scorer on moves and transfers
-   mixed, the compaction on 50 000 tie-rich keys, the per-broker
+   slot instances); then K2 (the grid's terms and the brokers' cost
+   table) and K6 (the candidate scorer) bit for bit on chosen slots
+   emptied, excluded partitions with and without a slot to move, a pool
+   padded with -1, zero capacities, 10 000 brokers, at 50 / 1 000 and
+   at replication factors 1 and 8, K6 also on
+   moves and transfers mixed and in its row-list and carry forms; the
+   compaction on 50 000 tie-rich keys, the per-broker
    reductions (K3, bit for bit with the source brokers and row scores it
    reads itself) over 10 000, 20 000 and 45 000 brokers, on one source
    broker, all +inf, at Q = 1 and 8, on -0.0 / +0.0 ties and on two
@@ -102,6 +107,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import functools
 import json
 import re
 import statistics
@@ -227,8 +233,9 @@ LIBRARY_NOTES = {
     "budget_accept": "segmented prefix sums with a budget test in two "
                      "dependent rounds: no single PyTorch call",
     "match_batch": "an iterative auction: no single PyTorch call",
-    "score_candidates": "a chain of gathers and four fused costs: no "
-                        "single PyTorch call",
+    "score_candidates": "a chain of gathers and two fused costs, the two "
+                        "before the move read from K2's table: no single "
+                        "PyTorch call",
     "compact_rows": "torch.sort ranks the keys, but not the gathers, "
                     "budget vectors and partition filter that follow",
     "commit_batch": "a sort, an output write and exact segment sums: no "
@@ -644,49 +651,13 @@ def check_step_kernels(label, state, cfg_kw, dev):
     cohort's accepted rows), with destination and source caps of 2 (its
     ``track_bars`` branch), and in its older form from the three occupancy
     tables the cohort's footprint gives."""
-    from cruise_control_tpu_torch.analyzer import commit_kernels as K89
-    from cruise_control_tpu_torch.analyzer import compact_kernel as K7
-    from cruise_control_tpu_torch.analyzer import score_kernel as K6
-    from cruise_control_tpu_torch.ops import grid as G
-
     calls, has_cap = first_step_calls(state, cfg_kw, dev)
     timed = label == "midscale"
     recs = {}
 
-    def record(name, fn, plain, args, kw, extra, nbytes, ops,
-               plain_kw=None):
-        recs[name] = record_kernel(
-            label, name, fn, plain, args, kw,
-            {"percentile_cload": has_cap, **extra}, nbytes, ops,
-            plain_kw=plain_kw, timed=timed and "[" not in name)
-
     # K2: the packed tables K1 reads
-    (m, cfg, ca, kp, ks, dp, R, consts, tconsts), _ = calls["grid_rescore"]
-    P, S = m.assignment.shape
-    B = m.capacity.shape[0]
-    K, D = kp.shape[0], dp.shape[0]
-    W = m.pload.shape[1]
-    NR = m.capacity.shape[1]
-    n_part = int(torch.unique(kp).numel())
-    #: bytes of one broker's tables: capacity, load (and capacity load),
-    #: four f32 aggregates, rack, two flags
-    broker_b = 4 * (NR * (3 if has_cap else 2) + 4) + 6
-    keys = ("src_f", "src_i", "dst_f", "dst_i")
-    tables = lambda packed: [packed[k] for k in keys]  # noqa: E731
-    record("grid_terms",
-           lambda *a: tables(G.grid_terms(*a)),
-           lambda *a: tables(G.grid_terms_plain(*a[:7])),
-           (m, cfg, ca, kp, ks, dp, consts, tconsts), {},
-           {"K": K, "D": D, "S": S, "distinct_partitions": n_part},
-           # each input once: kp, ks and the pool; each distinct partition
-           # row (slots, origins, must-move, leader slot, load row); the
-           # broker tables; the constants; the four packed tables out
-           K * 8 + D * 4 + n_part * (9 * S + 4 + 4 * W) + B * broker_b
-           + 4 * (G._NC + G._NT)
-           + K * 4 * (G._SF + 3 * S + 2) + D * 4 * (G._DF + G._DI),
-           # two broker costs (~85 operations each) and ~20 more a source;
-           # one cost and ~20 more a destination (csrc/grid_terms.cu)
-           K * 190 + D * 105)
+    args, _ = calls["grid_rescore"]
+    recs.update(check_grid_terms(label, args[:6] + args[7:], has_cap, timed))
     # K6 on the leadership pool, as the step calls it
     args, kw = calls["score_candidates"]
     recs.update(check_score_candidates(label, args, kw, has_cap, timed))
@@ -849,36 +820,202 @@ def check_top_select_cases(dev):
     return recs
 
 
+def check_grid_terms(label, args, has_cap, timed, name="grid_terms"):
+    """K2 against ``grid_terms_plain``, bit for bit, on ``args`` = (m, cfg,
+    ca, kp, ks, dest_pool, consts, tconsts) → {name: record}: the four
+    packed tables and the brokers' cost table, which each run writes into
+    a buffer of its own."""
+    from cruise_control_tpu_torch.ops import grid as G
+
+    m, kp, dp = args[0], args[3], args[5]
+    B = m.capacity.shape[0]
+    K, D = kp.shape[0], dp.shape[0]
+    S = m.assignment.shape[1]
+    W = m.pload.shape[1]
+    NR = m.capacity.shape[1]
+    n_part = int(torch.unique(kp).numel())
+
+    def run(fn, *a):
+        packed = fn(*a, bcost=torch.empty(B, device=m.capacity.device))
+        return [packed[k] for k in ("src_f", "src_i", "dst_f", "dst_i",
+                                    "bcost")]
+    return {name: record_kernel(
+        label, name, functools.partial(run, G.grid_terms),
+        lambda *a: run(G.grid_terms_plain, *a[:7]), args, {},
+        {"percentile_cload": has_cap, "K": K, "D": D, "S": S, "B": B,
+         "distinct_partitions": n_part,
+         "attrs": G.grid_terms_attrs(S, W == 4 * NR + 1)},
+        # each input once: kp, ks and the pool; each distinct partition
+        # row (slots, origins, must-move, leader slot, load row); the
+        # broker tables; the constants; the four packed tables and the
+        # brokers' costs out
+        K * 8 + D * 4 + n_part * (9 * S + 4 + 4 * W)
+        + B * (4 * (NR * (3 if has_cap else 2) + 4) + 6)
+        + 4 * (G._NC + G._NT)
+        + K * 4 * (G._SF + 3 * S + 2) + D * 4 * (G._DF + G._DI) + B * 4,
+        # two broker costs (~85 operations each) and ~20 more a source;
+        # one cost and ~20 more a destination, one a broker's cost
+        # (csrc/grid_terms.cu)
+        K * 190 + D * 105 + B * 85, timed=timed,
+        tag="grid_terms_", exact=True)}
+
+
+def score_outputs(plain, *args, **kw):
+    """K6's wrapper (or, with ``plain``, its twin) → its outputs: (delta,
+    feasible), or in a carry form (``out`` in ``kw``) the carry it writes,
+    on a copy of its own."""
+    from cruise_control_tpu_torch.analyzer import score_kernel as K6
+
+    if "out" not in kw:
+        return list(K6._score_candidates(*args[:7]) if plain
+                    else K6.score_candidates(*args, **kw))
+    out = kw["out"][0].clone()
+    if plain:
+        K6._score_candidates_into(*args[:7], out, None, kw.get("rows"),
+                                  kw.get("n_rows"), kw.get("gate"),
+                                  kw.get("want", 1))
+    else:
+        K6.score_candidates(*args, **dict(kw, out=(out, None)))
+    return [out]
+
+
 def check_score_candidates(label, args, kw, has_cap, timed,
                            name="score_candidates"):
-    """K6 against ``_score_candidates`` → {name: record}."""
+    """K6 against ``_score_candidates`` (or, in a carry form,
+    ``_score_candidates_into``), bit for bit → {name: record}."""
     from cruise_control_tpu_torch.analyzer import score_kernel as K6
 
     m, _, _, kind, cp, cs, cd = args[:7]
     S = m.assignment.shape[1]
     N = cp.shape[0]
+    if kw.get("rows") is not None:
+        N = min(kw["rows"].shape[0], int(kw["n_rows"][0]))
     W = m.pload.shape[1]
     NR = m.capacity.shape[1]
     row = m.assignment[cp.long()]
     brokers = torch.cat([row.reshape(-1), cd]).clamp_min(0)
-    n_part = int(torch.unique(cp).numel())
+    n_part = min(N, int(torch.unique(cp).numel()))
     n_brk = int(torch.unique(brokers).numel())
     rec = record_kernel(
-        label, name, K6.score_candidates,
-        lambda *a, **k: K6._score_candidates(*a[:7]), args, kw,
+        label, name, functools.partial(score_outputs, False),
+        functools.partial(score_outputs, True), args, kw,
         {"percentile_cload": has_cap, "N": N,
-         "moves": int((kind == 0).sum()), "distinct_partitions": n_part,
-         "distinct_brokers": n_brk},
+         "B": m.capacity.shape[0], "moves": int((kind == 0).sum()),
+         "distinct_partitions": n_part,
+         "distinct_brokers": n_brk,
+         "attrs": K6.score_candidates_attrs(S, W == 4 * NR + 1)},
         # each input once: the four ids a candidate; each distinct
         # partition's row (slots, origins, must-move, leader slot, load
-        # row); each broker read (tables as K2's); the constants; delta and
-        # the feasible flag out
+        # row); each broker read (tables as K2's, and its cost from K2's
+        # table); the constants; delta and the feasible flag out
         N * 16 + n_part * (9 * S + 4 + 4 * W)
-        + n_brk * (4 * (NR * (3 if has_cap else 2) + 4) + 6)
+        + n_brk * (4 * (NR * (3 if has_cap else 2) + 4) + 6 + 4)
         + 4 * (3 * NR + 16) + N * 5,
-        # four broker costs (~85 operations each) and ~60 more a candidate
-        N * 400, plain_kw={}, timed=timed)
+        # two broker costs, after the move (~85 operations each; K2's
+        # table gives the two before it) and ~60 more a candidate
+        N * 230, timed=timed, tag="score_candidates_",
+        exact=True)
     return {name: rec}
+
+
+def tile_brokers(m, tile: int):
+    """``m`` with its broker tables repeated ``tile`` times."""
+    return dataclasses.replace(m, **{
+        f: getattr(m, f).repeat(tile, *([1] * (getattr(m, f).dim() - 1)))
+        for f in ("capacity", "rack", "dest_ok", "lead_ok", "alive",
+                  "broker_load", "broker_cload", "leader_nwin", "pot_nwout",
+                  "rcount", "lcount")
+        if getattr(m, f) is not None})
+
+
+def score_terms_cases(calls, dev, seed=41):
+    """K2's and K6's inputs on a first step (``calls``, from
+    :func:`first_step_calls`) made hard → {case: (K2 args or None, (K6
+    args, kw) or None)}, each K6 given its model's cost table
+    (``broker_costs_plain``): a quarter of the chosen slots emptied; a
+    third of the chosen partitions excluded, half of those with the chosen
+    slot to move; the destination pool's last 100 entries -1 (K2; K6's
+    moves to -1 are in ``mixed_kinds``); one resource of every seventh
+    broker at zero capacity; the broker tables tiled to 10 000 brokers,
+    every slot's broker and the pool spread over the copies; K6 on moves
+    and transfers mixed, on a row list (1 203 of 2 048 entries, the
+    patch's form) and into the carry (the full rescore's form)."""
+    from cruise_control_tpu_torch.analyzer import step_state as SS
+    from cruise_control_tpu_torch.ops import grid as G
+
+    (m, cfg, ca, kp, ks, dp, _R, consts, tconsts), _ = calls["grid_rescore"]
+    a6, kw6 = calls["score_candidates"]
+    lp, lsl = a6[4], a6[5]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    NR = m.capacity.shape[1]
+    B = m.capacity.shape[0]
+
+    def case(mm, dp_=dp):
+        # K6 reads the cost table of the case's own model
+        return ((mm, cfg, ca, kp, ks, dp_, consts, tconsts),
+                ((mm,) + tuple(a6[1:]),
+                 dict(kw6, bcost=G.broker_costs_plain(mm, cfg, ca))))
+
+    a = m.assignment.clone()
+    a[kp[::4].long(), ks[::4].long()] = -1
+    a[lp[1::4].long(), lsl[1::4].long()] = -1
+    pl = m.pload.clone()
+    pl[torch.cat([kp[::3], lp[::3]]).long(), 2 * NR] = 1.0
+    mm = m.must_move.clone()
+    mm[kp[::6].long(), ks[::6].long()] = True
+    mm[lp[::6].long(), lsl[::6].long()] = True
+    cap = m.capacity.clone()
+    b = torch.arange(0, B, 7, device=dev)
+    cap[b, b % NR] = 0.0
+    pad = dp.clone()
+    pad[-100:] = -1
+    tile = 10
+    spread = lambda x: torch.where(  # noqa: E731
+        x >= 0, x + B * torch.randint(0, tile, x.shape, generator=g,
+                                      device=dev).to(x), x)
+    cases = {
+        "empty_slot": case(dataclasses.replace(m, assignment=a)),
+        "excluded": case(dataclasses.replace(m, pload=pl, must_move=mm)),
+        "pool_pad": (case(m, pad)[0], None),
+        "zero_cap": case(dataclasses.replace(m, capacity=cap)),
+        "b10k": case(dataclasses.replace(tile_brokers(m, tile),
+                                         assignment=spread(m.assignment)),
+                     spread(dp)),
+        "mixed_kinds": (None, mixed_candidates(calls)),
+    }
+    # the incremental rescore's two carry forms
+    L = lp.shape[0]
+    gate = torch.zeros(SS.NSTATE, dtype=torch.int32, device=dev)
+    gate[SS.ACTIVE] = 1
+    full = gate.clone()
+    full[SS.FRESH] = 1
+    ls = torch.zeros(L, dtype=torch.float32, device=dev)
+    rows = torch.randperm(L, generator=g, device=dev)[:2048].to(torch.int32)
+    n_rows = torch.tensor([1203], dtype=torch.int32, device=dev)
+    cases["rows"] = (None, (a6, dict(kw6, out=(ls, None), rows=rows,
+                                     n_rows=n_rows, gate=gate, want=0)))
+    cases["carry_full"] = (None, (a6, dict(kw6, out=(ls, None), gate=full,
+                                           want=1)))
+    return cases
+
+
+def slot_cases(dev):
+    """K2's and K6's first-step inputs (:func:`score_terms_cases`' form) at
+    50 brokers / 1 000 partitions and at replication factors 1 and 8 (the
+    clusters of :func:`check_slot_instances`) → {case: (K2 args, (K6 args,
+    kw))}."""
+    from cruise_control_tpu_torch.models.generators import random_cluster
+
+    out = {}
+    for case, state in (
+            ("50b_1k", random_cluster(seed=42, **SMALL)),
+            *((f"rf{S}", random_cluster(
+                seed=5, num_brokers=200, num_racks=20, num_partitions=4000,
+                replication_factor=S)) for S in (1, 8))):
+        calls, _ = first_step_calls(state, {}, dev)
+        a2, _ = calls["grid_rescore"]
+        out[case] = (a2[:6] + a2[7:], calls["score_candidates"])
+    return out
 
 
 def check_budget_accept(label, args, kw, has_cap, timed,
@@ -922,11 +1059,7 @@ def cohort_cases(calls, dev, seed=23):
     }
     tile = 10
     B = m.capacity.shape[0] * tile
-    big = dataclasses.replace(m, **{
-        f: getattr(m, f).repeat(tile, *([1] * (getattr(m, f).dim() - 1)))
-        for f in ("capacity", "broker_load", "broker_cload", "rcount",
-                  "pot_nwout", "alive", "dest_ok")
-        if getattr(m, f) is not None})
+    big = tile_brokers(m, tile)
     g = torch.Generator().manual_seed(seed)
     cases["b10k"] = (
         big, ca, torch.randint(0, B, dst.shape, generator=g).to(dst),
@@ -1220,12 +1353,7 @@ def commit_cases(calls, dev, seed=31):
         cand_src, mode(cand_src.cpu()[taken])))
     # 10 000 brokers
     tile = 10
-    big = dataclasses.replace(m, **{
-        f.name: getattr(m, f.name).repeat(
-            tile, *([1] * (getattr(m, f.name).dim() - 1)))
-        for f in dataclasses.fields(m)
-        if getattr(m, f.name) is not None
-        and getattr(m, f.name).shape[:1] == (B,)})
+    big = tile_brokers(m, tile)
     cases["b10k"] = case(
         m=big, d0=(d0 + rand(C, tile).to(d0) * B),
         wd_d=wd_d + rand(C, tile).to(wd_d) * B,
@@ -2361,10 +2489,11 @@ def check_incremental_kernels(label, state, cfg_kw, dev, timed):
             timed=timed, exact=True)
     # the carry form writes the leadership scores only (no feasibility)
     ls, _ = kw6["out"]
-    k6 = tuple(a6) + (ls, None, kw6["rows"], kw6["n_rows"], kw6["gate"], 0)
+    k6 = tuple(a6) + (ls, None, kw6["rows"], kw6["n_rows"], kw6["gate"], 0,
+                      kw6["bcost"])
     st6 = kw6["gate"].clone()
     st6[SS.FRESH] = 1
-    k6f = tuple(a6) + (ls, None, None, None, st6, 1)
+    k6f = tuple(a6) + (ls, None, None, None, st6, 1, kw6["bcost"])
     n_part = int(torch.unique(lp).numel())
     for name, args, n in (("score_candidates[rows]", k6, min(LB, n_l)),
                           ("score_candidates[carry_full]", k6f, L)):
@@ -2372,16 +2501,17 @@ def check_incremental_kernels(label, state, cfg_kw, dev, timed):
             label, name,
             after(lambda *a: K6.score_candidates(
                 *a[:9], checked=True, out=(a[9], a[10]), rows=a[11],
-                n_rows=a[12], gate=a[13], want=a[14]), (9,)),
+                n_rows=a[12], gate=a[13], want=a[14], bcost=a[15]), (9,)),
             after(lambda *a: K6._score_candidates_into(
                 *a[:7], a[9], a[10], a[11], a[12], a[13], a[14]), (9,)),
             args, {}, dict(base, N=n),
             # as phase 3's K6 record, for the n candidates scored, with
             # the score out and no feasibility
             n * 16 + min(n, n_part) * (9 * S + 4 + 4 * W)
-            + B * (4 * (NR * (3 if has_cap else 2) + 4) + 6)
+            + B * (4 * (NR * (3 if has_cap else 2) + 4) + 6 + 4)
             + 4 * (3 * NR + 16) + n * 4,
-            n * 400, plain_kw={}, timed=timed, exact=True)
+            n * 230, plain_kw={}, timed=timed, tag="score_candidates_",
+            exact=True)
 
     # K8 with the marks: it clears the step before's from its lists, then
     # marks this step's commits (the twin zeroes the tables and marks)
@@ -2772,13 +2902,26 @@ def main() -> int:
     if not all(r["percentile_cload"] for r in
                steps["midscale_percentile"].values()):
         raise AssertionError("percentile case ran without capacity loads")
-    # K6 on moves and transfers mixed; K7 on 50 000 tie-rich keys; K9 at
-    # the north star's 3 M slots
+    # K2 and K6 bit for bit on empty chosen slots, exclusions, a padded
+    # pool, zero capacities, 10 000 brokers, at 50 / 1 000 and at
+    # replication factors 1 and 8; K6 also on moves and transfers mixed
+    # and in its two carry forms
     calls, _ = first_step_calls(mid, {}, dev)
-    margs, mkw = mixed_candidates(calls)
-    extra = check_score_candidates("mixed_kinds", margs, mkw, False, False)
-    if not 0 < extra["score_candidates"]["moves"] < margs[4].shape[0]:
-        raise AssertionError("mixed-kind case holds one kind only")
+    extra = {}
+    for case, (k2, k6) in {**score_terms_cases(calls, dev),
+                           **slot_cases(dev)}.items():
+        if k2 is not None:
+            extra.update(check_grid_terms(case, k2, False, False,
+                                          name=f"grid_terms[{case}]"))
+        if k6 is not None:
+            extra.update(check_score_candidates(
+                case, *k6, False, False, name=f"score_candidates[{case}]"))
+    mixed = extra["score_candidates[mixed_kinds]"]
+    if not 0 < mixed["moves"] < mixed["N"] \
+            or extra["grid_terms[b10k]"]["B"] < 10_000 \
+            or extra["score_candidates[rf8]"]["N"] < 1:
+        raise AssertionError("K2's and K6's hard cases are not hard")
+    # K7 on 50 000 tie-rich keys; K9 at the north star's 3 M slots
     # K4 on one destination, one source, 777 and 1 rows and 10 000
     # brokers; K7 tie-rich at 5 000 keys (C = 1 024, 777, 1) and 50 000
     for case, (a4, kw4) in cohort_cases(calls, dev).items():
@@ -2849,7 +2992,7 @@ def main() -> int:
     extra.update(check_top_select_cases(dev))
     steps["extra"] = extra
     compare_scan_paths(mid, dev)
-    del calls, margs
+    del calls
     # deterministic aggregates: two rebuilds agree to the bit
     m0 = args[0]
     a1, a2 = recompute_aggregates(m0), recompute_aggregates(m0)

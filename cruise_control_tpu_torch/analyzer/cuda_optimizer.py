@@ -444,6 +444,9 @@ class _StepLoop:
         self.kind_l = torch.full((L,), KIND_LEADERSHIP, dtype=torch.int32,
                                  device=dev)
         self.cd_l = torch.zeros(L, dtype=torch.int32, device=dev)
+        # every broker's cost as it stands, written by K2 and read by K6
+        # in the same step
+        self.bcost = torch.empty(B, dtype=torch.float32, device=dev)
         # the incremental rescore's carry, on that path only: the default
         # loop allocates nothing for it
         self.sc = (RescoreCarry.empty(cfg, P, B, K, D, L, self.R,
@@ -504,10 +507,10 @@ def _step(lp: _StepLoop, checked: bool) -> None:
     if lp.sc is None:
         src_term, vals, best_d = grid_rescore(m, cfg, ca, pb.kp, pb.ks,
                                               pb.dest_pool, lp.R, lp.consts,
-                                              lp.tconsts)
+                                              lp.tconsts, bcost=lp.bcost)
         ls, _ = score_candidates(m, cfg, ca, lp.kind_l, pb.lp, pb.lsl,
                                  lp.cd_l, lp.consts, lp.tconsts,
-                                 checked=checked)
+                                 checked=checked, bcost=lp.bcost)
     else:
         src_term = _incremental_rescore(lp, checked)
         vals, best_d, ls = lp.sc.dt, lp.sc.bd, lp.sc.ls
@@ -566,7 +569,7 @@ def _incremental_rescore(lp: _StepLoop, checked: bool) -> torch.Tensor:
     m, cfg, ca, pb, sc = lp.m, lp.cfg, lp.ca, lp.pools, lp.sc
     state = lp.st.state
     packed = grid_terms(m, cfg, ca, pb.kp, pb.ks, pb.dest_pool, lp.consts,
-                        lp.tconsts)
+                        lp.tconsts, lp.bcost)
     stale_sets(m, pb.kp, pb.dest_pool, pb.lp, pb.lsl, sc.tb, sc.tpm, state,
                sc.ridx, sc.cidx, sc.lidx, sc.nstale,
                cfg.rescore_refresh_steps, checked=checked)
@@ -575,7 +578,7 @@ def _incremental_rescore(lp: _StepLoop, checked: bool) -> torch.Tensor:
     lead = functools.partial(score_candidates, m, cfg, ca, lp.kind_l, pb.lp,
                              pb.lsl, lp.cd_l, lp.consts, lp.tconsts,
                              checked=checked, out=(sc.ls, None),
-                             gate=state)
+                             gate=state, bcost=lp.bcost)
     # the full rescore (:1056-1073)
     grid(1)
     lead(want=1)
@@ -700,14 +703,16 @@ def _grid_round_scores(m: DeviceModel, cfg: CudaSearchConfig, ca, pools,
     kp, ks, dest_pool, lp, lsl = pools
     dev = m.assignment.device
     R = min(DESTS_PER_SOURCE, dest_pool.shape[0])
+    bcost = torch.empty(m.capacity.shape[0], dtype=torch.float32,
+                        device=dev)
     _, vals, best_i = grid_rescore(m, cfg, ca, kp, ks, dest_pool, R, consts,
-                                   tconsts)
+                                   tconsts, bcost=bcost)
     L = lp.shape[0]
     ls, _ = score_candidates(
         m, cfg, ca,
         torch.full((L,), KIND_LEADERSHIP, dtype=torch.int32, device=dev),
         lp, lsl, torch.zeros(L, dtype=torch.int32, device=dev), consts,
-        tconsts)
+        tconsts, bcost=bcost)
     return vals, ls, best_i
 
 

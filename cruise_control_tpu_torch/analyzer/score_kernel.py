@@ -37,6 +37,7 @@ from cruise_control_tpu_torch.ops.grid import (
     _NT,
     gather_pload as _gather_pload,
     grid_consts,
+    slot_instance,
     terms_consts,
 )
 
@@ -193,7 +194,7 @@ def _score_candidates(m, cfg, ca, kind, cp, cs, cd):
 
 def _library():
     lib = kernels.bind("score_candidates", "score_candidates_launch",
-                       [_P] * 21 + [_I] * 3 + [_P] * 5 + [_I, _P])
+                       [_P] * 21 + [_I] * 3 + [_P] * 5 + [_I, _P, _P])
     if not getattr(lib, "_cc_checked", False):
         lib.score_candidates_layout.argtypes = [ctypes.POINTER(ctypes.c_int)]
         lib.score_candidates_layout.restype = None
@@ -203,7 +204,24 @@ def _library():
             raise RuntimeError(f"score_candidates library layout "
                                f"{tuple(layout)} != {(_NC, _NT, _MAX_S)}")
         lib._cc_checked = True
+        lib._cc_attrs = {}
     return lib
+
+
+def score_candidates_attrs(S: int, has_cap: bool) -> dict:
+    """The built K6 instance for S slots, capacity loads on or off, as the
+    card reports it (:func:`ops.kernels.attrs`); cached, needs the card."""
+    lib = _library()
+    key = (slot_instance(S), bool(has_cap))
+    if key not in lib._cc_attrs:
+        lib.score_candidates_attrs.argtypes = [
+            _I, _I, ctypes.POINTER(ctypes.c_int)]
+        lib.score_candidates_attrs.restype = _I
+        R = NUM_RESOURCES
+        lib._cc_attrs[key] = kernels.attrs(
+            "score_candidates", lib.score_candidates_attrs, S,
+            4 * R + 1 if has_cap else 2 * R + 1)
+    return lib._cc_attrs[key]
 
 
 def _score_candidates_into(m, cfg, ca, kind, cp, cs, cd, out, feasible,
@@ -232,7 +250,8 @@ def _score_candidates_into(m, cfg, ca, kind, cp, cs, cd, out, feasible,
 
 def score_candidates(m, cfg, ca, kind, cp, cs, cd, consts=None,
                      tconsts=None, checked: bool = False, out=None,
-                     rows=None, n_rows=None, gate=None, want: int = 1):
+                     rows=None, n_rows=None, gate=None, want: int = 1,
+                     bcost=None):
     """→ (delta f32 [N], +inf where infeasible; feasible bool [N]) of the
     candidates (kind, cp, cs, cd) — the plain twin
     :func:`_score_candidates`.  ``consts`` / ``tconsts`` are the constant
@@ -248,7 +267,13 @@ def score_candidates(m, cfg, ca, kind, cp, cs, cd, consts=None,
     (int32 [n]) with ``n_rows`` (int32 [1]) scores only the first
     ``min(n, n_rows)`` candidates of that index list, each written at its
     own index; ``gate`` (the step loop's carry) runs it only on an active
-    step whose FRESH flag is ``want``."""
+    step whose FRESH flag is ``want``.
+
+    ``bcost`` (f32 [B]) is every broker's cost as it stands on this model
+    — K2's table (``ops.grid.grid_terms``, the dict's ``"bcost"``),
+    written with no commit since — which the kernel reads in place of the
+    two costs before the move; CUDA tensors need it.  The plain twin
+    computes those costs itself and takes no table."""
     if (rows is None) != (n_rows is None):
         raise ValueError("score_candidates: rows and n_rows go together")
     if out is None and (rows is not None or gate is not None):
@@ -277,6 +302,9 @@ def score_candidates(m, cfg, ca, kind, cp, cs, cd, consts=None,
             or N < 1:
         raise ValueError(f"score_candidates: partition table width {W}, "
                          f"S={S}, N={N} out of range")
+    if bcost is None:
+        raise ValueError("score_candidates: the kernel reads K2's broker "
+                         "cost table; pass bcost")
     i32, f32, b8 = torch.int32, torch.float32, torch.bool
     chk = functools.partial(kernels.check, "score_candidates", device=dev)
     for name, x, dt, shape in () if checked else (
@@ -300,6 +328,7 @@ def score_candidates(m, cfg, ca, kind, cp, cs, cd, consts=None,
         ("cd", cd, i32, (N,)),
         ("consts", consts, f32, (_NC,)),
         ("tconsts", tconsts, f32, (_NT,)),
+        ("bcost", bcost, f32, (B,)),
     ):
         chk(name, x, dt, shape)
     if has_cap and not checked:
@@ -335,7 +364,8 @@ def score_candidates(m, cfg, ca, kind, cp, cs, cd, consts=None,
         m.rcount.data_ptr(), m.lcount.data_ptr(), kind.data_ptr(),
         cp.data_ptr(), cs.data_ptr(), cd.data_ptr(), consts.data_ptr(),
         tconsts.data_ptr(), n, S, W, delta.data_ptr(), ptr(feasible),
-        ptr(rows), ptr(n_rows), ptr(gate), int(want), kernels.stream(dev),
+        ptr(rows), ptr(n_rows), ptr(gate), int(want), bcost.data_ptr(),
+        kernels.stream(dev),
     )
     kernels.launched("score_candidates", err)
     score_candidates.launches += 1

@@ -18,10 +18,11 @@
 // pass over the 33 MB of scores to make its key (K13's first entry point
 // makes only the grid form's).
 //
-// Rounding.  Each candidate is scored by K6's body (csrc/score_common.cuh:
-// score_one), the plain twin's operations in its order, built without FMA
-// contraction: -key[i] equals the plain twin's score bit for bit, +inf
-// where the candidate is infeasible; negation flips the sign bit only.
+// Rounding.  Each candidate is scored by csrc/score_common.cuh: score_one
+// (K6 runs the same body on a lane pair), the plain twin's operations in
+// its order, built without FMA contraction: -key[i] equals
+// the plain twin's score bit for bit, +inf where the candidate is
+// infeasible; negation flips the sign bit only.
 //
 // What bounds it.  N = K·D + P·S = 8 252 000 candidates at 1000b/20k.
 // Per candidate four broker costs (~85 operations each) and ~60 more:
@@ -32,12 +33,16 @@
 // What the design does about it.  One thread per flat index, no shared
 // state and no synchronisation; neighbouring threads of a move row share
 // its partition row and source broker (cached), and neighbouring
-// leadership indices walk the partition table in order.
+// leadership indices walk the partition table in order.  The kernel is
+// compiled per slot instance and capacity-load width (csrc/grid_cell.cuh:
+// with_cell_instance), so a candidate's row and its two brokers are
+// gathered into registers (csrc/row_gather.cuh) before any arithmetic.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "grid_cell.cuh"
 #include "score_common.cuh"
 
 namespace {
@@ -49,14 +54,14 @@ using cc_score::score_one;
 constexpr int THREADS = 256;
 constexpr int KIND_MOVE = 0;
 
+template <int NS, bool CAP>
 __global__ void __launch_bounds__(THREADS)
 score_columnar_kernel(Model m, const int* __restrict__ kp,
                       const int* __restrict__ ks,
                       const int* __restrict__ dest_pool,
                       const float* __restrict__ consts,
                       const float* __restrict__ tconsts, long long KD, int D,
-                      long long N, int S, int W,
-                      float* __restrict__ key) {
+                      long long N, int S, float* __restrict__ key) {
   float c[NC], t[NT];
 #pragma unroll
   for (int q = 0; q < NC; ++q) c[q] = consts[q];
@@ -80,7 +85,7 @@ score_columnar_kernel(Model m, const int* __restrict__ kp,
     }
     float delta;
     uint8_t feasible;
-    score_one(m, c, t, kind, cp, cs, cd, S, W, &delta, &feasible);
+    score_one<NS, CAP>(m, c, t, kind, cp, cs, cd, S, &delta, &feasible);
     key[i] = -delta;
   }
 }
@@ -124,8 +129,12 @@ int score_columnar_launch(const int* assignment, const int* leader_slot,
           pot_nwout,  rcount,      lcount};
   const long long blocks = (N + THREADS - 1) / THREADS;
   const int grid = (int)(blocks < 0x7fffffffLL ? blocks : 0x7fffffffLL);
-  score_columnar_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      m, kp, ks, dest_pool, consts, tconsts, KD, D, N, S, W, key);
+  cc_grid::with_cell_instance(S, W == 4 * NR + 1, [&](auto ns, auto c) {
+    score_columnar_kernel<decltype(ns)::value, decltype(c)::value == 1>
+        <<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+            m, kp, ks, dest_pool, consts, tconsts, KD, D, N, S, key);
+    return 0;
+  });
   return (int)cudaGetLastError();
 }
 

@@ -514,19 +514,32 @@ def terms_consts(cfg, ca, device) -> torch.Tensor:
     ]).contiguous()
 
 
-def grid_terms_plain(m, cfg, ca, kp, ks, dest_pool, consts=None) -> dict:
-    """Plain twin of K2: :func:`move_grid_terms`, then K1's packing; the
-    dict also keeps the terms (``"terms"``) for the plain twins that take
-    K2's output on the CPU."""
+def broker_costs_plain(m, cfg, ca) -> torch.Tensor:
+    """f32 [B]: every broker's soft-goal cost as it stands
+    (:func:`ops.cost.broker_cost` on its aggregates) — the table K2 writes
+    for K6 (``bcost``), which reads it as the cost before a move."""
+    return broker_cost(cfg, ca, m.capacity, m.broker_load, m.leader_nwin,
+                       m.pot_nwout, m.rcount, m.lcount,
+                       cload=m.broker_cload)
+
+
+def grid_terms_plain(m, cfg, ca, kp, ks, dest_pool, consts=None,
+                     bcost=None) -> dict:
+    """Plain twin of K2: :func:`move_grid_terms`, then K1's packing, and
+    :func:`broker_costs_plain` (the dict's ``"bcost"``, written into
+    ``bcost`` (f32 [B]) where given); the dict also keeps the terms
+    (``"terms"``) for the plain twins that take K2's output on the CPU."""
     terms = move_grid_terms(m, cfg, ca, kp, ks)
+    table = broker_costs_plain(m, cfg, ca)
     return dict(pack_grid_inputs(m, cfg, ca, dest_pool, terms, consts),
-                terms=terms)
+                terms=terms,
+                bcost=table if bcost is None else bcost.copy_(table))
 
 
 def _terms_library():
     p, i = ctypes.c_void_p, ctypes.c_int
     lib = kernels.bind("grid_terms", "grid_terms_launch",
-                       [p] * 20 + [i] * 5 + [p] * 5)
+                       [p] * 20 + [i] * 5 + [p] * 6)
     if not getattr(lib, "_cc_checked", False):
         lib.grid_terms_layout.argtypes = [ctypes.POINTER(ctypes.c_int)]
         lib.grid_terms_layout.restype = None
@@ -537,19 +550,39 @@ def _terms_library():
             raise RuntimeError(
                 f"grid_terms library layout {tuple(layout)} != {want}")
         lib._cc_checked = True
+        lib._cc_attrs = {}
     return lib
 
 
+def grid_terms_attrs(S: int, has_cap: bool) -> dict:
+    """The built K2 instance for S slots, capacity loads on or off, as the
+    card reports it (:func:`ops.kernels.attrs`); cached, needs the card."""
+    lib = _terms_library()
+    key = (slot_instance(S), bool(has_cap))
+    if key not in lib._cc_attrs:
+        lib.grid_terms_attrs.argtypes = [ctypes.c_int, ctypes.c_int,
+                                         ctypes.POINTER(ctypes.c_int)]
+        lib.grid_terms_attrs.restype = ctypes.c_int
+        lib._cc_attrs[key] = kernels.attrs(
+            "grid_terms", lib.grid_terms_attrs, S,
+            4 * _NR + 1 if has_cap else 2 * _NR + 1)
+    return lib._cc_attrs[key]
+
+
 def grid_terms(m, cfg, ca, kp, ks, dest_pool, consts=None,
-               tconsts=None) -> dict:
+               tconsts=None, bcost=None) -> dict:
     """K1's packed inputs for source rows (kp, ks) and the destination
-    pool — the dict of :func:`pack_grid_inputs`.
+    pool — the dict of :func:`pack_grid_inputs` — and every broker's cost
+    as it stands (:func:`broker_costs_plain`; the dict's ``"bcost"``,
+    written into ``bcost`` (f32 [B]) where given, else into a new
+    tensor), which K6 reads on the same model.
 
     CPU tensors run the plain twin (:func:`grid_terms_plain`).  CUDA
     tensors launch K2 (``csrc/grid_terms.cu``) or raise.  Counts its
     launches in ``grid_terms.launches``."""
     if kernels.on_cpu(dest_pool):
-        return grid_terms_plain(m, cfg, ca, kp, ks, dest_pool, consts)
+        return grid_terms_plain(m, cfg, ca, kp, ks, dest_pool, consts,
+                                bcost)
     dev = dest_pool.device
     P, S = m.assignment.shape
     B = m.capacity.shape[0]
@@ -564,9 +597,11 @@ def grid_terms(m, cfg, ca, kp, ks, dest_pool, consts=None,
         m.leader_cload, m.follower_cload)
     W = table.shape[1]
     has_cap = m.broker_cload is not None
-    if W not in (2 * _NR + 1, 4 * _NR + 1):
-        raise ValueError(f"grid_terms: partition table width {W} is neither "
-                         f"{2 * _NR + 1} nor {4 * _NR + 1}")
+    if W != (4 * _NR + 1 if has_cap else 2 * _NR + 1):
+        raise ValueError(f"grid_terms: partition table width {W} with "
+                         f"broker capacity loads {'on' if has_cap else 'off'}"
+                         f" (takes {2 * _NR + 1} without, {4 * _NR + 1} "
+                         "with)")
     i32, f32, b8 = torch.int32, torch.float32, torch.bool
     chk = functools.partial(kernels.check, "grid_terms", device=dev)
     for name, x, dt, shape in (
@@ -593,16 +628,17 @@ def grid_terms(m, cfg, ca, kp, ks, dest_pool, consts=None,
         chk(name, x, dt, shape)
     if has_cap:
         chk("broker_cload", m.broker_cload, f32, (B, _NR))
+    if bcost is None:
+        bcost = torch.empty(B, dtype=f32, device=dev)
+    chk("bcost", bcost, f32, (B,))
     src_f = torch.empty((K, _SF), dtype=f32, device=dev)
     src_i = torch.empty((K, 3 * S + 2), dtype=i32, device=dev)
     dst_f = torch.empty((D, _DF), dtype=f32, device=dev)
     dst_i = torch.empty((D, _DI), dtype=i32, device=dev)
     packed = dict(src_f=src_f, src_i=src_i, dst_f=dst_f, dst_i=dst_i,
-                  consts=consts, K=K, D=D, S=S, has_cap=int(has_cap))
-    if K + D == 0:
-        return packed
+                  bcost=bcost, consts=consts, K=K, D=D, S=S,
+                  has_cap=int(has_cap))
     lib = _terms_library()
-    grid = -(-(K + D) // 256)
     err = lib.grid_terms_launch(
         m.assignment.data_ptr(), m.leader_slot.data_ptr(),
         m.offline_origin.data_ptr(), m.must_move.data_ptr(),
@@ -613,9 +649,9 @@ def grid_terms(m, cfg, ca, kp, ks, dest_pool, consts=None,
         m.leader_nwin.data_ptr(), m.pot_nwout.data_ptr(),
         m.rcount.data_ptr(), m.lcount.data_ptr(), kp.data_ptr(),
         ks.data_ptr(), dest_pool.data_ptr(), consts.data_ptr(),
-        tconsts.data_ptr(), K, D, S, W, grid, src_f.data_ptr(),
+        tconsts.data_ptr(), K, D, B, S, W, src_f.data_ptr(),
         src_i.data_ptr(), dst_f.data_ptr(), dst_i.data_ptr(),
-        kernels.stream(dev),
+        bcost.data_ptr(), kernels.stream(dev),
     )
     kernels.launched("grid_terms", err)
     grid_terms.launches += 1
@@ -626,9 +662,10 @@ grid_terms.launches = 0
 
 
 def grid_rescore(m, cfg, ca, kp, ks, dest_pool, R: int, consts=None,
-                 tconsts=None):
+                 tconsts=None, bcost=None):
     """The step's move rescore → (src_term f32 [K], score f32 [K, R]
-    ascending, pool index int32 [K, R]).
+    ascending, pool index int32 [K, R]); every broker's cost as it stands
+    is written into ``bcost`` (f32 [B]) where given, for K6.
 
     CPU tensors: :func:`move_grid_terms` and K1's plain twin.  CUDA
     tensors: K2 writes K1's packed tables, K1 ranks them, and the source
@@ -636,8 +673,11 @@ def grid_rescore(m, cfg, ca, kp, ks, dest_pool, R: int, consts=None,
     if kernels.on_cpu(dest_pool):
         terms = move_grid_terms(m, cfg, ca, kp, ks)
         vals, idx = grid_top_r_plain(m, cfg, ca, kp, ks, dest_pool, terms, R)
+        if bcost is not None:
+            bcost.copy_(broker_costs_plain(m, cfg, ca))
         return terms["src_term"], vals, idx
-    packed = grid_terms(m, cfg, ca, kp, ks, dest_pool, consts, tconsts)
+    packed = grid_terms(m, cfg, ca, kp, ks, dest_pool, consts, tconsts,
+                        bcost)
     vals, idx = launch_grid_top_r(packed, R)
     return packed["src_f"][:, SRC_TERM_COL], vals, idx
 

@@ -1,8 +1,10 @@
-"""Time K1 ``grid_top_r``, K11 ``top_select``, K17 ``grid_patch``, K9
-``recompute_aggregates``, K12 ``whatif_verdict``, K4 ``budget_accept``,
-K7 ``compact_rows``, K3 ``per_src_top``, K13 (a) ``round_keys``, K8
-``commit_batch`` and K5 ``match_batch`` on the card at the shapes their
-paths give them, through a checkout's own ``chip_smoke.py`` checks.
+"""Time thirteen kernels — K1 ``grid_top_r``, K11 ``top_select``, K17
+``grid_patch``, K9 ``recompute_aggregates``, K12 ``whatif_verdict``, K4
+``budget_accept``, K7 ``compact_rows``, K3 ``per_src_top``, K13 (a)
+``round_keys``, K8 ``commit_batch``, K5 ``match_batch``, K2
+``grid_terms`` and K6 ``score_candidates`` — on the card at the shapes
+their paths give them, through a checkout's own ``chip_smoke.py``
+checks.
 
     python3 cruise_control_tpu_torch/tools/time_kernels.py [--root DIR]
         [--label NAME] [--only NAME[,NAME...]]
@@ -12,7 +14,7 @@ checkout whose ``chip_smoke.py`` and package are imported, for example an
 older commit unpacked with ``git archive``, so that two versions of the
 kernels can be timed in turns within one run on one card.  Run it by its
 path, not with ``-m``: the package must come from that checkout.
-``--only`` keeps the named kernels (default: all eleven).
+``--only`` keeps the named kernels (default: all thirteen).
 
 Each kernel is held bit for bit to its plain twin and timed by
 ``chip_smoke.py`` itself (its records print as it emits them: wrapper ms
@@ -60,7 +62,18 @@ chip_smoke's ``commit_cases``, K5 in the step's three forms
 checkout's checks (so an older ``--root`` is held the same way; a
 mismatch is recorded, not raised), with their phases where stamped
 (``phases_run`` counts the stamped ones: the auction stamps no round after
-its fixed point) and K5's ``rounds_to_fixed_outputs``.
+its fixed point) and K5's ``rounds_to_fixed_outputs``.  K2 and K6 run on
+the 1 000 / 20 000 first step (mean and percentile loads), on chip_smoke's
+``score_terms_cases`` built from it (chosen slots emptied, exclusions, a
+pool padded with -1, zero capacities, 10 000 brokers; K6 also on moves
+and transfers mixed and in its two carry forms) and ``slot_cases`` (50 /
+1 000, replication factors 1 and 8), K2 writing the brokers' cost table
+and K6 reading it (a tree whose wrappers take no ``bcost`` runs without
+it), each bit for bit against the twins on the card (a mismatch is
+recorded, not raised), with ``device_ms_runs`` (the median device ms of
+30 launches, in each of two runs), the wrapper ms, ``attrs`` where the
+library exports them and, on each kernel's first record, the build's
+``ptxas`` report.
 Needs a card.
 """
 
@@ -72,6 +85,7 @@ import copy
 import ctypes
 import functools
 import importlib.util
+import inspect
 import statistics
 import subprocess
 import sys
@@ -90,10 +104,12 @@ KEYS = ("K", "D", "S", "N", "k", "P", "B", "L", "Q", "blocks",
         "host_us", "bit_equal", "k14_ms",
         "library_two_calls_ms", "round_keys_launches_a_round",
         "M_step", "commits", "touched_brokers", "A", "cohort_rows",
-        "dest_cap", "rounds_to_fixed_outputs", "phases_run", "error")
+        "dest_cap", "rounds_to_fixed_outputs", "phases_run", "error",
+        "W", "device_ms_runs", "ptxas", "bcost")
 ALL = ("top_select", "grid_top_r", "grid_patch", "recompute_aggregates",
        "whatif_verdict", "budget_accept", "compact_rows", "per_src_top",
-       "round_keys", "commit_batch", "match_batch")
+       "round_keys", "commit_batch", "match_batch", "grid_terms",
+       "score_candidates")
 #: K11's (N, k): the repool's top-K (and smaller k), its top-D, the
 #: score-only round's grid and columnar keys, the north star's slots
 TOP_SHAPES = ((60_000, 8192), (60_000, 2048), (60_000, 1024), (1000, 1000),
@@ -379,6 +395,168 @@ def time_match_batch(cs, summary, random_cluster, dev, here):
         rec.update(phase_split(SK.kernels, "match_batch", phases,
                                lambda: SK.match_batch(*args, **kw)))
         summary("match_batch", rec)
+
+
+def device_ms_runs(fn, tag: str, reps: int = 30, runs: int = 2):
+    """For each of ``runs`` runs, the median over ``reps`` calls of
+    ``fn`` of the device ms a call spends in kernels whose names hold
+    ``tag`` (summed over a call's launches), by ``torch.profiler``; a run
+    whose profile caught no such kernel is taken again (up to 3 times)."""
+    out = []
+    for _ in range(runs):
+        for _ in range(3):
+            fn()
+            torch.cuda.synchronize()
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+            ev = sorted((e.time_range.start, e.time_range.elapsed_us())
+                        for e in prof.events()
+                        if e.device_type == torch.autograd.DeviceType.CUDA
+                        and tag in e.name)
+            if ev:
+                break
+        if not ev:
+            out.append(None)
+            continue
+        per = max(1, round(len(ev) / reps))
+        out.append(statistics.median(
+            sum(t for _, t in ev[i:i + per])
+            for i in range(0, len(ev), per)) * 1e-3)
+    return out
+
+
+def lib_attrs(kernels, name: str, *args):
+    """Kernel ``name``'s exported ``<name>_attrs(args..., int* out)``
+    (:func:`ops.kernels.attrs`), or None where its library has none."""
+    fn = getattr(kernels.load(name), f"{name}_attrs", None)
+    if fn is None:
+        return None
+    fn.argtypes = [ctypes.c_int] * len(args) + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    return kernels.attrs(name, fn, *args)
+
+
+def ptxas_report(kernels, name: str):
+    """The ``ptxas`` report of kernel ``name``'s build (its ``.log``)."""
+    log = kernels.library_path(name).with_suffix(".log")
+    return [ln.strip() for ln in log.read_text().splitlines()
+            if ln.strip()] if log.exists() else None
+
+
+@functools.lru_cache(maxsize=None)
+def score_cases(cs, here, random_cluster, dev):
+    """K2's and K6's cases, built once a run: the 1 000 / 20 000 first
+    step (mean and percentile loads), chip_smoke's ``score_terms_cases``
+    on it and ``slot_cases`` (50 / 1 000, replication factors 1 and 8) →
+    {case: (K2 args or None, (K6 args, kw) or None)}."""
+    from cruise_control_tpu_torch.ops import grid as G
+
+    if not hasattr(G, "broker_costs_plain"):
+        # a tree older than K2's cost table: its K6 takes none, and
+        # time_score_candidates drops the cases' table
+        G.broker_costs_plain = lambda *a: None
+    cases = {}
+    mid = random_cluster(**cs.MIDSCALE)
+    for case, state in (("midscale_percentile", cs.with_percentile(mid)),
+                        ("midscale", mid)):
+        calls, _ = cs.first_step_calls(state, {}, dev)
+        a2, _ = calls["grid_rescore"]
+        cases[case] = (a2[:6] + a2[7:], calls["score_candidates"])
+    cases.update(helper(cs, here, "score_terms_cases")(calls, dev))
+    cases.update(helper(cs, here, "slot_cases")(dev))
+    return cases
+
+
+def _bit_equal(cs, here, label, got, want) -> bool:
+    try:
+        helper(cs, here, "bitwise")(label, got, want)
+        return True
+    except AssertionError:
+        return False
+
+
+# A tree older than K2's brokers' cost table (its wrappers take no
+# ``bcost``) is timed without it: the one parent-only path of K2 and K6.
+def _takes_bcost(fn) -> bool:
+    return "bcost" in inspect.signature(fn).parameters
+
+
+def time_grid_terms(cs, summary, random_cluster, dev, here):
+    """K2 on every case of :func:`score_cases` that has K2 inputs, writing
+    the cost table into one buffer, as the step does."""
+    from cruise_control_tpu_torch.ops import grid as G
+
+    first = True
+    for case, (a2, _) in score_cases(cs, here, random_cluster,
+                                     dev).items():
+        if a2 is None:
+            continue
+        m = a2[0]
+        B = m.capacity.shape[0]
+        kw = ({"bcost": torch.empty(B, device=dev)}
+              if _takes_bcost(G.grid_terms) else {})
+
+        def own(fn, *a):
+            packed = fn(*a)
+            return [packed[k] for k in ("src_f", "src_i", "dst_f", "dst_i",
+                                        "bcost") if k in packed]
+        got = own(G.grid_terms, *a2)
+        torch.cuda.synchronize()
+        want = own(G.grid_terms_plain, *a2[:7])
+        run = lambda: G.grid_terms(*a2, **kw)  # noqa: E731
+        S, W = m.assignment.shape[1], m.pload.shape[1]
+        rec = {"case": case, "K": a2[3].shape[0], "D": a2[5].shape[0],
+               "S": S, "W": W, "B": B, "bcost": bool(kw),
+               "bit_equal": _bit_equal(cs, here, f"{case} grid_terms", got,
+                                       want),
+               "ms": cs.cuda_ms(run),
+               "device_ms_runs": device_ms_runs(run, "grid_terms_"),
+               "attrs": lib_attrs(G.kernels, "grid_terms", S, W)}
+        if first:
+            rec["ptxas"] = ptxas_report(G.kernels, "grid_terms")
+            first = False
+        summary("grid_terms", rec)
+        del got, want
+
+
+def time_score_candidates(cs, summary, random_cluster, dev, here):
+    """K6 on every case of :func:`score_cases` that has K6 inputs."""
+    from cruise_control_tpu_torch.analyzer import score_kernel as K6
+
+    outputs = helper(cs, here, "score_outputs")
+    table = _takes_bcost(K6.score_candidates)
+    first = True
+    for case, (_, k6) in score_cases(cs, here, random_cluster,
+                                     dev).items():
+        if k6 is None:
+            continue
+        a6, kw6 = k6
+        if not table:
+            kw6 = {k: v for k, v in kw6.items() if k != "bcost"}
+        m = a6[0]
+        got = outputs(False, *a6, **kw6)
+        torch.cuda.synchronize()
+        want = outputs(True, *a6, **kw6)
+        kw = dict(kw6, checked=True)
+        run = lambda: K6.score_candidates(*a6, **kw)  # noqa: E731
+        S, W = m.assignment.shape[1], m.pload.shape[1]
+        rows = kw6.get("rows")
+        rec = {"case": case, "N": a6[4].shape[0] if rows is None
+               else int(kw6["n_rows"][0]),
+               "S": S, "W": W, "B": m.capacity.shape[0], "bcost": table,
+               "bit_equal": _bit_equal(cs, here, f"{case} score_candidates",
+                                       got, want),
+               "ms": cs.cuda_ms(run),
+               "device_ms_runs": device_ms_runs(run, "score_candidates_"),
+               "attrs": lib_attrs(K6.kernels, "score_candidates", S, W)}
+        if first:
+            rec["ptxas"] = ptxas_report(K6.kernels, "score_candidates")
+            first = False
+        summary("score_candidates", rec)
+        del got, want
 
 
 def time_round_keys(cs, summary, random_cluster, dev):
@@ -669,6 +847,10 @@ def main(argv=None) -> int:
         time_commit_batch(cs, summary, random_cluster, dev, here)
     if "match_batch" in only:
         time_match_batch(cs, summary, random_cluster, dev, here)
+    if "grid_terms" in only:
+        time_grid_terms(cs, summary, random_cluster, dev, here)
+    if "score_candidates" in only:
+        time_score_candidates(cs, summary, random_cluster, dev, here)
     return 0
 
 

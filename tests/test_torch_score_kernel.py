@@ -69,15 +69,18 @@ def test_score_candidates_matches_reference_on_mixed_kinds(seed, cload,
 
 
 def test_kernel_build_hash_covers_shared_headers(tmp_path, monkeypatch):
-    """An edited ``csrc/*.cuh`` header gives every kernel a new library
-    path, so no stale build of K2 or K6 is loaded."""
+    """An edited ``csrc/*.cuh`` header — each one K2 and K6 include —
+    gives every kernel a new library path, so no stale build of K2 or K6
+    is loaded."""
     csrc = tmp_path / "csrc"
     shutil.copytree(kernels.CSRC, csrc)
     monkeypatch.setattr(kernels, "CSRC", csrc)
-    before = {n: kernels.library_path(n)
-              for n in ("grid_terms", "score_candidates")}
-    header = csrc / "broker_cost.cuh"
-    header.write_text(header.read_text() + "\n// edited\n")
-    after = {n: kernels.library_path(n) for n in before}
-    assert all(before[n] != after[n] for n in before)
-    assert kernels.library_path("grid_terms") == after["grid_terms"]
+    for name in ("broker_cost.cuh", "row_gather.cuh", "grid_cell.cuh",
+                 "step_common.cuh", "score_common.cuh"):
+        before = {n: kernels.library_path(n)
+                  for n in ("grid_terms", "score_candidates")}
+        header = csrc / name
+        header.write_text(header.read_text() + "\n// edited\n")
+        after = {n: kernels.library_path(n) for n in before}
+        assert all(before[n] != after[n] for n in before), name
+        assert kernels.library_path("grid_terms") == after["grid_terms"]
