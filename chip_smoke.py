@@ -11,13 +11,18 @@ Phases, each printing one JSON line; any failure exits non-zero:
 2. build: every hand-written kernel compiled from ``csrc/`` (set-up time),
    one ``nvcc`` per source, all started together;
 3. kernels: first the kernels one repool launches, by name (exactly
-   K10's two and K11's three); then each kernel against its plain PyTorch
+   K10's one and K11's three); then each kernel against its plain PyTorch
    version on the card, on the inputs the search's first step hands it —
    at the main path's mid-scale shapes, with percentile capacity loads
    on, and on a ragged case — with its wrapper time, its device time, the
    plain version's time and the card's bound for the same work (K1, K2,
    K6 and K11 bit for bit, with their registers, spills and resident
-   blocks an SM); the repool's tables (K10) also in their incremental form; K1 in
+   blocks an SM); the repool's tables (K10) also in their incremental form
+   and bit for bit on its hard cases (incremental over every row, at its
+   touched budget and one above it, every partition excluded, must-move
+   slots with a dead broker, gated launches that must change nothing but
+   the carry's repool flag, 10 000 brokers, replication factors 1 and 8,
+   the north star's 10 000 brokers / 1 000 000 partitions); K1 in
    its three forms and K17 at replication factors 1, 2, 4 and 8 (their
    slot instances); then K2 (the grid's terms and the brokers' cost
    table) and K6 (the candidate scorer) bit for bit on chosen slots
@@ -68,7 +73,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
    the corrected cohort (K15 ``corrected_accept``) against their plain
    versions, bit for bit, on 1 000 / 20 000 first-round and first-step
    inputs (mean and percentile loads, stacking guard off and on), on the
-   ragged case and K14 + K11 at the north star's 10 000 brokers /
+   ragged case, K15 also on one destination, one source, 777 and 1 rows,
+   10 000 brokers and 65 536 rows over 66 000 brokers (its device
+   scratch, chunked scan and 64-bit keys), and K14 + K11 at the north
+   star's 10 000 brokers /
    1 000 000 partitions; whole rounds against ``round_plain``; one
    score-only round at 1 000 / 20 000 timed in each form (the columnar
    one launching no K13 (a)), and its full plan; then the
@@ -748,6 +756,8 @@ def check_pool_tables(label, args, kw, has_cap, timed):
             B * 60 + n_ref * S * (2 * NR + S + 6) + P * S * 12,
             plain_kw={}, timed=timed and "[" not in name,
             tag="pool_tables_")
+    if timed:
+        recs["pool_tables"]["attrs"] = PK.pool_tables_attrs(S)
     # the diet's exactness on the card: incremental == full rebuild
     got = _pool_outputs(PK.pool_tables, inc_args[3].clone(),
                         inc_args[2].tpp.clone())(*copy.deepcopy(inc_args))
@@ -760,6 +770,136 @@ def check_pool_tables(label, args, kw, has_cap, timed):
     if int(got[6][SS.FULL]) != 0 or int(got[6][SS.N_INCR]) != 1:
         raise AssertionError(f"{label}: incremental K10 rebuilt every row")
     return recs
+
+
+def repool_args(state, dev, rows_budget: int = -1):
+    """K10's arguments for the first repool of ``state``'s uploaded model
+    (fresh pool buffers, the carry of a first step: active, a repool
+    asked for, the stored tables not valid) → (m, ca, pb, state,
+    rows_budget)."""
+    from cruise_control_tpu_torch.analyzer import cuda_optimizer as C
+    from cruise_control_tpu_torch.analyzer.context import AnalyzerContext
+
+    opt = C.CudaGoalOptimizer(device=dev)
+    ctx = AnalyzerContext(state)
+    m = opt._device_model(ctx)
+    ca = opt._constraint_arrays(ctx)
+    P, S = m.assignment.shape
+    K, D = opt._pool_sizes(P, S, ctx.num_brokers)
+    pb = C.PoolBuffers.empty(P, S, ctx.num_brokers, K, D,
+                             C._leadership_pool_size(P, S, K), dev)
+    st = C.StepState.empty(1, 1, 0, dev)
+    return m, ca, pb, st.initial(False).to(dev), rows_budget
+
+
+@functools.lru_cache(maxsize=None)
+def north_star_state(seed=13):
+    """The north star's seeded cluster: 10 000 brokers in 100 racks,
+    1 000 000 partitions of 3 replicas."""
+    from cruise_control_tpu_torch.models.generators import random_cluster
+
+    return random_cluster(seed=seed, num_brokers=10_000, num_racks=100,
+                          num_partitions=1_000_000)
+
+
+def pool_cases(args, dev, seed=7):
+    """K10's hard cases beside the first step's repool (``args``, a
+    full rebuild): incremental over every row, at a touched count equal
+    to its budget (the diet on) and one above it (off), every partition
+    excluded, must-move slots with a dead broker, gated launches (an
+    inactive step, a step that needs no repool: nothing but the carry's
+    repool flag may change), 10 000 brokers, replication factors 1 and 8
+    and the north star's 10 000 brokers / 1 000 000 partitions →
+    {case: args}."""
+    from cruise_control_tpu_torch.analyzer import pool_kernels as PK
+    from cruise_control_tpu_torch.analyzer import step_state as SS
+    from cruise_control_tpu_torch.models.generators import random_cluster
+
+    m, ca, pb, state, _ = args
+    P, S = m.assignment.shape
+    B = m.capacity.shape[0]
+    stored = copy.deepcopy(pb)
+    PK.pool_tables_plain(m, ca, stored, state.clone(), -1)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    some = torch.rand(P, generator=g, device=dev) < 0.01
+    n = int(some.sum())
+
+    def incr(tpp, budget, **carry):
+        pb2 = copy.deepcopy(stored)
+        pb2.tpp.copy_(tpp)
+        st = state.clone()
+        st[SS.PT_VALID] = 1
+        for k, v in carry.items():
+            st[getattr(SS, k)] = v
+        return (m, ca, pb2, st, budget)
+
+    cases = {
+        "incr_all_rows": incr(torch.ones_like(some), P),
+        "incr_at_budget": incr(some, n),
+        "incr_over_budget": incr(some, n - 1),
+        "gated_inactive": incr(some, n, ACTIVE=0),
+        "gated_no_repool": incr(some, n, NEED_POOL=0),
+        "all_excluded": (dataclasses.replace(
+            m, excluded=torch.ones_like(m.excluded)), ca,
+            copy.deepcopy(pb), state.clone(), -1),
+    }
+    dead = int(m.assignment[m.assignment >= 0][0])
+    alive = m.alive.clone()
+    alive[dead] = False
+    dest_ok = m.dest_ok.clone()
+    dest_ok[dead] = False
+    must = (m.assignment == dead) | (torch.rand(
+        (P, S), generator=g, device=dev) < 0.02)
+    cases["must_move_dead"] = (dataclasses.replace(
+        m, alive=alive, dest_ok=dest_ok, must_move=must & (m.assignment >= 0)),
+        ca, copy.deepcopy(pb), state.clone(), -1)
+    tile = 10
+    big = tile_brokers(m, tile)
+    spread = torch.randint(0, B * tile, (P, S), generator=g, device=dev,
+                           dtype=torch.int32)
+    big = dataclasses.replace(big, assignment=torch.where(
+        m.assignment >= 0, spread, m.assignment))
+    cases["b10k"] = (big, ca, PK.PoolBuffers.empty(
+        P, S, B * tile, pb.kp.shape[0], pb.dest_pool.shape[0],
+        pb.lp.shape[0], dev), state.clone(), -1)
+    for rf in (1, 8):
+        cases[f"rf{rf}"] = repool_args(random_cluster(
+            seed=5, num_brokers=200, num_racks=20, num_partitions=4000,
+            replication_factor=rf), dev)
+    cases["north_star"] = repool_args(north_star_state(), dev)
+    return cases
+
+
+def check_pool_case(label, args):
+    """K10 against ``pool_tables_plain`` on one of :func:`pool_cases`, bit
+    for bit on every output and the carry; a gated case must also leave
+    every output as it was → {name: record}."""
+    from cruise_control_tpu_torch.analyzer import pool_kernels as PK
+    from cruise_control_tpu_torch.analyzer import step_state as SS
+
+    m, _, pb, state, budget = args
+    run = lambda fn: _pool_outputs(fn, state.clone(), pb.tpp.clone())(  # noqa
+        *copy.deepcopy(args))
+    got = run(PK.pool_tables)
+    torch.cuda.synchronize()
+    want = run(PK.pool_tables_plain)
+    name = f"pool_tables[{label}]"
+    bitwise(name, got, want)
+    repool = int(got[6][SS.REPOOL])
+    if label.startswith("gated"):
+        before = [pb.size, pb.base, pb.tpp, pb.prio, pb.lprio, pb.dneg]
+        bitwise(f"{name} unchanged", got[:6], before)
+        carry = state.clone()
+        carry[SS.REPOOL] = 0
+        bitwise(f"{name} carry", got[6], carry)
+    P, S = m.assignment.shape
+    rec = {"phase": "kernel_case", "case": label, "name": name,
+           "max_abs_err": 0.0, "bit_equal": True, "P": P, "S": S,
+           "B": m.capacity.shape[0], "rows_budget": budget,
+           "touched": int(pb.tpp.sum()), "repool": repool,
+           "full": int(got[6][SS.FULL])}
+    emit(rec)
+    return {name: rec}
 
 
 def check_top_select(label, name, args, kw, timed, has_cap=False):
@@ -1645,31 +1785,22 @@ def synthetic_priority(dev, n=3_000_000, S=3, k=8192, seed=17):
 
 def repool_census(state, dev):
     """The device kernels one repool launches (a forced repool on the
-    uploaded mid-scale model, under torch.profiler): K10's two and K11's
+    uploaded mid-scale model, under torch.profiler): K10's one and K11's
     three, and no other → the emitted record."""
     from cruise_control_tpu_torch.analyzer import cuda_optimizer as C
-    from cruise_control_tpu_torch.analyzer.context import AnalyzerContext
 
-    opt = C.CudaGoalOptimizer(device=dev)
-    ctx = AnalyzerContext(state)
-    m = opt._device_model(ctx)
-    ca = opt._constraint_arrays(ctx)
-    P, S = m.assignment.shape
-    K, D = opt._pool_sizes(P, S, ctx.num_brokers)
-    pb = C.PoolBuffers.empty(P, S, ctx.num_brokers, K, D,
-                             C._leadership_pool_size(P, S, K), dev)
-    st = C.StepState.empty(1, 1, 0, dev)
-    st.state.copy_(st.initial(False))
+    m, ca, pb, carry, _ = repool_args(state, dev)
+    first = carry.clone()
     torch.cuda.synchronize()
     # K10 launches on every call, so a window with no CUDA event at all is
     # the profiler's miss, not the repool's: take the window again (once
     # seen on the card after phase 3's other checks, never when repeated)
     for attempt in range(1, 4):
-        st.state.copy_(st.initial(False))
+        carry.copy_(first)
         torch.cuda.synchronize()
         with torch.profiler.profile(
                 activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            C._repool(m, ca, pb, st.state, -1)
+            C._repool(m, ca, pb, carry, -1)
             torch.cuda.synchronize()
         names = [e.name for e in prof.events()
                  if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -1680,8 +1811,8 @@ def repool_census(state, dev):
            "hand_kernels": len(ours), "names": sorted(set(names)),
            "profiler_windows": attempt}
     emit(rec)
-    if len(names) != 5 or len(ours) != 5:
-        raise AssertionError(f"a repool launched {names}, not K10's two "
+    if len(names) != 4 or len(ours) != 4:
+        raise AssertionError(f"a repool launched {names}, not K10's one "
                              "and K11's three kernels")
     return rec
 
@@ -2271,6 +2402,73 @@ def check_corrected(label, state, cfg_kw, dev, timed):
         2 * Cn * log_c * (log_c + 1) // 2 + 2 * 4 * Cn * NB + Cn * 400,
         plain_kw={"snap_score": kw["snap_score"]}, timed=timed,
         exact=True)
+    if timed:
+        rec["attrs"] = K15.corrected_accept_attrs(
+            Cn, NB, m.capacity.shape[0])
+    return {name: rec}
+
+
+def corrected_cases(state, cfg_kw, dev, seed=23):
+    """K15's first-step rows of a corrected-cohort search on ``state``
+    made hard as :func:`cohort_cases` makes K4's: every row on one
+    destination, every row on one source, the first 777 rows and the
+    first row, and the same rows over 10 000 brokers (the broker tables
+    tiled ten times, the ids spread at random); and the rows repeated 64
+    times over the brokers tiled 66 times, so the keys and prefixes leave
+    shared memory for the device scratch, the scan runs in chunks and
+    the ids (over 2^16) no longer fit a 32-bit key beside the rows' 16
+    bits → {case: (args, kw)}."""
+    calls, _ = first_step_calls(
+        state, {"cohort_mode": "corrected", **cfg_kw}, dev)
+    args, kw = calls["corrected_accept"]
+    m, cfg, ca, cp, cs_, src, d0, vec, qual, tol = args
+    mode = lambda x: torch.mode(x.cpu()).values.item()  # noqa: E731
+
+    def cut(n):
+        return ((m, cfg, ca, cp[:n], cs_[:n], src[:n], d0[:n], vec[:n],
+                 qual[:n], tol), dict(kw, snap_score=kw["snap_score"][:n]))
+    cases = {
+        "one_dst": ((m, cfg, ca, cp, cs_, src,
+                     torch.full_like(d0, mode(d0)), vec, qual, tol), kw),
+        "one_src": ((m, cfg, ca, cp, cs_, torch.full_like(src, mode(src)),
+                     d0, vec, qual, tol), kw),
+        "c777": cut(777), "c1": cut(1)}
+    tile = 10
+    B = m.capacity.shape[0] * tile
+    g = torch.Generator().manual_seed(seed)
+    cases["b10k"] = ((tile_brokers(m, tile), cfg, ca, cp, cs_,
+                      torch.randint(0, B, src.shape, generator=g).to(src),
+                      torch.randint(0, B, d0.shape, generator=g).to(d0),
+                      vec, qual, tol), kw)
+    reps, tile = 64, 66
+    B = m.capacity.shape[0] * tile
+    r = lambda x: x.repeat(reps, *([1] * (x.dim() - 1)))  # noqa: E731
+    n = d0.shape[0] * reps
+    cases["c64k_wide"] = (
+        (tile_brokers(m, tile), cfg, ca, r(cp), r(cs_),
+         torch.randint(0, B, (n,), generator=g).to(src),
+         torch.randint(0, B, (n,), generator=g).to(d0), r(vec), r(qual),
+         tol), dict(kw, snap_score=r(kw["snap_score"])))
+    return cases
+
+
+def check_corrected_case(label, args, kw):
+    """K15 against ``_corrected_accept`` on one of :func:`corrected_cases`,
+    bit for bit → {name: record}."""
+    from cruise_control_tpu_torch.analyzer import corrected_kernel as K15
+
+    got = K15.corrected_accept(*args, **kw)
+    torch.cuda.synchronize()
+    want = K15._corrected_accept(*args, snap_score=kw["snap_score"])
+    name = f"corrected_accept[{label}]"
+    bitwise(name, got, want)
+    rec = {"phase": "kernel_case", "case": label, "name": name,
+           "max_abs_err": 0.0, "bit_equal": True, "C": args[7].shape[0],
+           "NB": args[7].shape[1], "B": args[0].capacity.shape[0],
+           "qualified": int(args[8].sum()), "accepted": int(want.sum()),
+           "distinct_dst": int(torch.unique(args[6]).numel()),
+           "distinct_src": int(torch.unique(args[5]).numel())}
+    emit(rec)
     return {name: rec}
 
 
@@ -2278,11 +2476,7 @@ def north_star_round(dev, seed=13):
     """K14's and K11's inputs at the north star's shapes: a seeded
     10 000-broker, 100-rack, 1 000 000-partition cluster's first round at
     the engine's widths, K·D + P·S = 8 192·1 024 + 3 000 000 candidates."""
-    from cruise_control_tpu_torch.models.generators import random_cluster
-
-    state = random_cluster(seed=seed, num_brokers=10_000, num_racks=100,
-                           num_partitions=1_000_000)
-    return round_inputs(state, {}, dev)
+    return round_inputs(north_star_state(seed), {}, dev)
 
 
 def search_path_plan(label, path, opt, state, bar):
@@ -2788,6 +2982,18 @@ def search_paths_phase(dev, mid, small, g_small, main_launches,
                               timed=lbl == "midscale" and not kw)
         recs.update({(n if lbl == "midscale" else f"{n}@{lbl}"): v
                      for n, v in out.items()})
+    # K15 on one destination, one source, 777 and 1 rows, 10 000 brokers
+    # and 64 × the rows over 66 × the brokers (device scratch, chunks,
+    # 64-bit keys), with percentile loads and the stacking guard on
+    for case, (a, kw) in corrected_cases(with_percentile(mid), {
+            "cohort_stack_tol": 0.25}, dev).items():
+        recs.update(check_corrected_case(case, a, kw))
+    wide = recs["corrected_accept[c64k_wide]"]
+    if recs["corrected_accept[one_dst]"]["distinct_dst"] != 1 \
+            or recs["corrected_accept[b10k]"]["B"] < 10_000 \
+            or recs["corrected_accept[c1]"]["C"] != 1 \
+            or wide["C"] <= 1 << 15 or wide["B"] < 1 << 16:
+        raise AssertionError("K15's skewed cohorts are not skewed")
     inc_recs, inc_launches, inc_acting = incremental_leg(dev, mid, ragged,
                                                          main_plan)
     recs.update(inc_recs)
@@ -2930,6 +3136,20 @@ def main() -> int:
     if extra["budget_accept[one_dst]"]["distinct_dst"] != 1 \
             or extra["budget_accept[b10k]"]["B"] < 10_000:
         raise AssertionError("K4's skewed cohorts are not skewed")
+    # K10 incremental over every row, at its budget and one above it, on
+    # every partition excluded, must-move slots with a dead broker, gated,
+    # at 10 000 brokers, replication factors 1 and 8 and the north star
+    for case, a in pool_cases(calls["pool_tables"][0], dev).items():
+        extra.update(check_pool_case(case, a))
+    k10 = {c: extra[f"pool_tables[{c}]"] for c in (
+        "incr_all_rows", "incr_at_budget", "incr_over_budget",
+        "gated_inactive", "north_star", "rf8")}
+    if (k10["incr_all_rows"]["full"], k10["incr_at_budget"]["full"],
+            k10["incr_over_budget"]["full"], k10["gated_inactive"]["repool"],
+            k10["north_star"]["P"], k10["rf8"]["S"]) != (0, 0, 1, 0,
+                                                          1_000_000, 8):
+        raise AssertionError(f"K10's hard cases are not what they say: "
+                             f"{k10}")
     for case, sargs in compaction_cases(dev).items():
         extra.update(check_compact_rows(case, sargs, {}, False, False,
                                         name=f"compact_rows[{case}]"))

@@ -25,10 +25,7 @@ import functools
 import torch
 
 from cruise_control_tpu_torch.analyzer.score_kernel import _broker_cost
-from cruise_control_tpu_torch.analyzer.step_kernels import (
-    _SORT_SMEM,
-    _seg_excl_prefix,
-)
+from cruise_control_tpu_torch.analyzer.step_kernels import _seg_excl_prefix
 from cruise_control_tpu_torch.common.resources import (
     EMPTY_SLOT,
     NUM_RESOURCES,
@@ -130,13 +127,22 @@ def _corrected_accept(m, cfg, ca, cand_p, cand_s, cand_src, d0, move_vec,
     return acc
 
 
+#: K15's device phases in the order its phase stamps close them
+#: (``csrc/corrected_accept.cu``, built with ``-DCC_PHASE_STAMPS`` by
+#: ``tools/time_kernels.py``): the keys, the rows' column maxima and both
+#: sorts; both prefixes in one register scan; the acceptance
+CORRECTED_ACCEPT_PHASES = ("sorts", "prefixes", "accept")
+
+
 def _library():
     lib = kernels.bind("corrected_accept", "corrected_accept_launch",
                        [_P] * 10 + [_I] + [_P] * 9 + [_L] + [_I] * 3
-                       + [_F, _I, _F] + [_P] * 11)
+                       + [_F, _I, _F] + [_P] * 3)
     if not getattr(lib, "_cc_checked", False):
         lib.corrected_accept_layout.argtypes = [ctypes.POINTER(ctypes.c_int)]
         lib.corrected_accept_layout.restype = None
+        lib.corrected_accept_scratch_bytes.argtypes = [_I, _I, _I]
+        lib.corrected_accept_scratch_bytes.restype = ctypes.c_longlong
         layout = (ctypes.c_int * 3)()
         lib.corrected_accept_layout(layout)
         if tuple(layout) != (_NC, _NT, _MAX_NB):
@@ -206,18 +212,14 @@ def corrected_accept(m, cfg, ca, cand_p, cand_s, cand_src, d0, move_vec,
             raise ValueError("corrected_accept: snap_score must be a 1-D "
                              f"f32 tensor of {Cn} entries on {dev} with a "
                              "positive stride")
-    i64 = torch.int64
-    n2 = 1 << max(Cn - 1, 0).bit_length()
+    lib = _library()
     acc = torch.empty(Cn, dtype=torch.bool, device=dev)
-    srcc = torch.empty(Cn, dtype=i64, device=dev)
-    q = torch.empty((2, Cn, NB), dtype=i64, device=dev)       # q, excl
-    chunk = torch.empty((-(-Cn // 32), NB + 1), dtype=i64, device=dev)
-    order = torch.empty((2, Cn), dtype=torch.int32, device=dev)
-    key = None if n2 * 8 <= _SORT_SMEM else torch.empty(n2, dtype=i64,
-                                                        device=dev)
-    carried = torch.empty(Cn, dtype=torch.uint8, device=dev)
-    xy = torch.empty((2, Cn, NB), dtype=torch.float32, device=dev)
-    err = _library().corrected_accept_launch(
+    # the sort keys and the two prefixes: in shared memory where they fit
+    # (0 bytes), else in a device scratch
+    nbytes = lib.corrected_accept_scratch_bytes(Cn, NB, B)
+    scratch = None if nbytes == 0 else torch.empty(
+        -(-nbytes // 8), dtype=torch.int64, device=dev)
+    err = lib.corrected_accept_launch(
         m.capacity.data_ptr(), m.broker_load.data_ptr(),
         m.broker_cload.data_ptr() if has_cap else None,
         m.leader_nwin.data_ptr(), m.pot_nwout.data_ptr(),
@@ -227,12 +229,10 @@ def corrected_accept(m, cfg, ca, cand_p, cand_s, cand_src, d0, move_vec,
         cand_s.data_ptr(), cand_src.data_ptr(), d0.data_ptr(),
         move_vec.data_ptr(), qual.data_ptr(),
         snap_score.data_ptr() if guard else None,
-        snap_score.stride(0) if guard else 0, Cn, NB, n2, float(tol),
+        snap_score.stride(0) if guard else 0, Cn, NB, B, float(tol),
         int(guard), float(1.0 - cfg.cohort_stack_tol), acc.data_ptr(),
-        srcc.data_ptr(), q[0].data_ptr(), q[1].data_ptr(),
-        chunk.data_ptr(), order.data_ptr(),
-        None if key is None else key.data_ptr(), carried.data_ptr(),
-        xy[0].data_ptr(), xy[1].data_ptr(), kernels.stream(dev),
+        None if scratch is None else scratch.data_ptr(),
+        kernels.stream(dev),
     )
     kernels.launched("corrected_accept", err)
     corrected_accept.launches += 1
@@ -240,3 +240,12 @@ def corrected_accept(m, cfg, ca, cand_p, cand_s, cand_src, d0, move_vec,
 
 
 corrected_accept.launches = 0
+
+
+def corrected_accept_attrs(C: int, NB: int, B: int) -> dict:
+    """The built K15 at C rows of NB dims over B brokers, as the card
+    reports it (:func:`ops.kernels.attrs`).  Needs the card."""
+    lib = kernels.bind("corrected_accept", "corrected_accept_attrs",
+                       [_I, _I, _I, ctypes.POINTER(ctypes.c_int)])
+    return kernels.attrs("corrected_accept", lib.corrected_accept_attrs, C,
+                         NB, B)

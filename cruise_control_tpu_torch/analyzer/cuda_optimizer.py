@@ -285,7 +285,8 @@ def _repool(m: DeviceModel, ca, pb: PoolBuffers, state, rows_budget: int,
     tables and priorities (K10), then top-K move slots, top-D destinations
     and top-L leadership slots (K11) — the reference's ``rebuild_pools``
     under ``lax.cond`` (:1016) with ``_select_round_pools`` (:688) and
-    ``_leadership_pool`` (:2173): five launches on the card."""
+    ``_leadership_pool`` (:2173): four launches on the card, K10's one
+    and K11's three."""
     S = m.assignment.shape[1]
     ws = pb.select_ws
     pool_tables(m, ca, pb, state, rows_budget, checked=checked)

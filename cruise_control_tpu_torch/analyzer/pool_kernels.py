@@ -56,8 +56,18 @@ _TOP_RANK = 64
 #: its static shared memory, bytes (bins, scan scratch, a few scalars)
 _TOP_CONTROL = 2048 + 2048 + 1024 + 8
 _TOP_STATIC_SMEM = 4 * (2048 + 33 + 3) + 1024
-#: widest replica-slot axis K10 keeps in registers (as K1)
+#: widest replica-slot axis K10 takes (as K1)
 _MAX_S = 8
+#: int64 words of K10's workspace header (``csrc/pool_tables.cu:
+#: WS_HEADER_WORDS``: the column maxima and sums and the touched count,
+#: zero between launches); two float4 tables of B brokers follow
+POOL_WS_HEADER_WORDS = 32
+#: K10's device phases in the order block 0's phase stamps close them
+#: (``csrc/pool_tables.cu``, built with ``-DCC_PHASE_STAMPS`` by
+#: ``tools/time_kernels.py``): the touched count, the columns' maxima
+#: and the broker terms that need no sum; the column sums; block 0's
+#: share of the rows
+POOL_TABLES_PHASES = ("touched_max_terms", "sums", "rows")
 
 
 # ---------------------------------------------------------------------------------
@@ -123,8 +133,9 @@ class PoolBuffers:
     """What a repool reads and writes, fixed for a search: the stored row
     tables and the touched set, the priorities, and the selected pools —
     top-K move slots (partition ``kp``, slot ``ks``, flat ``slot``), top-D
-    destinations and top-L leadership slots (``lp``, ``lsl``) — and K11's
-    workspace, zero between launches (:func:`top_select`)."""
+    destinations and top-L leadership slots (``lp``, ``lsl``) — and the
+    workspaces of K10 (:func:`pool_tables`) and K11 (:func:`top_select`),
+    whose counters are zero between launches."""
 
     size: torch.Tensor        # f32 [P, S]
     base: torch.Tensor        # f32 [P, S]
@@ -139,6 +150,7 @@ class PoolBuffers:
     lp: torch.Tensor          # int32 [L]
     lsl: torch.Tensor         # int32 [L]
     select_ws: torch.Tensor   # int32, K11's counters, bins and keys
+    pool_ws: torch.Tensor     # int64, K10's column sums and broker tables
 
     @classmethod
     def empty(cls, P: int, S: int, B: int, K: int, D: int, L: int, device):
@@ -150,7 +162,15 @@ class PoolBuffers:
                    f((P, S)), f((P, S)), f(B), i(K), i(K),
                    torch.zeros(K, dtype=torch.int64, device=device), i(D),
                    i(L), i(L),
-                   i(top_select_words(max(K, D, L), max(P * S, B))))
+                   i(top_select_words(max(K, D, L), max(P * S, B))),
+                   torch.zeros(pool_ws_words(B), dtype=torch.int64,
+                               device=device))
+
+
+def pool_ws_words(B: int) -> int:
+    """int64 words of K10's workspace at B brokers: the header, then the
+    brokers' utilization rows and terms, a float4 each."""
+    return POOL_WS_HEADER_WORDS + 4 * B
 
 
 def pool_tables_plain(m, ca, pb: PoolBuffers, state, rows_budget: int):
@@ -211,8 +231,10 @@ def pool_tables(m, ca, pb: PoolBuffers, state, rows_budget: int,
                 checked: bool = False):
     """The repool's priority side of the plain twin
     :func:`pool_tables_plain` (same arguments; ``pb`` and the carry
-    ``state`` are updated in place).  On the card two launches from one
-    call, no host read.  ``checked=True`` skips the input checks."""
+    ``state`` are updated in place).  On the card one cooperative launch
+    (a gated step's blocks return at once), no host read; it uses
+    ``pb.pool_ws`` and leaves its counters zero.  ``checked=True`` skips
+    the input checks."""
     if kernels.on_cpu(state):
         return pool_tables_plain(m, ca, pb, state, rows_budget)
     dev = state.device
@@ -248,6 +270,7 @@ def pool_tables(m, ca, pb: PoolBuffers, state, rows_budget: int,
             ("prio", pb.prio, f32, (P, S)),
             ("lprio", pb.lprio, f32, (P, S)),
             ("dneg", pb.dneg, f32, (B,)),
+            ("pool_ws", pb.pool_ws, torch.int64, (pool_ws_words(B),)),
             *((("broker_cload", m.broker_cload, f32, (B, NR)),)
               if has_cap else ()),
         ):
@@ -255,9 +278,9 @@ def pool_tables(m, ca, pb: PoolBuffers, state, rows_budget: int,
         if not 1 <= S <= _MAX_S or W < 2 * NR + 1:
             raise ValueError(f"pool_tables: S={S}, table width {W} out of "
                              "range")
-    terms = torch.empty(5 * B + NR, dtype=torch.float32, device=dev)
     lib = kernels.bind("pool_tables", "pool_tables_launch",
-                       [_P] * 12 + [_I] + [_P] * 6 + [_I] * 4 + [_P] * 9)
+                       [_P] * 12 + [_I] + [_P] * 6 + [_I] * 4 + [_P] * 8
+                       + [_I, _P])
     err = lib.pool_tables_launch(
         m.capacity.data_ptr(), m.broker_load.data_ptr(),
         m.broker_cload.data_ptr() if has_cap else None, m.alive.data_ptr(),
@@ -267,16 +290,24 @@ def pool_tables(m, ca, pb: PoolBuffers, state, rows_budget: int,
         ca["lcount_lower"].data_ptr(), B, m.assignment.data_ptr(),
         m.leader_slot.data_ptr(), m.must_move.data_ptr(),
         m.excluded.data_ptr(), m.rack.data_ptr(), m.pload.data_ptr(), P, S,
-        W, rows_budget, state.data_ptr(), terms.data_ptr(),
+        W, rows_budget, state.data_ptr(), pb.pool_ws.data_ptr(),
         pb.size.data_ptr(), pb.base.data_ptr(), pb.tpp.data_ptr(),
         pb.prio.data_ptr(), pb.lprio.data_ptr(), pb.dneg.data_ptr(),
-        kernels.stream(dev),
+        kernels.sm_count(dev), kernels.stream(dev),
     )
     kernels.launched("pool_tables", err)
     pool_tables.launches += 1
 
 
 pool_tables.launches = 0
+
+
+def pool_tables_attrs(S: int) -> dict:
+    """The built K10 for S replica slots, as the card reports it
+    (:func:`ops.kernels.attrs`).  Needs the card."""
+    lib = kernels.bind("pool_tables", "pool_tables_attrs",
+                       [_I, ctypes.POINTER(ctypes.c_int)])
+    return kernels.attrs("pool_tables", lib.pool_tables_attrs, S)
 
 
 # ---------------------------------------------------------------------------------

@@ -44,10 +44,6 @@ PER_SRC_TOP_MAX_B = 50_000
 #: alternates K5 takes (``csrc/match_batch.cu``: a candidate's pointer
 #: shares a word with its round flags)
 MATCH_BATCH_MAX_A = 1 << 26
-#: K15 (``analyzer/corrected_kernel.py``) sorts its n2 keys in shared
-#: memory up to this many bytes (the block's static shared memory takes
-#: the rest)
-_SORT_SMEM = 200_000
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _INF = float("inf")
 

@@ -1,9 +1,7 @@
 // A barrier-light ascending sort of 64-bit keys by one block: K4
-// (csrc/budget_accept.cu) sorts its rows by (id, row) with it, K7
-// (csrc/compact_rows.cu) its kept rows by (score key, row) and K8
-// (csrc/commit_batch.cu) its finite commit keys.  K15 still sorts with
-// step_common.cuh's bitonic_sort (55 barrier stages at 1 024 keys) and
-// seg_prefix.cuh's sort_rows.
+// (csrc/budget_accept.cu) and K15 (csrc/corrected_accept.cu) sort their
+// rows by (id, row) with it, K7 (csrc/compact_rows.cu) its kept rows by
+// (score key, row) and K8 (csrc/commit_batch.cu) its finite commit keys.
 //
 // How it sorts.  Each warp sorts 32 keys in registers with a bitonic
 // network of shuffles (15 stages, no barrier); then log2(n / 32) merge

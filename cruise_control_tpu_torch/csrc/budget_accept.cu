@@ -76,14 +76,12 @@ namespace {
 
 using namespace cc_step;
 using namespace cc_seg;
-using cc_sort::u64;
 
 constexpr int NR = 4;            // resources (common/resources.py)
 constexpr int NW_OUT = 2;
 constexpr int NSUM = 3 * NR;     // budget column sums: load, cap, cap²
 constexpr int THREADS = 1024;
-constexpr int WARPS = THREADS / 32;
-constexpr int TAIL = MAX_NB + 1; // a warp's tail: NB sums and a head flag
+static_assert(THREADS / 32 <= MAX_WARPS, "seg_prefix.cuh's scan buffer");
 static_assert(MAX_NB == 2 * NR + 2, "seg_prefix.cuh's widest vector");
 static_assert(NR == 4, "a broker's row of NR floats is one float4");
 
@@ -131,155 +129,6 @@ __device__ __forceinline__ float budget_col(const BrokerRow& w, int c) {
   if (col == 0) return comp(w.load, r);
   const float ac = w.alive ? comp(w.cap, r) : 0.0f;
   return col == 1 ? ac : ac * ac;
-}
-
-// Each column's fixed-point scale (fixed_scale over n rows) from its
-// exact max |v| `mx` (float bits): lane c computes column c, the warp
-// shares them.
-template <int NB>
-__device__ __forceinline__ void scales(const unsigned* mx, long long n,
-                                       double (&sc)[NB]) {
-  const int lane = threadIdx.x & 31;
-  const double mine =
-      lane < NB ? fixed_scale(__uint_as_float(mx[lane]), n) : 1.0;
-#pragma unroll
-  for (int c = 0; c < NB; ++c) sc[c] = __shfl_sync(FULL, mine, c);
-}
-
-// round_half_even(v · sc) as int64 (ops/segment.py's torch.round(v64 * sc))
-__device__ __forceinline__ long long quant(float v, double sc) {
-  return fixed_q(v, fixed_scale_f(sc), sc);
-}
-
-// seg_prefix.cuh's from_fixed, (float)((double)acc / sc), for a scale sc =
-// 2^k from fixed_scale: times 2^-k instead, built from sc's bits.  Both
-// give the exact value (double)acc · 2^-k rounded once to f32, as every
-// scale here lies in 2^-99 .. 2^208 and the product stays a normal
-// double; the f64 multiply is full rate, the division a long sequence.
-__device__ __forceinline__ float from_fixed_pow2(long long acc, double sc) {
-  const double inv = __longlong_as_double((2046LL << 52) -
-                                          __double_as_longlong(sc));
-  return __double2float_rn((double)acc * inv);
-}
-
-// The column maxima of a phase's passing rows (float bits, per thread)
-// into the shared slots `out`: warp shuffles, one atomic a warp and column.
-template <int NB>
-__device__ __forceinline__ void publish_max(unsigned (&mx)[NB],
-                                            unsigned* out) {
-  warp_max(mx);
-  if ((threadIdx.x & 31) == 0) {
-#pragma unroll
-    for (int c = 0; c < NB; ++c) atomicMax(&out[c], mx[c]);
-  }
-}
-
-// One thread's sorted position in a segmented scan.
-template <int NB>
-struct Seg {
-  long long v[NB];   // its value; then the inclusive sum of its segment
-  bool open;         // no segment head at or before it in its warp
-};
-
-// Scratch of one segmented scan: the warps' tails (the sum of a warp's
-// last segment, and whether the warp holds a head), each warp's carry-in,
-// and the running sum into the next chunk.
-struct ScanBuf {
-  long long tails[WARPS][TAIL];
-  long long carries[WARPS][MAX_NB];
-  long long chunk[MAX_NB];
-};
-
-// The block's inclusive segmented scan of one chunk of sorted positions
-// (one a thread), step 1: each warp scans its 32 positions by shuffles,
-// restarting at segment heads, and lane 31 leaves the warp's tail.  A
-// warp whose positions all lie past C (`idle`, warp-uniform) skips the
-// shuffles and leaves an empty tail.  No barrier.
-template <int NB>
-__device__ __forceinline__ void seg_scan_warp(Seg<NB>& s, bool head,
-                                              bool idle, ScanBuf& sb) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (idle) {
-    s.open = false;
-    if (lane == 31) {
-#pragma unroll
-      for (int c = 0; c < NB; ++c) sb.tails[warp][c] = 0;
-      sb.tails[warp][MAX_NB] = 1;
-    }
-    return;
-  }
-  const unsigned heads = __ballot_sync(FULL, head);
-  const unsigned le = lane == 31 ? FULL : (2u << lane) - 1u;
-  const unsigned mine = heads & le;
-  const int hl = mine ? 31 - __clz((int)mine) : -1;
-  s.open = mine == 0;
-#pragma unroll
-  for (int c = 0; c < NB; ++c) {
-    long long sum = s.v[c];
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const long long u = __shfl_up_sync(FULL, sum, d);
-      if (lane >= d) sum += u;
-    }
-    const long long before = __shfl_sync(FULL, sum, hl > 0 ? hl - 1 : 0);
-    s.v[c] = hl > 0 ? sum - before : sum;
-    if (lane == 31) sb.tails[warp][c] = s.v[c];
-  }
-  if (lane == 31) sb.tails[warp][MAX_NB] = heads != 0u;
-}
-
-// Step 2, after a barrier, by one warp (a lane a warp of the block): each
-// warp's carry-in — the tails of the warps before it combined in order
-// (a segmented scan across the lanes) on top of the running sum into the
-// chunk (none in the first) — and the running sum into the next chunk.
-template <int NB>
-__device__ __forceinline__ void seg_scan_carries(ScanBuf& sb, bool first) {
-  const int lane = threadIdx.x & 31;
-  const bool here = lane < (int)(blockDim.x >> 5);
-  const unsigned flags =
-      __ballot_sync(FULL, here && sb.tails[lane][MAX_NB] != 0);
-  const unsigned le = lane == 31 ? FULL : (2u << lane) - 1u;
-  const unsigned mine = flags & le;
-  const int hf = mine ? 31 - __clz((int)mine) : -1;
-#pragma unroll
-  for (int c = 0; c < NB; ++c) {
-    const long long c0 = first ? 0 : sb.chunk[c];
-    long long sum = here ? sb.tails[lane][c] : 0;
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const long long u = __shfl_up_sync(FULL, sum, d);
-      if (lane >= d) sum += u;
-    }
-    const long long before = __shfl_sync(FULL, sum, hf > 0 ? hf - 1 : 0);
-    // the tails of warps 0 .. lane combined, on top of the chunk's carry
-    const long long comb = hf > 0 ? sum - before : (hf == 0 ? sum : c0 + sum);
-    const long long prev = __shfl_up_sync(FULL, comb, 1);
-    if (here) sb.carries[lane][c] = lane == 0 ? c0 : prev;
-    if (lane == 31) sb.chunk[c] = comb;
-  }
-}
-
-// Step 3, after a barrier: positions with no head before them in their
-// warp add the warp's carry-in.
-template <int NB>
-__device__ __forceinline__ void seg_scan_add(Seg<NB>& s, const ScanBuf& sb) {
-  if (s.open) {
-    const int warp = threadIdx.x >> 5;
-#pragma unroll
-    for (int c = 0; c < NB; ++c) s.v[c] += sb.carries[warp][c];
-  }
-}
-
-// The sorted position p's row, id and whether a segment starts or ends
-// there; sk holds the sorted keys (id << 32 | row), padding past C.
-__device__ __forceinline__ void position(const u64* sk, int p, int C,
-                                         int* row, unsigned* id,
-                                         bool* head, bool* last) {
-  const u64 k = p < C ? sk[p] : ~0ull;
-  *row = (int)(k & 0xffffffffu);
-  *id = (unsigned)(k >> 32);
-  *head = p < C && (p == 0 || (unsigned)(sk[p - 1] >> 32) != *id);
-  *last = p < C && (p == C - 1 || (unsigned)(sk[p + 1] >> 32) != *id);
 }
 
 // analyzer/step_kernels.py: _seg_prefix_fits in one sort order:
@@ -482,11 +331,7 @@ budget_accept_kernel(Brokers m, float slack, int B,
     vw.elig = buf + lay.flags;
     vw.dok = vw.elig + C;
     vw.a = vw.dok + C;
-    // block_sort leaves its result in the buffer its last merge level
-    // wrote: the keys after an even number of levels
-    int levels = 0;
-    for (int w = 32; w < n; w <<= 1) ++levels;
-    vw.skd = levels % 2 == 0 ? vw.key : vw.tmp;
+    vw.skd = sorted_in_tmp(n) ? vw.tmp : vw.key;
     vw.sks = vw.skd + n;
   }
 

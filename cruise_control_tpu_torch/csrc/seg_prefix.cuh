@@ -1,10 +1,9 @@
-// The order-free segmented exclusive prefix sum of K15
-// (csrc/corrected_accept.cu), which re-scores each row at its
-// destination's and source's prefix state, and the fixed-point helpers
-// (column maxima and sums by warp, from_fixed) it shares with K4
-// (csrc/budget_accept.cu), whose own scan runs in registers
-// over block_sort.cuh's order.  One copy of the helpers, so the two cannot
-// drift apart.
+// The exact segmented scan in registers that K4 (csrc/budget_accept.cu)
+// and K15 (csrc/corrected_accept.cu) run over block_sort.cuh's stable
+// order of their rows, and the fixed-point helpers around it (column
+// maxima and sums by warp, the scale, quantization and its inverse), which
+// K10 (csrc/pool_tables.cu) also uses for its column sums.  One copy, so
+// the kernels cannot drift apart.
 //
 // Exactness.  The plain twin (ops/segment.py: segment_excl_prefix_sorted)
 // sums floats in int64 fixed point: a column is scaled by 2^(60 - e),
@@ -14,12 +13,14 @@
 // The scan here reproduces it bit for bit.
 //
 // How it scans.  The rows are sorted once per id kind by the unique key
-// (id, row) — a bitonic sort in shared memory, the stable order the plain
-// twin's argsort gives — and then scanned in that order: each warp scans a
-// chunk of 32 sorted rows with shuffles, one thread carries each
-// segment's running sum across chunks, and rows whose segment began in an
-// earlier chunk add the carry.  O(C log² C) however the rows fall into
-// segments.
+// (id, row) — the stable order the plain twin's argsort gives — and a
+// thread takes a sorted position: each warp scans its 32 positions by
+// shuffles, restarting at segment heads (seg_scan_warp); after a barrier
+// one warp combines the warps' tails into each warp's carry-in, a
+// segmented scan across its lanes (seg_scan_carries); after another,
+// each position with no head before it in its warp adds its warp's
+// carry-in (seg_scan_add).  Three barriers a chunk of blockDim.x
+// positions, however the rows fall into segments.
 
 #ifndef CRUISE_CONTROL_SEG_PREFIX_CUH_
 #define CRUISE_CONTROL_SEG_PREFIX_CUH_
@@ -28,13 +29,17 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "block_sort.cuh"
 #include "step_common.cuh"
 
 namespace cc_seg {
 
 using namespace cc_step;
+using cc_sort::u64;
 
 constexpr int MAX_NB = 10;       // widest budget vector: 2 R + 2, R = 4
+constexpr int MAX_WARPS = 32;    // warps of a block of 1 024 threads
+constexpr int TAIL = MAX_NB + 1; // a warp's tail: NB sums and a head flag
 constexpr unsigned FULL = 0xffffffffu;
 
 template <int N>
@@ -55,134 +60,163 @@ __device__ __forceinline__ void warp_sum(long long (&v)[N]) {
   }
 }
 
-__device__ __forceinline__ float from_fixed(long long acc, double scale) {
-  return __double2float_rn((double)acc / scale);
+// Each column's fixed-point scale (fixed_scale over n rows) from its
+// exact max |v| `mx` (float bits): lane c computes column c, the warp
+// shares them.
+template <int NB>
+__device__ __forceinline__ void scales(const unsigned* mx, long long n,
+                                       double (&sc)[NB]) {
+  const int lane = threadIdx.x & 31;
+  const double mine =
+      lane < NB ? fixed_scale(__uint_as_float(mx[lane]), n) : 1.0;
+#pragma unroll
+  for (int c = 0; c < NB; ++c) sc[c] = __shfl_sync(FULL, mine, c);
 }
 
-// sscale[c] = the fixed-point scale of column c of `vec` over the rows
-// with `flag` set (the others count as zeros); every thread calls it
-__device__ void column_scales(const float* vec, const uint8_t* flag, int C,
-                              int NB, unsigned int* smax, double* sscale) {
-  const int tid = threadIdx.x, nt = blockDim.x;
-  if (tid < NB) smax[tid] = 0u;
-  unsigned mx[MAX_NB];
-#pragma unroll
-  for (int c = 0; c < MAX_NB; ++c) mx[c] = 0u;
-  for (int i = tid; i < C; i += nt) {
-    if (flag[i]) {
-#pragma unroll
-      for (int c = 0; c < MAX_NB; ++c) {
-        if (c < NB) {
-          mx[c] = max(mx[c], __float_as_uint(fabsf(vec[(size_t)i * NB + c])));
-        }
-      }
-    }
-  }
+// round_half_even(v · sc) as int64 (ops/segment.py's torch.round(v64 * sc))
+__device__ __forceinline__ long long quant(float v, double sc) {
+  return fixed_q(v, fixed_scale_f(sc), sc);
+}
+
+// ops/segment.py's scale-back, (float)((double)acc / sc), for a scale sc =
+// 2^k from fixed_scale: times 2^-k instead, built from sc's bits.  Both
+// give the exact value (double)acc · 2^-k rounded once to f32, as every
+// scale here lies in 2^-99 .. 2^208 and the product stays a normal
+// double; the f64 multiply is full rate, the division a long sequence.
+__device__ __forceinline__ float from_fixed_pow2(long long acc, double sc) {
+  const double inv = __longlong_as_double((2046LL << 52) -
+                                          __double_as_longlong(sc));
+  return __double2float_rn((double)acc * inv);
+}
+
+// The column maxima of a phase's rows (float bits, per thread) into the
+// shared slots `out`: warp shuffles, one atomic a warp and column.
+template <int NB>
+__device__ __forceinline__ void publish_max(unsigned (&mx)[NB],
+                                            unsigned* out) {
   warp_max(mx);
-  __syncthreads();
-  if ((tid & 31) == 0) {
-    for (int c = 0; c < NB; ++c) atomicMax(&smax[c], mx[c]);
+  if ((threadIdx.x & 31) == 0) {
+#pragma unroll
+    for (int c = 0; c < NB; ++c) atomicMax(&out[c], mx[c]);
   }
-  __syncthreads();
-  if (tid < NB) sscale[tid] = fixed_scale(__uint_as_float(smax[tid]), C);
-  __syncthreads();
 }
 
-// order[p] = the row at sorted position p of the stable sort of `ids`:
-// a bitonic sort of the unique keys (id << 32 | row), padded to n2 (a
-// power of two >= C) with the largest key; every thread calls it
-template <typename I>
-__device__ void sort_rows(const I* ids, int C, int n2,
-                         unsigned long long* key, int* order) {
-  const int tid = threadIdx.x, nt = blockDim.x;
-  for (int x = tid; x < n2; x += nt) {
-    key[x] = x < C ? ((unsigned long long)ids[x] << 32) | (unsigned)x : ~0ull;
-  }
-  __syncthreads();
-  bitonic_sort(key, n2);
-  for (int p = tid; p < C; p += nt) order[p] = (int)(key[p] & 0xffffffffu);
-  __syncthreads();
-}
+// One thread's sorted position in a segmented scan.
+template <int NB>
+struct Seg {
+  long long v[NB];   // its value; then the inclusive sum of its segment
+  bool open;         // no segment head at or before it in its warp
+};
 
-// ops/segment.py: segment_excl_prefix_sorted through
-// analyzer/step_kernels.py: _seg_excl_prefix — excl[i, c] = the exclusive
-// prefix sum of column c of `vec` over the earlier rows (in row order) of
-// row i's id with `in` set (the others count as zeros), in int64 fixed
-// point at the column's scale sscale[c] (from_fixed gives the float).
-// `order` is sort_rows' order of `ids`; scratch: q [C, NB], chunk
-// [ceil(C/32), NB + 1], carried [C].  Every thread calls it.
-template <typename I>
-__device__ void seg_excl_prefix(const I* ids, const int* order,
-                                const float* vec, const uint8_t* in,
-                                long long* q, long long* excl,
-                                long long* chunk, uint8_t* carried, int C,
-                                int NB, unsigned int* smax, double* sscale) {
-  const int tid = threadIdx.x, nt = blockDim.x, lane = tid & 31;
-  const int nch = (C + 31) / 32, W = NB + 1;
-  column_scales(vec, in, C, NB, smax, sscale);
-  for (int x = tid; x < C * NB; x += nt) {
-    q[x] = in[x / NB] ? __double2ll_rn((double)vec[x] * sscale[x % NB]) : 0;
+// Scratch of one segmented scan: the warps' tails (the sum of a warp's
+// last segment, and whether the warp holds a head), each warp's carry-in,
+// and the running sum into the next chunk.
+struct ScanBuf {
+  long long tails[MAX_WARPS][TAIL];
+  long long carries[MAX_WARPS][MAX_NB];
+  long long chunk[MAX_NB];
+};
+
+// The block's inclusive segmented scan of one chunk of sorted positions
+// (one a thread), step 1: each warp scans its 32 positions by shuffles,
+// restarting at segment heads, and lane 31 leaves the warp's tail.  A
+// warp whose positions all lie past the rows (`idle`, warp-uniform) skips
+// the shuffles and leaves an empty tail.  No barrier.
+template <int NB>
+__device__ __forceinline__ void seg_scan_warp(Seg<NB>& s, bool head,
+                                              bool idle, ScanBuf& sb) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (idle) {
+    s.open = false;
+    if (lane == 31) {
+#pragma unroll
+      for (int c = 0; c < NB; ++c) sb.tails[warp][c] = 0;
+      sb.tails[warp][MAX_NB] = 1;
+    }
+    return;
   }
-  __syncthreads();
-  // each warp scans chunks of 32 sorted positions: its prefix within the
-  // chunk, restarted at the segment's head when the head is in the chunk
+  const unsigned heads = __ballot_sync(FULL, head);
   const unsigned le = lane == 31 ? FULL : (2u << lane) - 1u;
-  for (int ch = tid >> 5; ch < nch; ch += nt >> 5) {
-    const int p = ch * 32 + lane;
-    const bool valid = p < C;
-    const int r = valid ? order[p] : 0;
-    const long long id = valid ? (long long)ids[r] : -1;
-    const bool head = valid && (p == 0 || (long long)ids[order[p - 1]] != id);
-    const unsigned heads = __ballot_sync(FULL, head);
-    const unsigned mine = heads & le;
-    const int hl = mine ? 31 - __clz((int)mine) : -1;
+  const unsigned mine = heads & le;
+  const int hl = mine ? 31 - __clz((int)mine) : -1;
+  s.open = mine == 0;
 #pragma unroll
-    for (int c = 0; c < MAX_NB; ++c) {
-      if (c < NB) {
-        const long long v = valid ? q[(size_t)r * NB + c] : 0;
-        long long sum = v;
+  for (int c = 0; c < NB; ++c) {
+    long long sum = s.v[c];
 #pragma unroll
-        for (int d = 1; d < 32; d <<= 1) {
-          const long long u = __shfl_up_sync(FULL, sum, d);
-          if (lane >= d) sum += u;
-        }
-        const long long before = __shfl_sync(FULL, sum, hl > 0 ? hl - 1 : 0);
-        const long long incl = hl > 0 ? sum - before : sum;
-        if (valid) excl[(size_t)r * NB + c] = incl - v;
-        if (lane == 31) chunk[(size_t)ch * W + c] = incl;
-      }
+    for (int d = 1; d < 32; d <<= 1) {
+      const long long u = __shfl_up_sync(FULL, sum, d);
+      if (lane >= d) sum += u;
     }
-    if (valid) carried[p] = mine == 0;
-    if (lane == 0) chunk[(size_t)ch * W + NB] = heads != 0;
+    const long long before = __shfl_sync(FULL, sum, hl > 0 ? hl - 1 : 0);
+    s.v[c] = hl > 0 ? sum - before : sum;
+    if (lane == 31) sb.tails[warp][c] = s.v[c];
   }
-  __syncthreads();
-  // one thread turns the chunks' tail sums into carries into each chunk
-  if (tid == 0) {
-    long long run[MAX_NB];
+  if (lane == 31) sb.tails[warp][MAX_NB] = heads != 0u;
+}
+
+// Step 2, after a barrier, by one warp (a lane a warp of the block): each
+// warp's carry-in — the tails of the warps before it combined in order
+// (a segmented scan across the lanes) on top of the running sum into the
+// chunk (none in the first) — and the running sum into the next chunk.
+template <int NB>
+__device__ __forceinline__ void seg_scan_carries(ScanBuf& sb, bool first) {
+  const int lane = threadIdx.x & 31;
+  const bool here = lane < (int)(blockDim.x >> 5);
+  const unsigned flags =
+      __ballot_sync(FULL, here && sb.tails[lane][MAX_NB] != 0);
+  const unsigned le = lane == 31 ? FULL : (2u << lane) - 1u;
+  const unsigned mine = flags & le;
+  const int hf = mine ? 31 - __clz((int)mine) : -1;
 #pragma unroll
-    for (int c = 0; c < MAX_NB; ++c) run[c] = 0;
-    for (int ch = 0; ch < nch; ++ch) {
-      long long* row = chunk + (size_t)ch * W;
-      const bool has_head = row[NB] != 0;
+  for (int c = 0; c < NB; ++c) {
+    const long long c0 = first ? 0 : sb.chunk[c];
+    long long sum = here ? sb.tails[lane][c] : 0;
 #pragma unroll
-      for (int c = 0; c < MAX_NB; ++c) {
-        if (c < NB) {
-          const long long tail = row[c];
-          row[c] = run[c];
-          run[c] = has_head ? tail : run[c] + tail;
-        }
-      }
+    for (int d = 1; d < 32; d <<= 1) {
+      const long long u = __shfl_up_sync(FULL, sum, d);
+      if (lane >= d) sum += u;
     }
+    const long long before = __shfl_sync(FULL, sum, hf > 0 ? hf - 1 : 0);
+    // the tails of warps 0 .. lane combined, on top of the chunk's carry
+    const long long comb = hf > 0 ? sum - before : (hf == 0 ? sum : c0 + sum);
+    const long long prev = __shfl_up_sync(FULL, comb, 1);
+    if (here) sb.carries[lane][c] = lane == 0 ? c0 : prev;
+    if (lane == 31) sb.chunk[c] = comb;
   }
-  __syncthreads();
-  for (int p = tid; p < C; p += nt) {
-    if (carried[p]) {
-      const long long* row = chunk + (size_t)(p / 32) * W;
-      const size_t o = (size_t)order[p] * NB;
-      for (int c = 0; c < NB; ++c) excl[o + c] += row[c];
-    }
+}
+
+// Step 3, after a barrier: positions with no head before them in their
+// warp add the warp's carry-in.
+template <int NB>
+__device__ __forceinline__ void seg_scan_add(Seg<NB>& s, const ScanBuf& sb) {
+  if (s.open) {
+    const int warp = threadIdx.x >> 5;
+#pragma unroll
+    for (int c = 0; c < NB; ++c) s.v[c] += sb.carries[warp][c];
   }
-  __syncthreads();
+}
+
+// The sorted position p's row, id and whether a segment starts or ends
+// there; sk holds the sorted keys (id << shift | row), padding past C.
+template <typename K>
+__device__ __forceinline__ void position(const K* sk, int p, int C,
+                                         int* row, unsigned* id,
+                                         bool* head, bool* last,
+                                         int shift = 32) {
+  const K k = p < C ? sk[p] : ~K(0);
+  *row = (int)(k & ((K(1) << shift) - 1));
+  *id = (unsigned)(k >> shift);
+  *head = p < C && (p == 0 || (unsigned)(sk[p - 1] >> shift) != *id);
+  *last = p < C && (p == C - 1 || (unsigned)(sk[p + 1] >> shift) != *id);
+}
+
+// Which buffer block_sort leaves its result in for segments of n keys:
+// the keys after an even number of merge levels, else the second buffer.
+__host__ __device__ inline bool sorted_in_tmp(int n) {
+  int levels = 0;
+  for (int w = 32; w < n; w <<= 1) ++levels;
+  return levels % 2 != 0;
 }
 
 }  // namespace cc_seg

@@ -1,7 +1,7 @@
 // Helpers the step's kernels share: the order-preserving key of an f32
-// score, the order-free fixed-point scale of ops/segment.py, a bitonic
-// sort and a prefix count inside one block, and the layout of the step
-// loop's device carry.  One copy, so the kernels that must agree on an
+// score, the order-free fixed-point scale of ops/segment.py, a prefix
+// count inside one block, and the layout of the step loop's device
+// carry.  One copy, so the kernels that must agree on an
 // order or on a sum's bits (K3, K4, K5, K7, K8, K9, K10, K11, K16) cannot
 // drift apart.
 
@@ -58,26 +58,6 @@ __device__ __forceinline__ float fixed_scale_f(double sc) {
 __device__ __forceinline__ long long fixed_q(float v, float scf, double sc) {
   return scf != 0.0f ? __float2ll_rn(v * scf)
                      : __double2ll_rn((double)v * sc);
-}
-
-// Ascending bitonic sort of n2 (a power of two) keys by one block; every
-// thread of the block calls it.
-__device__ void bitonic_sort(unsigned long long* key, int n2) {
-  const int tid = threadIdx.x, nt = blockDim.x;
-  for (int size = 2; size <= n2; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int t = tid; t < n2 / 2; t += nt) {
-        const int lo = 2 * t - (t & (stride - 1));
-        const int hi = lo + stride;
-        const unsigned long long a = key[lo], b = key[hi];
-        if ((a > b) == ((lo & size) == 0)) {
-          key[lo] = b;
-          key[hi] = a;
-        }
-      }
-      __syncthreads();
-    }
-  }
 }
 
 // The block-wide exclusive count of a flag over one chunk of blockDim.x

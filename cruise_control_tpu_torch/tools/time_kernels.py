@@ -1,10 +1,10 @@
-"""Time thirteen kernels — K1 ``grid_top_r``, K11 ``top_select``, K17
+"""Time fifteen kernels — K1 ``grid_top_r``, K11 ``top_select``, K17
 ``grid_patch``, K9 ``recompute_aggregates``, K12 ``whatif_verdict``, K4
 ``budget_accept``, K7 ``compact_rows``, K3 ``per_src_top``, K13 (a)
 ``round_keys``, K8 ``commit_batch``, K5 ``match_batch``, K2
-``grid_terms`` and K6 ``score_candidates`` — on the card at the shapes
-their paths give them, through a checkout's own ``chip_smoke.py``
-checks.
+``grid_terms``, K6 ``score_candidates``, K10 ``pool_tables`` and K15
+``corrected_accept`` — on the card at the shapes their paths give them,
+through a checkout's own ``chip_smoke.py`` checks.
 
     python3 cruise_control_tpu_torch/tools/time_kernels.py [--root DIR]
         [--label NAME] [--only NAME[,NAME...]]
@@ -14,7 +14,7 @@ checkout whose ``chip_smoke.py`` and package are imported, for example an
 older commit unpacked with ``git archive``, so that two versions of the
 kernels can be timed in turns within one run on one card.  Run it by its
 path, not with ``-m``: the package must come from that checkout.
-``--only`` keeps the named kernels (default: all thirteen).
+``--only`` keeps the named kernels (default: all fifteen).
 
 Each kernel is held bit for bit to its plain twin and timed by
 ``chip_smoke.py`` itself (its records print as it emits them: wrapper ms
@@ -73,7 +73,22 @@ it), each bit for bit against the twins on the card (a mismatch is
 recorded, not raised), with ``device_ms_runs`` (the median device ms of
 30 launches, in each of two runs), the wrapper ms, ``attrs`` where the
 library exports them and, on each kernel's first record, the build's
-``ptxas`` report.
+``ptxas`` report.  K10 runs on the 1 000 / 20 000 first step's repool
+(full, through chip_smoke's ``check_pool_tables`` with its incremental
+form, then alone), on the 50 / 1 000 first repool and on this checkout's
+``pool_cases`` (incremental over every row, at its budget and one above
+it, every partition excluded, must-move slots with a dead broker, two
+gated launches, 10 000 brokers, replication factors 1 and 8, the north
+star's 10 000 brokers / 1 000 000 partitions), each launch on its carry
+and touched set restored, bit for bit against the twin (recorded, not
+raised), with ``device_ms_runs``, each launch's device ms by name, its
+phases where stamped, and ``attrs`` where exported; on the first case
+also ``graph_ms``: K10, one K11 and the whole repool, gated and acting,
+in a captured graph of 16 calls, launch gaps included.  K15 runs on the
+1 000 / 20 000 corrected first step in four forms (mean and percentile
+loads, ``cohort_stack_tol`` 1.0 and 0.25) and this checkout's
+``corrected_cases`` (one destination, one source, 777 rows, 1 row,
+10 000 brokers, 65 536 rows over 66 000 brokers), likewise.
 Needs a card.
 """
 
@@ -105,11 +120,12 @@ KEYS = ("K", "D", "S", "N", "k", "P", "B", "L", "Q", "blocks",
         "library_two_calls_ms", "round_keys_launches_a_round",
         "M_step", "commits", "touched_brokers", "A", "cohort_rows",
         "dest_cap", "rounds_to_fixed_outputs", "phases_run", "error",
-        "W", "device_ms_runs", "ptxas", "bcost")
+        "W", "device_ms_runs", "ptxas", "bcost", "graph_ms", "rows_budget",
+        "touched", "repool", "full", "qualified", "accepted", "stack_tol")
 ALL = ("top_select", "grid_top_r", "grid_patch", "recompute_aggregates",
        "whatif_verdict", "budget_accept", "compact_rows", "per_src_top",
        "round_keys", "commit_batch", "match_batch", "grid_terms",
-       "score_candidates")
+       "score_candidates", "pool_tables", "corrected_accept")
 #: K11's (N, k): the repool's top-K (and smaller k), its top-D, the
 #: score-only round's grid and columnar keys, the north star's slots
 TOP_SHAPES = ((60_000, 8192), (60_000, 2048), (60_000, 1024), (1000, 1000),
@@ -559,6 +575,166 @@ def time_score_candidates(cs, summary, random_cluster, dev, here):
         del got, want
 
 
+def _checked(check, summary, name, case, *args):
+    """A checkout's bit-for-bit check of one case → True, or the mismatch
+    recorded (not raised) → False."""
+    try:
+        check(case, *args)
+        return True
+    except AssertionError as e:
+        summary(name, {"case": case, "bit_equal": False, "error": str(e)})
+        return False
+
+
+def graph_ms(cs, fn, n: int = 16) -> float:
+    """Ms a call of ``fn`` takes inside a captured CUDA graph of ``n``
+    calls (CUDA events around its replays): the launch gaps included, as a
+    captured step chunk pays them."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(n):
+            fn()
+    return cs.cuda_ms(g.replay) / n
+
+
+def repool_graph_ms(cs, args):
+    """K10 alone and the whole repool (K10, K11 three times) on ``args``
+    inside a captured graph → ms a call: gated (the carry asks for no
+    repool), one K11 gated, and acting (the carry and touched set
+    restored first; the two restoring copies' own graph time taken off)."""
+    from cruise_control_tpu_torch.analyzer import cuda_optimizer as C
+    from cruise_control_tpu_torch.analyzer import pool_kernels as PK
+    from cruise_control_tpu_torch.analyzer import step_state as SS
+
+    m, ca, pb, st0, budget = copy.deepcopy(args)
+    gated = st0.clone()
+    gated[SS.NEED_POOL] = 0
+    st = st0.clone()
+    tpp0 = pb.tpp.clone()
+    S = m.assignment.shape[1]
+
+    def restore():
+        st.copy_(st0)
+        pb.tpp.copy_(tpp0)
+    copies = graph_ms(cs, restore)
+    return {
+        "k10_gated": graph_ms(cs, lambda: PK.pool_tables(
+            m, ca, pb, gated, budget, checked=True)),
+        "k11_gated": graph_ms(cs, lambda: PK.top_select(
+            pb.prio.view(-1), pb.kp, pb.ks, pb.slot, S=S, state=gated,
+            ws=pb.select_ws)),
+        "repool_gated": graph_ms(cs, lambda: C._repool(
+            m, ca, pb, gated, budget, checked=True)),
+        "k10_acting": graph_ms(cs, lambda: (restore(), PK.pool_tables(
+            m, ca, pb, st, budget, checked=True))) - copies,
+        "repool_acting": graph_ms(cs, lambda: (restore(), C._repool(
+            m, ca, pb, st, budget, checked=True))) - copies,
+        "restore_copies": copies}
+
+
+def time_pool_tables(cs, summary, random_cluster, dev, here):
+    """K10 on the 1 000 / 20 000 first repool (full; with its incremental
+    form through chip_smoke's check), the 50 / 1 000 first repool and
+    this checkout's ``pool_cases``, each launch on its carry and touched
+    set restored."""
+    from cruise_control_tpu_torch.analyzer import pool_kernels as PK
+    from cruise_control_tpu_torch.analyzer import step_state as SS
+
+    own = own_smoke(here)
+    calls, _ = cs.first_step_calls(random_cluster(**cs.MIDSCALE), {}, dev)
+    full = calls["pool_tables"][0]
+    del calls
+    recs = cs.check_pool_tables("midscale", full, {}, False, True)
+    for name, rec in recs.items():
+        summary(name, rec)
+    cases = {"midscale": full,
+             "50b_1k": own.repool_args(random_cluster(seed=42, **cs.SMALL),
+                                       dev),
+             **own.pool_cases(full, dev)}
+    phases = getattr(PK, "POOL_TABLES_PHASES", ())
+    first = True
+    for case, args in cases.items():
+        m, ca, pb, st0, budget = args
+        if not _checked(own.check_pool_case, summary, "pool_tables", case,
+                        args):
+            continue
+        a = copy.deepcopy(args)
+        tpp0 = pb.tpp.clone()
+
+        def run():
+            a[3].copy_(st0)
+            a[2].tpp.copy_(tpp0)
+            PK.pool_tables(*a, checked=True)
+        run()
+        P, S = m.assignment.shape
+        rec = {"case": case, "P": P, "S": S, "B": m.capacity.shape[0],
+               "rows_budget": budget, "touched": int(tpp0.sum()),
+               "repool": int(a[3][SS.REPOOL]), "full": int(a[3][SS.FULL]),
+               "bit_equal": True, "ms": cs.cuda_ms(run),
+               "device_ms_runs": device_ms_runs(run, "pool_tables_"),
+               "launch_ms_by_name": launch_ms(cs, run),
+               "attrs": (PK.pool_tables_attrs(S)
+                         if hasattr(PK, "pool_tables_attrs") else None)}
+        if rec["repool"]:
+            rec.update(phase_split(PK.kernels, "pool_tables", phases, run))
+        if first:
+            rec["ptxas"] = ptxas_report(PK.kernels, "pool_tables")
+            rec["graph_ms"] = repool_graph_ms(cs, args)
+            first = False
+        summary("pool_tables", rec)
+        del a
+
+
+def time_corrected_accept(cs, summary, random_cluster, dev, here):
+    """K15 on the 1 000 / 20 000 corrected first step in four forms and on
+    this checkout's ``corrected_cases``."""
+    from cruise_control_tpu_torch.analyzer import corrected_kernel as K15
+
+    own = own_smoke(here)
+    mid = random_cluster(**cs.MIDSCALE)
+    cases = {}
+    for tag, state in (("midscale", mid),
+                       ("midscale_percentile", cs.with_percentile(mid))):
+        for tol in (1.0, 0.25):
+            calls, _ = cs.first_step_calls(
+                state, {"cohort_mode": "corrected", "cohort_stack_tol": tol},
+                dev)
+            cases[f"{tag}_tol{tol}"] = calls["corrected_accept"]
+    cases.update(own.corrected_cases(cs.with_percentile(mid),
+                                     {"cohort_stack_tol": 0.25}, dev))
+    phases = getattr(K15, "CORRECTED_ACCEPT_PHASES", ())
+    first = True
+    for case, (args, kw) in cases.items():
+        if not _checked(own.check_corrected_case, summary,
+                        "corrected_accept", case, args, kw):
+            continue
+        kw = dict(kw, checked=True)
+        run = lambda: K15.corrected_accept(*args, **kw)  # noqa: E731
+        Cn, NB = args[7].shape
+        rec = {"case": case, "C": Cn, "NB": NB,
+               "B": args[0].capacity.shape[0],
+               "qualified": int(args[8].sum()),
+               "stack_tol": args[1].cohort_stack_tol, "bit_equal": True,
+               "ms": cs.cuda_ms(run),
+               "device_ms_runs": device_ms_runs(run,
+                                                "corrected_accept_kernel"),
+               "attrs": (K15.corrected_accept_attrs(
+                   Cn, NB, args[0].capacity.shape[0])
+                   if hasattr(K15, "corrected_accept_attrs") else None)}
+        rec.update(phase_split(K15.kernels, "corrected_accept", phases, run))
+        if first:
+            rec["ptxas"] = ptxas_report(K15.kernels, "corrected_accept")
+            rec["plain_ms"] = cs.cuda_ms(lambda: K15._corrected_accept(
+                *args, snap_score=kw["snap_score"]), reps=15)
+            first = False
+        summary("corrected_accept", rec)
+
+
 def time_round_keys(cs, summary, random_cluster, dev):
     """K13 (a) on the 1 000 / 20 000 first score-only round: the grid key
     beside ``torch.neg(torch.cat(...))``, the wrapper's host side split;
@@ -851,6 +1027,10 @@ def main(argv=None) -> int:
         time_grid_terms(cs, summary, random_cluster, dev, here)
     if "score_candidates" in only:
         time_score_candidates(cs, summary, random_cluster, dev, here)
+    if "pool_tables" in only:
+        time_pool_tables(cs, summary, random_cluster, dev, here)
+    if "corrected_accept" in only:
+        time_corrected_accept(cs, summary, random_cluster, dev, here)
     return 0
 
 
