@@ -102,11 +102,27 @@ Phases, each printing one JSON line; any failure exits non-zero:
    cap, and the plan is the unbudgeted one's), then one of 2 s in which
    host time passes after the first capped call until about half a call
    is left (capped calls at most their caps, fewer steps, the hard goals
-   held).
+   held);
+9. the served path: the REST server (``server/http_server.py``) over the
+   facade (``facade.py``, engine ``"cuda"``, no degradation ladder), the
+   load monitor and the executor on a simulated cluster
+   (``tools/served_stack.py``), driven through the port's client.  At
+   1 000 brokers / 20 000 partitions (phase 6's fixture as ground truth):
+   POST /rebalance twice — the first, in a process that keeps no step
+   loop yet, captures the step chunk while a POST /whatif and four GETs
+   arrive (no 5xx, the same plan), the second captures nothing — then GET
+   /proposals twice (the second a cache hit), GET /state and /load; every
+   plan equal by sha256 to ``CudaGoalOptimizer`` on the facade's own model
+   and verified, every result's engine ``"cuda"`` and no
+   ``analyzer.engine_degraded`` event, each request's wall-clock beside
+   the plan's ``timing_s``, the monitor's sampling and model seconds, the
+   second request's spans and the kept loop's bytes.  At 50 / 1 000: an
+   executed POST /rebalance leaves the backend at the plan's targets, and
+   POST /whatif's verdicts equal the what-if engine's on the CPU.
 
 Every kernel of a path must have launched on that path's run (the plan
 path: K1-K11, the what-if path: K12, the search paths: theirs, K13-K17
-among them).  The last two lines are the ``{"kernels": [...]}`` summary
+among them; the served path: K1-K12).  The last two lines are the ``{"kernels": [...]}`` summary
 and the ``{"ok": true, "device": ...}`` verdict.  Nothing here imports
 JAX.
 """
@@ -3040,6 +3056,304 @@ def search_paths_phase(dev, mid, small, g_small, main_launches,
     return recs, launches, inc_acting
 
 
+# ---- phase 9: the served path -----------------------------------------------
+
+#: the served path's kernels: the default plan's and the what-if's
+SERVED_PATH = _PLAN + WHATIF_PATH
+#: the GETs fired, beside one POST /whatif, while the first (capturing)
+#: plan holds the card
+SERVED_SIDE_GETS = ("state", "load", "kafka_cluster_state", "user_tasks")
+#: an async POST's long poll: the server answers when the task is done
+#: (no client polling in the measured wall-clock)
+LONG_POLL = {"get_response_timeout_s": "900"}
+
+
+def served_request(srv, method: str, endpoint: str, **params):
+    """One request through the port's client: (body, seconds, status)."""
+    from cruise_control_tpu_torch.client.cccli import (
+        CruiseControlClient,
+        CruiseControlError,
+    )
+
+    client = CruiseControlClient(srv.url, timeout_s=900)
+    t = time.perf_counter()
+    try:
+        body, code = getattr(client, method)(endpoint, **params), 200
+    except CruiseControlError as e:
+        body, code = e.body, e.code
+    return body, time.perf_counter() - t, code
+
+
+def proposals_sha256(proposals) -> str:
+    """The digest of a plan's proposals as the server renders them."""
+    import hashlib
+
+    return hashlib.sha256(json.dumps(proposals, sort_keys=True)
+                          .encode()).hexdigest()
+
+
+def actions_sha256(result) -> str:
+    import hashlib
+
+    return hashlib.sha256(repr(actions_of(result)).encode()).hexdigest()
+
+
+def tensor_bytes(obj, seen=None, depth=0) -> int:
+    """Bytes of the distinct tensor storages reachable from ``obj``'s
+    attributes, dicts, lists and dataclass fields (a step loop's static
+    buffers)."""
+    seen = set() if seen is None else seen
+    if isinstance(obj, torch.Tensor):
+        key = obj.untyped_storage().data_ptr()
+        if key in seen:
+            return 0
+        seen.add(key)
+        return obj.untyped_storage().nbytes()
+    if depth > 4 or obj is None or isinstance(obj, (int, float, str, bool)):
+        return 0
+    if isinstance(obj, dict):
+        items = obj.values()
+    elif isinstance(obj, (list, tuple)):
+        items = obj
+    elif hasattr(obj, "__dict__"):
+        items = vars(obj).values()
+    else:
+        return 0
+    return sum(tensor_bytes(v, seen, depth + 1) for v in items)
+
+
+def check_served(label, body, seconds, code, journal):
+    """A served plan: 200, engine "cuda", and no degradation event."""
+    if code != 200:
+        raise AssertionError(f"{label}: HTTP {code}: {body}")
+    if body.get("engine") != "cuda":
+        raise AssertionError(f"{label}: served by {body.get('engine')!r}")
+    if journal.recent(kind="analyzer.engine_degraded"):
+        raise AssertionError(f"{label}: the cuda engine degraded")
+    summ = body["goalSummaries"][0]
+    return {"wallclock_s": seconds, "timing_s": summ["timing_s"],
+            "steps": summ["steps"], "actions": body["numActions"],
+            "proposals": body["numProposals"],
+            "graph_captures": summ["graph_captures"],
+            "graph_replays": summ["graph_replays"],
+            "violation_score": body["violationScoreAfter"],
+            "violation_score_before": body["violationScoreBefore"],
+            "proposals_sha256": proposals_sha256(body["proposals"])}
+
+
+def served_midscale(journal):
+    """1 000 brokers / 20 000 partitions through HTTP: POST /rebalance
+    twice (the first captures the step chunk while a POST /whatif and
+    GETs arrive), GET /proposals twice (the second a cache hit), GET
+    /state and /load; every kernel counter zeroed just before and read
+    just after, the spans of the second POST /rebalance kept as its host
+    split.  Returns (record, launches)."""
+    import gc
+    import threading
+
+    from cruise_control_tpu_torch.analyzer import cuda_optimizer as C
+    from cruise_control_tpu_torch.analyzer.goal_optimizer import make_goals
+    from cruise_control_tpu_torch.analyzer.verifier import verify_result
+    from cruise_control_tpu_torch.utils.device import DEVICE_LOCK
+    from cruise_control_tpu_torch.models.generators import random_cluster
+    from cruise_control_tpu_torch.server.http_server import (
+        CruiseControlHttpServer,
+    )
+    from cruise_control_tpu_torch.telemetry import profile, tracing
+    from cruise_control_tpu_torch.tools.served_stack import fixture_stack
+
+    # a fresh serving process keeps no step loop yet: its first request
+    # builds and captures one; the collections around the readings keep
+    # earlier phases' garbage out of the loop's bytes
+    C._LOOPS.clear()
+    gc.collect()
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    cc, _, _, seconds = fixture_stack(random_cluster(**MIDSCALE))
+    t = time.perf_counter()
+    model = cc.load_monitor.cluster_model()
+    seconds["model"] = time.perf_counter() - t
+    srv = CruiseControlHttpServer(cc, port=0)
+    srv.start()
+    try:
+        for fn in counters().values():
+            fn.launches = 0
+        first = {}
+        plan = threading.Thread(target=lambda: first.update(r=served_request(
+            srv, "post", "rebalance", dryrun="true", verbose="true",
+            **LONG_POLL)))
+        plan.start()
+        while not DEVICE_LOCK.locked() and plan.is_alive():
+            time.sleep(0.001)
+        during = DEVICE_LOCK.locked()
+        side = [("post", "whatif", {"use_cache": "false", **LONG_POLL})] + [
+            ("get", e, {}) for e in SERVED_SIDE_GETS]
+        side_out = {}
+        threads = [threading.Thread(target=lambda m=m, e=e, kw=kw: (
+            side_out.__setitem__(e, served_request(srv, m, e, **kw))))
+            for m, e, kw in side]
+        for th in threads:
+            th.start()
+        for th in threads + [plan]:
+            th.join(900)
+        tracing.configure(enabled=True)
+        tracing.reset()
+        second = served_request(srv, "post", "rebalance", dryrun="true",
+                                verbose="true", **LONG_POLL)
+        spans = {path: ent["total_s"]
+                 for path, ent in profile.phase_tree().items()}
+        tracing.configure(enabled=False)
+        cold_get = served_request(srv, "get", "proposals", verbose="true")
+        warm_get = served_request(srv, "get", "proposals", verbose="true")
+        state = served_request(srv, "get", "state")
+        load = served_request(srv, "get", "load")
+        torch.cuda.synchronize()
+        launches = {n: fn.launches for n, fn in counters().items()}
+    finally:
+        srv.stop()
+    _, loop = C._LOOPS["cuda:0"]
+    gc.collect()
+    mem_loop = torch.cuda.memory_allocated() - mem0
+    # the direct engine on the facade's own model (its loop is the one the
+    # served requests kept)
+    direct = C.CudaGoalOptimizer(device="cuda").optimize(model)
+    from cruise_control_tpu_torch.server.http_server import (
+        _optimizer_response,
+    )
+
+    direct_sha = proposals_sha256(json.loads(json.dumps(
+        _optimizer_response(direct, {"verbose": "true"})["proposals"])))
+    served = cc._last_good.result
+    verify_result(model, served, make_goals())
+    rec = {"phase": "served_1000b_20k", "nvidia_smi": nvidia_smi(),
+           "monitor_s": seconds,
+           "first": check_served("first rebalance", *first["r"], journal),
+           "second": check_served("second rebalance", *second, journal),
+           "get_proposals": check_served("GET /proposals", *cold_get,
+                                         journal),
+           "get_proposals_cached": check_served("cached GET /proposals",
+                                                *warm_get, journal),
+           "cached_flags": [cold_get[0].get("cached"),
+                            warm_get[0].get("cached")],
+           "second_spans_s": spans,
+           "state_s": state[1], "load_s": load[1],
+           "concurrent": {e: {"status": code, "wallclock_s": s}
+                          for e, (_, s, code) in side_out.items()},
+           "fired_while_plan_held_card": during,
+           "whatif_futures": side_out["whatif"][0].get("numFutures"),
+           "direct_sha256": direct_sha,
+           "actions_sha256_match": actions_sha256(served)
+           == actions_sha256(direct),
+           "direct_timing_s": direct.goal_summaries[0]["timing_s"],
+           "loop_tensor_bytes": tensor_bytes(loop),
+           "loop_memory_delta_bytes": mem_loop,
+           "loops_kept": len(C._LOOPS),
+           "launches": {n: launches[n] for n in SERVED_PATH},
+           "verify_result": True}
+    emit(rec)
+    plans = [rec[k] for k in ("first", "second", "get_proposals",
+                              "get_proposals_cached")]
+    if any(p["proposals_sha256"] != direct_sha for p in plans) \
+            or not rec["actions_sha256_match"]:
+        raise AssertionError("the served plan is not the engine's plan")
+    if rec["first"]["graph_captures"] != 1 \
+            or rec["second"]["graph_captures"] != 0 \
+            or rec["get_proposals"]["graph_captures"] != 0:
+        raise AssertionError("the served requests captured "
+                             f"{[p['graph_captures'] for p in plans]} graphs "
+                             "(want 1, then 0)")
+    if rec["cached_flags"] != [False, True]:
+        raise AssertionError(f"GET /proposals cache flags "
+                             f"{rec['cached_flags']}")
+    if not during or any(code >= 500 for _, _, code in side_out.values()) \
+            or side_out["whatif"][2] != 200:
+        raise AssertionError(f"concurrent requests: {rec['concurrent']} "
+                             f"(fired while the plan held the card: {during})")
+    if state[2] != 200 or load[2] != 200 \
+            or len(load[0]["brokers"]) != MIDSCALE["num_brokers"]:
+        raise AssertionError("GET /state or /load failed")
+    for name in SERVED_PATH:
+        if launches[name] <= 0:
+            raise AssertionError(f"the served path never launched {name}")
+    return rec, launches
+
+
+def served_small(journal):
+    """50 brokers / 1 000 partitions through HTTP: POST /rebalance with
+    dryrun=false leaves the backend at the plan's targets; POST /whatif's
+    verdicts equal the what-if engine's on the CPU for the same model."""
+    from cruise_control_tpu_torch.models.generators import random_cluster
+    from cruise_control_tpu_torch.server.http_server import (
+        CruiseControlHttpServer,
+    )
+    from cruise_control_tpu_torch.tools.served_stack import fixture_stack
+    from cruise_control_tpu_torch.whatif.compiler import compile_futures
+    from cruise_control_tpu_torch.whatif.engine import (
+        evaluate_batch,
+        verdicts,
+    )
+    from cruise_control_tpu_torch.whatif.futures import likely_futures
+
+    cc, backend, _, _ = fixture_stack(random_cluster(seed=42, **SMALL))
+    srv = CruiseControlHttpServer(cc, port=0)
+    srv.start()
+    try:
+        body, s_exec, code = served_request(srv, "post", "rebalance",
+                                            dryrun="false", verbose="true",
+                                            **LONG_POLL)
+        plan = check_served("50b rebalance", body, s_exec, code, journal)
+        model = cc.load_monitor.cluster_model()
+        wbody, s_whatif, wcode = served_request(srv, "post", "whatif",
+                                                **LONG_POLL)
+    finally:
+        srv.stop()
+    ex = body["execution"]
+    moved = [p for p in body["proposals"]
+             if (set(backend.partitions[p["partition"]].replicas)
+                 != set(p["newReplicas"])
+                 or backend.partitions[p["partition"]].leader
+                 != p["newLeader"])]
+    futures = likely_futures(model, k=8)
+    batch = compile_futures(model, futures)
+    want = verdicts(batch, evaluate_batch(
+        model, batch, capacity_scale=cc._whatif_capacity_scale(),
+        device="cpu"))
+    rec = {"phase": "served_50b_1k", "rebalance": plan,
+           "execution": {k: ex[k] for k in ex if not isinstance(ex[k], list)},
+           "proposals_not_at_target": len(moved),
+           "whatif_wallclock_s": s_whatif, "whatif_status": wcode,
+           "whatif_futures": wbody.get("numFutures"),
+           "whatif_verdicts": [{k: v[k] for k in (
+               "future", "survivable", "goalViolations")}
+               for v in wbody.get("verdicts", [])],
+           "whatif_equals_cpu_engine": wbody.get("verdicts") == want}
+    emit(rec)
+    if not ex["succeeded"] or moved or not body["proposals"]:
+        raise AssertionError(f"50b execution: {rec['execution']}, "
+                             f"{len(moved)} proposals not at their targets")
+    if wcode != 200 or not rec["whatif_equals_cpu_engine"]:
+        raise AssertionError(f"50b what-if: HTTP {wcode}, verdicts equal "
+                             f"the CPU engine's: "
+                             f"{rec['whatif_equals_cpu_engine']}")
+    return rec
+
+
+def served_phase():
+    """Phase 9 → the served path's launches at 1 000 / 20 000."""
+    from cruise_control_tpu_torch.telemetry import events
+
+    prev, journal = events.JOURNAL, events.EventJournal(enabled=True)
+    events.JOURNAL = journal
+    try:
+        _, launches = served_midscale(journal)
+        served_small(journal)
+        if journal.recent(kind="analyzer.engine_degraded"):
+            raise AssertionError("the cuda engine degraded")
+    finally:
+        events.JOURNAL = prev
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this "
@@ -3323,6 +3637,9 @@ def main() -> int:
         if acting[name] <= 0:
             raise AssertionError(f"{name} never acted on its path")
 
+    # ---- the served path ------------------------------------------------
+    served_launches = served_phase()
+
     # the kernels line: main-path shapes (mid-scale); errors over every case
     cases = [steps[c] for c in steps] + [
         {"whatif_verdict": r} for r in whatif_recs.values()] + [
@@ -3344,6 +3661,7 @@ def main() -> int:
             "source": f"cruise_control_tpu_torch/csrc/{name}.cu",
             "replaces": replaces, "launches": launches[name],
             "launches_acting": acting[name],
+            "launches_served": served_launches[name],
             "max_abs_err": errs[name], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],

@@ -149,7 +149,7 @@ from cruise_control_tpu_torch.ops.grid import (
     launch_grid_top_r,
     terms_consts,
 )
-from cruise_control_tpu_torch.utils.device import resolve_device
+from cruise_control_tpu_torch.utils.device import DEVICE_LOCK, resolve_device
 from cruise_control_tpu_torch.utils.logging import get_logger
 
 LOG = get_logger("engine")
@@ -405,9 +405,10 @@ class _StepLoop:
     device carry, the per-step meta and the output — and, on the card, the
     captured chunk of steps.  A search copies its model's fixed tensors and
     its constants in (:meth:`bind`), each scan call its placement,
-    aggregates and row tables (:meth:`load`); the optimizer keeps the loop
-    for its next search of the same shape, which then replays the chunk
-    without capturing it again."""
+    aggregates and row tables (:meth:`load`); the process keeps the loop
+    (:func:`_keep_loop`) for the next search of the same shape on the same
+    card, by any optimizer, which then replays the chunk without capturing
+    it again."""
 
     def __init__(self, m: DeviceModel, cfg: CudaSearchConfig, ca, consts,
                  K: int, D: int, T: int, chunk: int = STEP_CHUNK):
@@ -483,6 +484,30 @@ class _StepLoop:
             SS.cap(self.st, t_cap)
         if self.sc is not None:
             self.sc.reset()
+
+
+#: device → (shape key, step loop): the one loop each device keeps, that
+#: of its latest search, for the next search of the same shape, whichever
+#: optimizer runs it (the served path builds a fresh optimizer for every
+#: request).  A served process plans one cluster, so one shape is live at
+#: a time; a search of another shape drops the kept loop before it builds
+#: its own
+_LOOPS: Dict[str, Tuple[tuple, "_StepLoop"]] = {}
+_LOOPS_LOCK = threading.Lock()
+
+
+def _take_loop(key: tuple) -> Optional[_StepLoop]:
+    """The loop kept on ``key``'s device, taken out for one search when it
+    has ``key``'s shape (else dropped), or None."""
+    with _LOOPS_LOCK:
+        kept = _LOOPS.pop(key[0], None)
+    return kept[1] if kept is not None and kept[0] == key else None
+
+
+def _keep_loop(key: tuple, loop: _StepLoop) -> None:
+    """Keep a search's loop on its device for the next search."""
+    with _LOOPS_LOCK:
+        _LOOPS[key[0]] = (key, loop)
 
 
 def _copy_in(src, dst) -> None:
@@ -623,13 +648,14 @@ def _scan_call(m: DeviceModel, cfg: CudaSearchConfig, ca, consts, K: int,
     lp.load(m, tables, t_cap)
     if capture is None:
         capture = lp.out.device.type == "cuda"
-    syncs = replays = 0
+    syncs = replays = captures = 0
     checked = False
     if capture and lp.chunk.graph is None:
         # one eager step checks every wrapper's inputs and loads every
         # kernel before the capture
         _step(lp, False)
         lp.chunk.capture()
+        captures = 1
     while True:
         if capture:
             lp.chunk.replay()
@@ -653,7 +679,7 @@ def _scan_call(m: DeviceModel, cfg: CudaSearchConfig, ca, consts, K: int,
     meta = packed[4 * count:].reshape(4, t).astype(np.int64)
     diag = {"steps_run": t, "n_incremental_repool": int(state[SS.N_INCR]),
             "repools": int(state[SS.N_REPOOL]), "host_syncs": syncs,
-            "graph_replays": replays,
+            "graph_replays": replays, "graph_captures": captures,
             # full rescores forced by a stale set over its budget, and the
             # steps that patched (incremental_rescore=True; else 0)
             "n_overflow": int(state[SS.N_OVF]),
@@ -1239,10 +1265,6 @@ class CudaGoalOptimizer:
         self.config = config or CudaSearchConfig()
         _check_config(self.config)
         self.device = resolve_device(device)
-        #: (shape key, step loop) of the last search; searches on one
-        #: optimizer run one at a time, as they share the loop's buffers
-        self._loop: Optional[Tuple[tuple, _StepLoop]] = None
-        self._lock = threading.Lock()
 
     # ---- constraint tensors ---------------------------------------------------
     def _constraint_arrays_np(self, ctx: AnalyzerContext) -> Dict[str, np.ndarray]:
@@ -1343,13 +1365,21 @@ class CudaGoalOptimizer:
         carry=None,
     ) -> OptimizerResult:
         """Plan a rebalance of ``state`` (host-first; a state on the card is
-        copied to the host for the exact recheck)."""
-        from cruise_control_tpu_torch.analyzer.goal_optimizer import make_goals
-
+        copied to the host for the exact recheck).  Holds
+        :data:`~cruise_control_tpu_torch.utils.device.DEVICE_LOCK`
+        throughout: one search at a time in the process, whichever thread
+        and optimizer ask."""
         if warm_start is not None or carry is not None:
             raise NotImplementedError(
                 "warm_start/carry are not ported yet "
                 "(ROADMAP.md A4 (warm start / carry))")
+        with DEVICE_LOCK:
+            return self._optimize(state, options)
+
+    def _optimize(self, state: ClusterState,
+                  options: Optional[OptimizationOptions]) -> OptimizerResult:
+        from cruise_control_tpu_torch.analyzer.goal_optimizer import make_goals
+
         t0 = time.perf_counter()
         state = state.to("cpu")
         ctx = AnalyzerContext(state, options)
@@ -1361,12 +1391,11 @@ class CudaGoalOptimizer:
         goals = make_goals(constraint=self.constraint)
         violations_before = {g.name: g.violations(ctx) for g in goals}
         stats_before = stats_summary(cluster_stats(state))
-        with self._lock:
-            return self._search(
-                state, ctx, goals, violations_before, stats_before,
-                initial_assignment, initial_leader_slot,
-                initial_replica_disk, t0, self.config,
-            )
+        return self._search(
+            state, ctx, goals, violations_before, stats_before,
+            initial_assignment, initial_leader_slot,
+            initial_replica_disk, t0, self.config,
+        )
 
     def _search(
         self, state, ctx, goals, violations_before, stats_before,
@@ -1488,18 +1517,19 @@ class CudaGoalOptimizer:
         #: measured seconds per executed step, per-call overheads included:
         #: the anytime deadline's rate model
         step_rate: Optional[float] = None
-        device_loop = {"host_syncs": 0, "graph_replays": 0, "repools": 0,
-                       "n_overflow": 0, "patch_steps": 0}
+        device_loop = {"host_syncs": 0, "graph_replays": 0,
+                       "graph_captures": 0, "repools": 0, "n_overflow": 0,
+                       "patch_steps": 0}
         tab = _cold_tables(m)
         # the static buffers (and, on the card, the captured step chunk)
-        # every call steps on: kept for the next search of the same shape.
-        # The budget is a host-loop knob: one loop serves every deadline
-        key = (P, S, B, K, D, T, dataclasses.replace(cfg, time_budget_s=0.0),
+        # every call steps on: kept process-wide for the next search of the
+        # same shape on the same card, by this optimizer or another.  The
+        # budget is a host-loop knob: one loop serves every deadline
+        key = (str(m.assignment.device), P, S, B, K, D, T,
+               dataclasses.replace(cfg, time_budget_s=0.0),
                m.pload.shape[1], STEP_CHUNK)
-        if self._loop is None or self._loop[0] != key:
-            self._loop = (key, _StepLoop(m, cfg, ca, consts, K, D, T,
-                                         STEP_CHUNK))
-        loop = self._loop[1]
+        loop = _take_loop(key) or _StepLoop(m, cfg, ca, consts, K, D, T,
+                                            STEP_CHUNK)
         loop.bind(m, ca, consts)
         # host wall-clock by phase: upload (model + aggregates), device
         # (the step loop, whose carry read a chunk waits for the card),
@@ -1582,6 +1612,9 @@ class CudaGoalOptimizer:
                 m = _resync_device_model(m_new, ctx)
                 tab = _cold_tables(m)
                 timing["resync"] += time.perf_counter() - t_rs
+        # a search that raised keeps no loop: its buffers (or capture) may
+        # be half-written
+        _keep_loop(key, loop)
         LOG.info(
             "resident search: %d device calls, %d steps, %d actions "
             "committed, %d rejected", n_calls, n_steps, n_committed,

@@ -465,7 +465,10 @@ class GoalOptimizer:
         and enables signature-based partial re-verification.  ``carry``
         is accepted for engine-API parity and ignored (the device carry
         is the TPU engine's)."""
-        return self._optimize(state, options, warm_start=warm_start)
+        from cruise_control_tpu_torch.telemetry import tracing
+
+        with tracing.span("analyzer.greedy"):
+            return self._optimize(state, options, warm_start=warm_start)
 
     def _optimize(
         self,
@@ -504,6 +507,8 @@ class GoalOptimizer:
 
         import logging as _logging
 
+        from cruise_control_tpu_torch.telemetry import tracing
+
         optimized: List[Goal] = []
         try:
             for i, goal in enumerate(self.goals):
@@ -511,7 +516,10 @@ class GoalOptimizer:
                 # decision provenance: actions applied and candidates
                 # rejected during this pass are charged to it
                 ctx.current_goal, ctx.current_round = goal.name, i
-                goal.optimize(ctx, optimized)
+                # per-goal pass span (goal.name is a static class attribute —
+                # no formatting on the disabled path)
+                with tracing.span("analyzer.goal", sub=goal.name):
+                    goal.optimize(ctx, optimized)
                 if LOG.isEnabledFor(_logging.DEBUG):  # violations() is work
                     LOG.debug(
                         "%s: %d actions (violations %d -> %d)", goal.name,

@@ -21,7 +21,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from cruise_control_tpu_torch.utils.device import resolve_device
+from cruise_control_tpu_torch.utils.device import DEVICE_LOCK, resolve_device
 from cruise_control_tpu_torch.whatif.compiler import FutureBatch
 from cruise_control_tpu_torch.whatif.verdict_kernels import (
     TOP_ACTIONS,
@@ -65,10 +65,12 @@ def evaluate_batch(state, batch: FutureBatch, capacity_scale=None,
     capacity goals' bar instead of raw hardware limits.
 
     Returns the stacked raw verdict arrays (padded rows included — use
-    :func:`verdicts` for the per-future JSON view)."""
-    out = whatif_verdict(*verdict_inputs(state, batch, capacity_scale,
-                                         device))
-    return {k: v.cpu().numpy() for k, v in out.items()}
+    :func:`verdicts` for the per-future JSON view).  Holds
+    :data:`~cruise_control_tpu_torch.utils.device.DEVICE_LOCK` throughout."""
+    with DEVICE_LOCK:
+        out = whatif_verdict(*verdict_inputs(state, batch, capacity_scale,
+                                             device))
+        return {k: v.cpu().numpy() for k, v in out.items()}
 
 
 def verdicts(batch: FutureBatch,

@@ -1,0 +1,93 @@
+"""The port's copies of the reference's jax-free modules stay copies: each
+module listed in :data:`COPIES` equals the reference's file once
+``cruise_control_tpu.`` reads ``cruise_control_tpu_torch.``.  The modules
+the port adapts are listed in :data:`ADAPTED` with the reason each
+differs; every served-path module with a reference counterpart is in one
+list or the other, so a copy cannot drift unnoticed."""
+
+import pathlib
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+REF = REPO / "cruise_control_tpu"
+PORT = REPO / "cruise_control_tpu_torch"
+
+#: modules the port keeps as copies (paths inside each package)
+COPIES = (
+    "analyzer/__init__.py", "analyzer/actions.py", "analyzer/degradation.py",
+    "analyzer/goal_optimizer.py", "analyzer/goals/__init__.py",
+    "analyzer/goals/capacity.py", "analyzer/goals/distribution.py",
+    "analyzer/goals/intrabroker.py", "analyzer/goals/kafka_assigner.py",
+    "analyzer/goals/rack.py", "analyzer/precompute.py",
+    "analyzer/provision.py", "analyzer/verifier.py",
+    "client/__init__.py",
+    "common/__init__.py", "common/resources.py",
+    "detector/anomalies.py",
+    "executor/__init__.py", "executor/backend.py",
+    "executor/concurrency.py", "executor/executor.py", "executor/journal.py",
+    "executor/notifier.py", "executor/tasks.py", "executor/throttle.py",
+    "models/__init__.py", "models/builder.py", "models/generators.py",
+    "monitor/__init__.py", "monitor/aggregator.py", "monitor/capacity.py",
+    "monitor/load_monitor.py", "monitor/metric_defs.py",
+    "monitor/sample_store.py", "monitor/sampling.py",
+    "replan/delta.py",
+    "server/__init__.py", "server/admission.py", "server/progress.py",
+    "server/purgatory.py", "server/security.py", "server/user_tasks.py",
+    "telemetry/__init__.py", "telemetry/critical_path.py",
+    "telemetry/events.py", "telemetry/profile.py", "telemetry/trace.py",
+    "utils/checksum.py", "utils/locks.py", "utils/metrics.py",
+)
+
+#: served-path modules the port adapts, and why each differs
+ADAPTED = {
+    "facade.py": "engine 'cuda' (CudaGoalOptimizer) in place of 'tpu' "
+                 "and the default, cuda_config and a device argument, no "
+                 "degradation to the CPU on the card, torch broker states",
+    "server/http_server.py": "profile/kernels, profile/mesh and "
+                             "profile/host answer 503 until their "
+                             "observatories are ported",
+    "telemetry/tracing.py": "device_span.block synchronizes the card of "
+                            "CUDA tensors instead of jax.block_until_ready",
+    "telemetry/exposition.py": "renders the registry, span and lock "
+                               "families; the device families are not "
+                               "ported yet",
+    "client/cccli.py": "--engine offers 'cuda' in place of 'tpu'",
+    "replan/__init__.py": "exports only delta's names until the replanner "
+                          "is ported",
+    "detector/__init__.py": "exports only the anomaly vocabulary until the "
+                            "detectors are ported",
+}
+
+#: the sub-packages and modules of the served path
+SERVED = ("analyzer/degradation.py", "analyzer/precompute.py",
+          "analyzer/goal_optimizer.py", "client", "detector", "executor",
+          "facade.py", "monitor", "replan", "server", "telemetry",
+          "utils/checksum.py", "utils/locks.py", "utils/metrics.py")
+
+
+def _as_port(text: str) -> str:
+    return text.replace("cruise_control_tpu.", "cruise_control_tpu_torch.")
+
+
+def test_copies_equal_the_reference():
+    drifted = [
+        rel for rel in COPIES
+        if (PORT / rel).read_text() != _as_port((REF / rel).read_text())
+    ]
+    assert drifted == []
+
+
+def test_adapted_modules_differ_from_the_reference():
+    for rel, reason in ADAPTED.items():
+        assert reason and rel not in COPIES
+        port, ref = (PORT / rel).read_text(), (REF / rel).read_text()
+        assert port != _as_port(ref), f"{rel} is a copy: list it in COPIES"
+
+
+def test_every_served_module_is_a_copy_or_adapted():
+    served = set()
+    for entry in SERVED:
+        path = PORT / entry
+        files = [path] if path.is_file() else path.rglob("*.py")
+        served.update(str(f.relative_to(PORT)) for f in files)
+    with_reference = {rel for rel in served if (REF / rel).is_file()}
+    assert with_reference - set(COPIES) - set(ADAPTED) == set()

@@ -38,11 +38,14 @@ def test_import_pulls_in_no_jax_and_no_reference():
     assert res["bad"] == [], res["bad"]
     # the probe really walked the package, the repool, step-loop,
     # what-if, score-only round, corrected-cohort and incremental-rescore
-    # modules included
+    # modules and the served path's included
     for mod in ("analyzer.cuda_optimizer", "ops.grid", "analyzer.pool_kernels",
                 "analyzer.step_graph", "analyzer.step_state", "whatif.engine",
                 "whatif.verdict_kernels", "analyzer.round_kernels",
-                "analyzer.corrected_kernel", "analyzer.rescore_kernels"):
+                "analyzer.corrected_kernel", "analyzer.rescore_kernels",
+                "facade", "server.http_server", "executor.executor",
+                "monitor.load_monitor", "telemetry.tracing",
+                "tools.served_stack"):
         assert f"cruise_control_tpu_torch.{mod}" in res["modules"], mod
 
 

@@ -101,19 +101,23 @@ def test_plan_is_the_same_at_any_chunk(monkeypatch):
     assert plans[1] == plans[16] and plans[1][0]
 
 
-def test_optimizer_keeps_its_loop_for_searches_of_one_shape():
+def test_optimizer_keeps_its_loop_for_searches_of_one_shape(monkeypatch):
     """A second search of the same shape steps on the first one's static
     buffers (on the card: replays its captured chunk) and plans exactly as
-    a fresh optimizer does; another shape gets a loop of its own."""
+    a fresh optimizer does; another shape gets a loop of its own, kept in
+    the first one's place (one loop a device)."""
+    monkeypatch.setattr(C, "_LOOPS", {})
     kw = dict(num_brokers=20, num_racks=5, num_partitions=300)
     opt = C.CudaGoalOptimizer(device="cpu")
     opt.optimize(gen.random_cluster(seed=5, **kw))
-    loop = opt._loop[1]
+    loop = C._LOOPS["cpu"][1]
     state = gen.random_cluster(seed=6, **kw)
     again = opt.optimize(state)
-    assert opt._loop[1] is loop
+    assert C._LOOPS["cpu"][1] is loop
+    del C._LOOPS["cpu"]  # the next search builds a fresh loop
     fresh = C.CudaGoalOptimizer(device="cpu").optimize(state)
+    assert C._LOOPS["cpu"][1] is not loop
     assert again.actions == fresh.actions and again.actions
     opt.optimize(gen.random_cluster(seed=6, num_brokers=20, num_racks=5,
                                     num_partitions=200))
-    assert opt._loop[1] is not loop
+    assert list(C._LOOPS) == ["cpu"] and C._LOOPS["cpu"][1] is not loop
