@@ -118,11 +118,33 @@ Phases, each printing one JSON line; any failure exits non-zero:
    the plan's ``timing_s``, the monitor's sampling and model seconds, the
    second request's spans and the kept loop's bytes.  At 50 / 1 000: an
    executed POST /rebalance leaves the backend at the plan's targets, and
-   POST /whatif's verdicts equal the what-if engine's on the CPU.
+   POST /whatif's verdicts equal the what-if engine's on the CPU.  The
+   1 000 / 20 000 plan's sha256 is the one the stack gave before it took
+   the replan and detector options (``SERVED_MIDSCALE_SHA256``);
+10. replan and self-healing: the same served stack with a delta replanner
+   (the reference's ``ReplanConfig`` defaults), ``replan_heals`` and the
+   anomaly detector (self-healing on for goal violations and broker
+   failures) at 1 000 / 20 000.  A cold GET /proposals leaves the carry;
+   the rates of the partitions on one broker × 1.5 and two windows rolled,
+   a warm GET /proposals rides it (mode ``warm``, no
+   ``replan.warm_failed``, the first repool K10's incremental form over
+   the marked rows, every repool of its first scan call incremental),
+   verified, within the reference's warm bar of a cold
+   plan on the same model (2 %) and equal by sha256 to the carry-less warm
+   search from the same warm start; a zero-delta GET /proposals is served
+   from the snapshot with no kernel launched; a detection cycle heals the
+   hard-goal violations through the replanner (executed, the backend at
+   the plan's targets, a second cycle finds none); a failed broker is
+   evacuated by the broker-failure fix past its self-healing threshold,
+   executed, and by none before it.  Every result's engine ``"cuda"``, no ``analyzer.engine_degraded``, no
+   graph captured after the phase's first plan; each request's and fix's
+   wall-clock beside its ``timing_s`` and each request's model build
+   (its ``facade.model`` spans), the warm plan's K9 / K10 / K11 launches,
+   dirty rows and marked rows, and the carry's bytes on the card.
 
 Every kernel of a path must have launched on that path's run (the plan
 path: K1-K11, the what-if path: K12, the search paths: theirs, K13-K17
-among them; the served path: K1-K12).  The last two lines are the ``{"kernels": [...]}`` summary
+among them; the served path: K1-K12; the replan path: K1-K11).  The last two lines are the ``{"kernels": [...]}`` summary
 and the ``{"ok": true, "device": ...}`` verdict.  Nothing here imports
 JAX.
 """
@@ -3256,6 +3278,9 @@ def served_midscale(journal):
     if any(p["proposals_sha256"] != direct_sha for p in plans) \
             or not rec["actions_sha256_match"]:
         raise AssertionError("the served plan is not the engine's plan")
+    if direct_sha != SERVED_MIDSCALE_SHA256:
+        raise AssertionError(f"the served stack's plan moved: sha256 "
+                             f"{direct_sha}, was {SERVED_MIDSCALE_SHA256}")
     if rec["first"]["graph_captures"] != 1 \
             or rec["second"]["graph_captures"] != 0 \
             or rec["get_proposals"]["graph_captures"] != 0:
@@ -3349,6 +3374,299 @@ def served_phase():
         served_small(journal)
         if journal.recent(kind="analyzer.engine_degraded"):
             raise AssertionError("the cuda engine degraded")
+    finally:
+        events.JOURNAL = prev
+    return launches
+
+
+# ---- phase 10: replan and self-healing --------------------------------------
+
+#: phase 9's 1 000 / 20 000 plan over HTTP, as the served stack builds it
+#: with no replanner and no detector (PERF.md §6): the replan and detector
+#: options must leave that stack as it was
+SERVED_MIDSCALE_SHA256 = (
+    "91deac085b7ee545902989694615346139bb8fde06a38e694fb231bc9fe03a26")
+#: the replan path's kernels: the default plan's
+REPLAN_PATH = _PLAN
+#: the broker whose partitions' rates drift (× 1.5) before the warm replan,
+#: and the broker that fails before the broker-failure self-heal
+DRIFT_BROKER, FAILED_BROKER = 3, 7
+#: a virtual minute of the detector's clock (ms)
+MINUTE_MS = 60_000
+
+
+def replan_record(label, result, seconds, model_s=None):
+    """One engine result of the replan phase: wall-clock beside the pass
+    summary's timing, steps, captures and the warm start's record, and the
+    request's model build (its ``facade.model`` spans) where traced."""
+    summ = result.goal_summaries[0]
+    return {"label": label, "engine": result.engine, "wallclock_s": seconds,
+            "model_build_s": model_s,
+            "duration_s": result.duration_s, "timing_s": summ.get("timing_s"),
+            "steps": summ.get("steps"), "actions": len(result.actions),
+            "graph_captures": summ.get("graph_captures", 0),
+            "repools": summ.get("repools"),
+            "n_incremental_repool": summ.get("n_incremental_repool"),
+            "warm": summ.get("warm"),
+            "violation_score": result.violation_score_after,
+            "violation_score_before": result.violation_score_before}
+
+
+def replan_midscale(journal, device="cuda", scale=MIDSCALE):
+    """Phase 10 at ``scale`` (1 000 / 20 000): the served stack with a
+    delta replanner (the reference's defaults: table carry on, dirty budget
+    0.25 · P), ``replan_heals`` and the anomaly detector (self-healing on
+    for goal violations and broker failures), driven through HTTP and
+    ``run_detection_cycle`` at chosen times.  Cold GET /proposals, a drift
+    and two rolled windows, warm GET /proposals (held to a cold plan and to
+    the carry-less warm search), a zero-delta GET /proposals, a
+    goal-violation fix and a broker-failure fix executed on the cuda
+    engine.  Every kernel counter zeroed just before and read just after.
+    Returns (record, launches)."""
+    from cruise_control_tpu_torch.analyzer import cuda_optimizer as C
+    from cruise_control_tpu_torch.analyzer.goal_optimizer import make_goals
+    from cruise_control_tpu_torch.analyzer.verifier import (
+        verify_result,
+        violation_score,
+    )
+    from cruise_control_tpu_torch.detector import AnomalyType
+    from cruise_control_tpu_torch.models.generators import random_cluster
+    from cruise_control_tpu_torch.replan import ReplanConfig
+    from cruise_control_tpu_torch.server.http_server import (
+        CruiseControlHttpServer,
+    )
+    from cruise_control_tpu_torch.telemetry import tracing
+    from cruise_control_tpu_torch.tools.served_stack import (
+        BROKER_FAILURE_SELF_HEALING_MS,
+        WINDOW_MS,
+        fixture_stack,
+    )
+
+    goals = make_goals()
+    cc, backend, reporter, seconds = fixture_stack(
+        random_cluster(**scale), device=device, replan=ReplanConfig(),
+        replan_heals=True, detector=(AnomalyType.GOAL_VIOLATION,
+                                     AnomalyType.BROKER_FAILURE))
+    rp, mgr = cc.replanner, cc.anomaly_detector
+    P = scale["num_partitions"]
+    srv = CruiseControlHttpServer(cc, port=0)
+    srv.start()
+    recs = {}
+
+    def get_proposals(label):
+        # traced: the request's model build is its facade.model spans
+        tracing.configure(enabled=True)
+        tracing.reset()
+        try:
+            body, s, code = served_request(srv, "get", "proposals",
+                                           verbose="true",
+                                           ignore_proposal_cache="true")
+            model_s = sum(total for path, (_, total)
+                          in tracing.TELEMETRY.aggregates().items()
+                          if path.rsplit("/", 1)[-1] == "facade.model")
+        finally:
+            tracing.configure(enabled=False)
+        if code != 200 or body.get("engine") != "cuda":
+            raise AssertionError(f"{label}: HTTP {code}, engine "
+                                 f"{body.get('engine')!r}: {body}")
+        return rp.snapshot.result, rp.snapshot.state, s, model_s
+
+    def heal(now_ms):
+        t = time.perf_counter()
+        handled = mgr.run_detection_cycle(now_ms=now_ms)
+        return handled, time.perf_counter() - t
+
+    try:
+        for fn in counters().values():
+            fn.launches = 0
+        # cold: no snapshot yet; the plan leaves the carry
+        cold, _, s, model_s = get_proposals("cold")
+        recs["cold"] = replan_record("cold GET /proposals", cold, s, model_s)
+        mode_cold = rp.last_mode
+        carry_cold = (rp.carry.valid, rp.carry.tables is not None)
+        # warm: the rates of the partitions on one broker × 1.5, two
+        # windows rolled (tests/test_replan.py: _drift_broker, _roll_windows)
+        w = reporter.workload
+        drifted = [p for p, reps in w.assignment.items()
+                   if DRIFT_BROKER in reps]
+        for p in drifted:
+            w.bytes_in[p] *= 1.5
+            w.bytes_out[p] *= 1.5
+        t = time.perf_counter()
+        for k in (3, 4):
+            reporter.report(time_ms=k * WINDOW_MS + 500)
+            cc.load_monitor.run_sampling_iteration((k + 1) * WINDOW_MS)
+        seconds["roll_two_windows"] = time.perf_counter() - t
+        # the warm start the served request will take, for the carry-less
+        # search (building it reads the monitor and changes nothing)
+        state, delta, _ = rp.build_model()
+        ws, reason = rp.warm_start_for(state, delta)
+        before = {n: fn.launches for n, fn in counters().items()}
+        warm, warm_state, s, model_s = get_proposals("warm")
+        warm_launches = {n: fn.launches - before[n]
+                         for n, fn in counters().items()}
+        recs["warm"] = replan_record("warm GET /proposals", warm, s, model_s)
+        mode_warm = (rp.last_mode, rp.last_reason)
+        carry_bytes = C.carry_nbytes(rp.carry)
+        warm_failed = bool(journal.recent(kind="replan.warm_failed"))
+        # zero delta: the same model again, served from the snapshot with
+        # no engine call
+        before = {n: fn.launches for n, fn in counters().items()}
+        zero, _, s, model_s = get_proposals("zero delta")
+        zero_launches = sum(fn.launches - before[n]
+                            for n, fn in counters().items())
+        zero_end = journal.recent(kind="replan.end")[-1]["payload"]
+        recs["zero_delta"] = {"wallclock_s": s, "model_build_s": model_s,
+                              "same_result": zero is warm,
+                              "launches": zero_launches,
+                              "short_circuit": zero_end.get("shortCircuit")}
+        # goal-violation self-heal: the fix warm-starts through the
+        # replanner and executes
+        handled, s = heal(0)
+        gv = [a for a in handled
+              if a.anomaly_type == AnomalyType.GOAL_VIOLATION]
+        if len(gv) != 1 or gv[0].fix_result is None:
+            raise AssertionError(f"goal-violation cycle handled "
+                                 f"{[a.description for a in handled]}")
+        fix = gv[0].fix_result
+        recs["goal_violation_fix"] = replan_record("goal-violation fix", fix,
+                                                   s)
+        recs["goal_violation_fix"]["mode"] = rp.last_mode
+        fix_state = rp.snapshot.state
+        off_target = [p for p in fix.proposals if (
+            set(backend.partitions[p.partition].replicas)
+            != set(p.new_replicas)
+            or backend.partitions[p.partition].leader != p.new_leader)]
+        recheck, s = heal(5 * MINUTE_MS)
+        still = [a.description for a in recheck
+                 if a.anomaly_type == AnomalyType.GOAL_VIOLATION]
+        recs["second_cycle"] = {"wallclock_s": s, "goal_violations": still}
+        # broker-failure self-heal: goal-violation healing off (POST
+        # /admin), a broker fails, a cycle before the self-healing
+        # threshold and one past it
+        body, _, code = served_request(
+            srv, "post", "admin",
+            disable_self_healing_for="goal_violation")
+        if code != 200:
+            raise AssertionError(f"POST /admin: HTTP {code}: {body}")
+        backend.failed_brokers.add(FAILED_BROKER)
+        t0 = 10 * MINUTE_MS
+        early, s_early = heal(t0)
+        early_fixed = [a.description for a in early
+                       if a.anomaly_type == AnomalyType.BROKER_FAILURE
+                       and a.fix_result is not None]
+        late, s = heal(t0 + BROKER_FAILURE_SELF_HEALING_MS + MINUTE_MS)
+        bf = [a for a in late if a.anomaly_type == AnomalyType.BROKER_FAILURE]
+        if len(bf) != 1 or bf[0].fix_result is None:
+            raise AssertionError(f"broker-failure cycle handled "
+                                 f"{[a.description for a in late]}")
+        recs["broker_failure_fix"] = replan_record("broker-failure fix",
+                                                   bf[0].fix_result, s)
+        left = sum(FAILED_BROKER in st.replicas
+                   for st in backend.partitions.values())
+        if device == "cuda":
+            torch.cuda.synchronize()
+        launches = {n: fn.launches for n, fn in counters().items()}
+    finally:
+        srv.stop()
+
+    # outside the counted run: the warm plan against a cold plan on the
+    # same model and against the carry-less warm search
+    verify_result(warm_state, warm, goals)
+    t = time.perf_counter()
+    cold_same = C.CudaGoalOptimizer(device=device).optimize(warm_state)
+    recs["cold_same_model"] = replan_record(
+        "cold plan on the warm model", cold_same, time.perf_counter() - t)
+    s_warm = violation_score(warm.final_state, goals)
+    s_cold = violation_score(cold_same.final_state, goals)
+    bar = s_cold + max(1, round(0.02 * s_cold))
+    t = time.perf_counter()
+    plain = C.CudaGoalOptimizer(device=device).optimize(warm_state,
+                                                        warm_start=ws)
+    recs["carryless_warm"] = replan_record(
+        "carry-less warm search", plain, time.perf_counter() - t)
+    verify_result(fix_state, fix, goals)
+    counted = ("cold", "warm", "goal_violation_fix", "broker_failure_fix")
+    rec = {"phase": "replan_1000b_20k", "nvidia_smi": nvidia_smi(),
+           "monitor_s": seconds, "partitions": P,
+           "modes": {"cold": mode_cold, "warm": mode_warm},
+           "carry_after_cold": carry_cold, "carry_bytes": carry_bytes,
+           "drifted_partitions": len(drifted),
+           "dirty_partitions": int(delta.n_dirty_partitions),
+           "dirty_budget": max(1, int(rp.config.dirty_partition_budget_ratio
+                                      * P)),
+           "warm_start_reason": reason,
+           "warm_launches": {n: warm_launches[n] for n in (
+               "recompute_aggregates", "pool_tables", "top_select")},
+           "warm_failed_event": warm_failed,
+           "warm_score": s_warm, "cold_score": s_cold, "warm_bar": bar,
+           "warm_actions_sha256": actions_sha256(warm),
+           "carryless_actions_sha256": actions_sha256(plain),
+           "fix_off_target": len(off_target),
+           "replicas_left_on_failed_broker": left,
+           "broker_failure_first_cycle": [a.description for a in early],
+           "broker_failure_fixed_before_threshold": early_fixed,
+           "broker_failure_first_cycle_s": s_early,
+           "engines": {k: recs[k]["engine"] for k in counted},
+           "launches": {n: launches[n] for n in REPLAN_PATH},
+           "records": recs, "verify_result": True}
+    emit(rec)
+    w_rec = recs["warm"]["warm"] or {}
+    failures = []
+    if mode_cold != "cold" or carry_cold != (True, True):
+        failures.append(f"cold: mode {mode_cold}, carry {carry_cold}")
+    if mode_warm[0] != "warm" or warm_failed:
+        failures.append(f"warm: mode {mode_warm}, warm_failed {warm_failed}")
+    # every repool of the warm plan's first scan call, the first one
+    # included, ran K10's incremental form over the carried tables
+    if not (w_rec.get("table_carry")
+            and 0 <= w_rec["marked_rows"] <= w_rec["rows_budget"]
+            and w_rec["first_call_incremental"]
+            == w_rec["first_call_repools"] >= 1):
+        failures.append(f"the warm plan's first repool was not K10's "
+                        f"incremental form: {w_rec}")
+    if s_warm > bar:
+        failures.append(f"warm score {s_warm} > cold {s_cold}'s bar {bar}")
+    if rec["warm_actions_sha256"] != rec["carryless_actions_sha256"]:
+        failures.append("the warm plan differs from the carry-less one")
+    if not (recs["zero_delta"]["same_result"]
+            and recs["zero_delta"]["launches"] == 0
+            and recs["zero_delta"]["short_circuit"] is True):
+        failures.append(f"zero delta: {recs['zero_delta']}")
+    if off_target or fix.execution is None or not fix.execution.succeeded:
+        failures.append(f"goal-violation fix: {len(off_target)} proposals "
+                        f"off target, execution {fix.execution}")
+    if still:
+        failures.append(f"goal violations after the fix: {still}")
+    bf_exec = bf[0].fix_result.execution
+    if left or bf_exec is None or not bf_exec.succeeded:
+        failures.append(f"{left} replicas left on failed broker "
+                        f"{FAILED_BROKER}, execution {bf_exec}")
+    if early_fixed:
+        failures.append(f"a broker-failure fix ran before the self-healing "
+                        f"threshold: {early_fixed}")
+    if any(e != "cuda" for e in rec["engines"].values()):
+        failures.append(f"engines {rec['engines']}")
+    if any(recs[k]["graph_captures"] for k in counted[1:]):
+        failures.append("a plan after the phase's first captured a graph")
+    if journal.recent(kind="analyzer.engine_degraded"):
+        failures.append("the cuda engine degraded")
+    for name in REPLAN_PATH:
+        if launches[name] <= 0:
+            failures.append(f"the replan path never launched {name}")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return rec, launches
+
+
+def replan_phase(device="cuda", scale=MIDSCALE):
+    """Phase 10 → the replan path's launches at 1 000 / 20 000."""
+    from cruise_control_tpu_torch.telemetry import events
+
+    prev, journal = events.JOURNAL, events.EventJournal(enabled=True)
+    events.JOURNAL = journal
+    try:
+        _, launches = replan_midscale(journal, device, scale)
     finally:
         events.JOURNAL = prev
     return launches
@@ -3640,6 +3958,9 @@ def main() -> int:
     # ---- the served path ------------------------------------------------
     served_launches = served_phase()
 
+    # ---- replan and self-healing ----------------------------------------
+    replan_launches = replan_phase()
+
     # the kernels line: main-path shapes (mid-scale); errors over every case
     cases = [steps[c] for c in steps] + [
         {"whatif_verdict": r} for r in whatif_recs.values()] + [
@@ -3662,6 +3983,7 @@ def main() -> int:
             "replaces": replaces, "launches": launches[name],
             "launches_acting": acting[name],
             "launches_served": served_launches[name],
+            "launches_replan": replan_launches.get(name, 0),
             "max_abs_err": errs[name], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],

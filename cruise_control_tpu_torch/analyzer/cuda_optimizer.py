@@ -718,6 +718,23 @@ def _resync_device_model(m: DeviceModel, ctx: AnalyzerContext) -> DeviceModel:
     return recompute_aggregates(m)
 
 
+@dataclasses.dataclass(frozen=True)
+class CarriedBrokers:
+    """What a :class:`replan.delta.ReplanCarry` keeps of its plan's model,
+    in its ``model`` slot: host copies of the broker capacities and racks
+    the carried row tables were built on.  The next warm start uploads its
+    model in full and takes the tables only while these still hold."""
+
+    capacity: np.ndarray
+    rack: np.ndarray
+
+
+def carry_nbytes(carry) -> int:
+    """Bytes a :class:`replan.delta.ReplanCarry` holds on the device: its
+    row tables."""
+    return sum(t.numel() * t.element_size() for t in carry.tables or ())
+
+
 # ---------------------------------------------------------------------------------
 # The score-only round
 # ---------------------------------------------------------------------------------
@@ -1349,6 +1366,81 @@ class CudaGoalOptimizer:
         ))
         return recompute_aggregates(m)
 
+    def _warm_device_model(self, ctx: AnalyzerContext, warm_start, carry):
+        """The search's device model (always the full upload,
+        :meth:`_device_model`) and the row-table carry its first scan call
+        starts from — the reference's ``_warm_device_model`` (:3120-3225)
+        without its delta re-upload of the model, which lost to the full
+        upload on the card at 1 000 / 20 000 (PERF.md §6, PR 17).  →
+        ``(m, tab, warm)``: ``tab`` ``None`` means cold tables; ``warm`` the
+        record for the pass summary (``None`` on a cold search).
+
+        The carried tables ride along only when the warm start seeds the
+        search at the carried placement bit for bit, on the same broker
+        capacities and racks, with no capacity-estimate loads and no
+        excluded partitions.  Every row whose table inputs may differ is
+        marked for the first repool, which refreshes only those (K10's
+        incremental form): the dirty rows, the rows touched after the
+        tables were captured, and the rows with must-move flags then or
+        now (their repair bonuses ride the tables)."""
+        m = self._device_model(ctx)
+        if warm_start is None:
+            return m, None, None
+        P = ctx.num_partitions
+        dirty = warm_start.dirty_partitions
+        kept = carry.model if carry is not None and carry.valid else None
+        usable = (
+            isinstance(kept, CarriedBrokers)
+            and carry.tables is not None
+            and carry.tables[0].shape[0] == P
+            and carry.tables[0].device == m.assignment.device
+            and np.array_equal(carry.assignment, ctx.assignment)
+            and np.array_equal(carry.leader_slot, ctx.leader_slot)
+            and np.array_equal(kept.capacity, ctx.broker_capacity)
+            and np.array_equal(kept.rack, ctx.broker_rack)
+            and not ctx.cap_distinct
+            and m.leader_cload is None
+            and not ctx.excluded_partition_mask().any()
+        )
+        warm = {"dirty_rows": P if dirty is None else int(np.count_nonzero(
+            dirty)), "table_carry": usable, "marked_rows": None}
+        if not usable:
+            return m, None, warm
+        tpp0 = np.ones(P, bool) if dirty is None else np.array(dirty, bool)
+        if carry.pending_touched is not None:
+            tpp0 |= carry.pending_touched
+        if carry.had_must_move is not None:
+            tpp0 |= carry.had_must_move
+        tpp0 |= np.any(ctx.replica_offline, axis=1)
+        warm["marked_rows"] = int(tpp0.sum())
+        tab = (carry.tables[0], carry.tables[1],
+               torch.as_tensor(tpp0, device=self.device), True)
+        return m, tab, warm
+
+    def _export_carry(self, carry, ctx: AnalyzerContext, tab,
+                      post_table_touched: np.ndarray) -> None:
+        """Keep this plan's end state in ``carry`` for the next warm start
+        (the reference's :3239-3258): host copies of the final placement
+        and of the brokers the row tables were built on, and the row
+        tables with the rows touched since their capture.  The tables are
+        clones the carry alone owns (the scan call returns them cloned),
+        so a search of the same shape, which overwrites the kept step
+        loop's buffers, leaves them as they were."""
+        carry.model = CarriedBrokers(ctx.broker_capacity.copy(),
+                                     ctx.broker_rack.copy())
+        carry.assignment = ctx.assignment.copy()
+        carry.leader_slot = ctx.leader_slot.copy()
+        carry.had_must_move = np.any(ctx.replica_offline, axis=1)
+        if tab is not None and tab[3]:
+            carry.tables = (tab[0], tab[1])
+            # one host read of the touched set, outside any capture
+            carry.pending_touched = (tab[2].cpu().numpy().astype(bool)
+                                     | post_table_touched)
+        else:
+            carry.tables = None
+            carry.pending_touched = None
+        carry.valid = True
+
     def _pool_sizes(self, P: int, S: int, B: int) -> Tuple[int, int]:
         cfg = self.config
         D = max(8, min(B, cfg.max_dest_brokers))
@@ -1367,18 +1459,27 @@ class CudaGoalOptimizer:
         """Plan a rebalance of ``state`` (host-first; a state on the card is
         copied to the host for the exact recheck).  Holds
         :data:`~cruise_control_tpu_torch.utils.device.DEVICE_LOCK`
-        throughout: one search at a time in the process, whichever thread
-        and optimizer ask."""
-        if warm_start is not None or carry is not None:
-            raise NotImplementedError(
-                "warm_start/carry are not ported yet "
-                "(ROADMAP.md A4 (warm start / carry))")
+        throughout, the warm upload and the carry export included: one
+        search at a time in the process, whichever thread and optimizer
+        ask, so no other search runs between a carry's export and the next
+        warm start's read of it.
+
+        ``warm_start`` (a :class:`replan.delta.WarmStart`) seeds the search
+        at a previous plan's final placement and enables the exact
+        signature-based partial re-verification; ``carry`` (a
+        :class:`replan.delta.ReplanCarry`) keeps the pool row tables on the
+        card across plans, and the next warm start's first repool refreshes
+        only their marked rows (:meth:`_warm_device_model`)."""
         with DEVICE_LOCK:
-            return self._optimize(state, options)
+            return self._optimize(state, options, warm_start, carry)
 
     def _optimize(self, state: ClusterState,
-                  options: Optional[OptimizationOptions]) -> OptimizerResult:
+                  options: Optional[OptimizationOptions], warm_start=None,
+                  carry=None) -> OptimizerResult:
         from cruise_control_tpu_torch.analyzer.goal_optimizer import make_goals
+        from cruise_control_tpu_torch.analyzer.verifier import (
+            partial_violations,
+        )
 
         t0 = time.perf_counter()
         state = state.to("cpu")
@@ -1388,22 +1489,34 @@ class CudaGoalOptimizer:
         initial_replica_disk = (
             ctx.replica_disk.copy() if ctx.replica_disk is not None else None
         )
+        if warm_start is not None:
+            ctx.reseed(warm_start.assignment, warm_start.leader_slot,
+                       warm_start.replica_disk)
         goals = make_goals(constraint=self.constraint)
-        violations_before = {g.name: g.violations(ctx) for g in goals}
+        if warm_start is not None:
+            violations_before, _, reused_before = partial_violations(
+                ctx, goals, warm_start.prev_signatures,
+                warm_start.prev_violations,
+                force_full=warm_start.full_verify,
+            )
+        else:
+            violations_before = {g.name: g.violations(ctx) for g in goals}
+            reused_before = []
         stats_before = stats_summary(cluster_stats(state))
         return self._search(
             state, ctx, goals, violations_before, stats_before,
             initial_assignment, initial_leader_slot,
-            initial_replica_disk, t0, self.config,
+            initial_replica_disk, t0, self.config, warm_start=warm_start,
+            carry=carry, reused_before=reused_before,
         )
 
     def _search(
         self, state, ctx, goals, violations_before, stats_before,
         initial_assignment, initial_leader_slot, initial_replica_disk, t0,
-        cfg,
+        cfg, warm_start=None, carry=None, reused_before=(),
     ) -> OptimizerResult:
         t_up = time.perf_counter()
-        m = self._device_model(ctx)
+        m, tab, warm = self._warm_device_model(ctx, warm_start, carry)
         can = self._constraint_arrays_np(ctx)
         ca = {k: torch.as_tensor(v, device=self.device) for k, v in can.items()}
         P, S, B = ctx.num_partitions, ctx.max_rf, ctx.num_brokers
@@ -1426,9 +1539,9 @@ class CudaGoalOptimizer:
         if cfg.steps_per_call and _resolve_scoring(cfg) != "columnar":
             # the device-resident search, then (``polish_rounds``) the
             # score-only rounds as polish on a model resynced from the host
-            m = self._resident_search(ctx, m, cfg, ca, K, D, evaluator,
-                                      actions, pass_summaries, upload_s,
-                                      budget_left)
+            m, tab = self._resident_search(ctx, m, cfg, ca, K, D, evaluator,
+                                           actions, pass_summaries, upload_s,
+                                           budget_left, tab, warm)
             rounds_budget = cfg.polish_rounds
             timing = {"score": 0.0, "fetch": 0.0, "recheck": 0.0,
                       "resync": 0.0}
@@ -1440,8 +1553,12 @@ class CudaGoalOptimizer:
             # score-only configs (steps_per_call=0, scoring="columnar"):
             # the rounds are the search
             rounds_budget = cfg.max_rounds
+            tab = None
             timing = {"upload": upload_s, "score": 0.0, "fetch": 0.0,
                       "recheck": 0.0, "resync": 0.0}
+        #: actions committed past this index postdate the row tables the
+        #: search ended with (polish, swap repair): the carry marks their rows
+        n_actions_at_tables = len(actions)
         if rounds_budget:
             evaluator.goal_tag = ("CudaPolish" if pass_summaries
                                   else "CudaSearch")
@@ -1480,20 +1597,32 @@ class CudaGoalOptimizer:
                 "host swap-repair pass committed %d actions for residual "
                 "hard violations", len(new_actions),
             )
+        if carry is not None:
+            post = np.zeros(ctx.num_partitions, bool)
+            for a in actions[n_actions_at_tables:]:
+                post[a.partition] = True
+                if a.action_type == ActionType.INTER_BROKER_REPLICA_SWAP:
+                    post[a.swap_partition] = True
+            self._export_carry(carry, ctx, tab, post)
         return self._finalize(
             state, ctx, goals, actions, violations_before, stats_before,
             initial_assignment, initial_leader_slot, initial_replica_disk,
-            t0, pass_summaries,
+            t0, pass_summaries, warm_start=warm_start,
+            reused_before=reused_before,
         )
 
     def _resident_search(self, ctx, m, cfg, ca, K: int, D: int, evaluator,
                          actions, pass_summaries, upload_s: float,
-                         budget_left):
+                         budget_left, tab=None, warm=None):
         """The device-resident search: scan calls of up to
         ``steps_per_call`` steps on the card, each call's committed actions
         replayed through the exact host recheck; a rejection resyncs the
-        device model from the host context.  Appends its pass summary and
-        returns the device model it ended with.
+        device model from the host context.  ``tab`` is the row-table carry
+        the first call starts from (``None``: cold tables); ``warm`` the
+        warm upload's record (:meth:`_warm_device_model`), which the pass
+        summary gains with the first call's repools.  Appends its pass
+        summary and returns the device model and the row-table carry it
+        ended with.
 
         With ``time_budget_s`` (the reference's :3515-3594): no call starts
         once ``budget_left()`` is spent, and while it is not None (the hard
@@ -1518,9 +1647,11 @@ class CudaGoalOptimizer:
         #: the anytime deadline's rate model
         step_rate: Optional[float] = None
         device_loop = {"host_syncs": 0, "graph_replays": 0,
-                       "graph_captures": 0, "repools": 0, "n_overflow": 0,
+                       "graph_captures": 0, "repools": 0,
+                       "n_incremental_repool": 0, "n_overflow": 0,
                        "patch_steps": 0}
-        tab = _cold_tables(m)
+        if tab is None:
+            tab = _cold_tables(m)
         # the static buffers (and, on the card, the captured step chunk)
         # every call steps on: kept process-wide for the next search of the
         # same shape on the same card, by this optimizer or another.  The
@@ -1531,6 +1662,11 @@ class CudaGoalOptimizer:
         loop = _take_loop(key) or _StepLoop(m, cfg, ca, consts, K, D, T,
                                             STEP_CHUNK)
         loop.bind(m, ca, consts)
+        if warm is not None:
+            # the first repool refreshes only the marked rows when the
+            # tables ride along and the marks fit the loop's budget (K10
+            # decides on the device; < 0: every repool rebuilds every row)
+            warm = dict(warm, rows_budget=int(loop.rows_budget))
         # host wall-clock by phase: upload (model + aggregates), device
         # (the step loop, whose carry read a chunk waits for the card),
         # fetch (the packed prefix), recheck (exact f64 replay), resync
@@ -1559,6 +1695,10 @@ class CudaGoalOptimizer:
                                  - res.diag["fetch_s"])
             n_calls += 1
             n_steps += int(res.diag["steps_run"])
+            if warm is not None and n_calls == 1:
+                warm.update(first_call_repools=res.diag["repools"],
+                            first_call_incremental=res.diag[
+                                "n_incremental_repool"])
             if t_cap is not None:
                 n_capped += 1
             if cfg.time_budget_s and res.diag["steps_run"] > 0 and not (
@@ -1634,8 +1774,9 @@ class CudaGoalOptimizer:
             # fetches), captured-chunk replays, repools run, and the
             # incremental rescore's overflows and patch steps
             **device_loop,
+            **({} if warm is None else {"warm": warm}),
         })
-        return m
+        return m, tab
 
     def _score_rounds(self, ctx, m, cfg, ca, K: int, D: int, evaluator,
                       actions, pass_summaries, rounds_budget: int,
@@ -1716,9 +1857,31 @@ class CudaGoalOptimizer:
     def _finalize(
         self, state, ctx, goals, actions, violations_before, stats_before,
         initial_assignment, initial_leader_slot, initial_replica_disk, t0,
-        pass_summaries: Optional[List[dict]] = None,
+        pass_summaries: Optional[List[dict]] = None, warm_start=None,
+        reused_before=(),
     ) -> OptimizerResult:
-        violations_after = {g.name: g.violations(ctx) for g in goals}
+        replan_verify = None
+        if warm_start is not None:
+            # the partial re-verification: a goal whose inputs are
+            # bit-identical to the previously verified final state reuses
+            # that verdict exactly; replan.full.verify forces the full pass
+            from cruise_control_tpu_torch.analyzer.verifier import (
+                partial_violations,
+            )
+
+            violations_after, sigs_after, reused_after = partial_violations(
+                ctx, goals, warm_start.prev_signatures,
+                warm_start.prev_violations,
+                force_full=warm_start.full_verify,
+            )
+            replan_verify = {
+                "signatures": sigs_after,
+                "reusedBefore": list(reused_before),
+                "reusedAfter": list(reused_after),
+                "fullVerify": bool(warm_start.full_verify),
+            }
+        else:
+            violations_after = {g.name: g.violations(ctx) for g in goals}
         # same contract as GoalOptimizer: a plan that leaves hard goals
         # violated must not reach the executor
         from cruise_control_tpu_torch.analyzer.goals.base import (
@@ -1755,12 +1918,13 @@ class CudaGoalOptimizer:
             analyze_provisioning_arrays,
         )
 
-        return OptimizerResult(
+        result = OptimizerResult(
             proposals=diff_proposals(
                 initial_assignment, initial_leader_slot, ctx,
                 initial_replica_disk,
             ),
-            actions=actions,
+            actions=(list(warm_start.prev_actions) + actions
+                     if warm_start is not None else actions),
             violations_before=violations_before,
             violations_after=violations_after,
             stats_before=stats_before,
@@ -1773,3 +1937,6 @@ class CudaGoalOptimizer:
             ),
             goal_summaries=list(pass_summaries or ()),
         )
+        if replan_verify is not None:
+            result.replan_verify = replan_verify
+        return result

@@ -1137,7 +1137,10 @@ class CruiseControl:
             **op_extra,
         )
         t0 = time.perf_counter()
-        kwargs = self.replanner.engine_kwargs(warm) if warm else {}
+        # a cold plan takes the carry too (warm_start=None): it exports its
+        # device model and row tables, so the first warm plan after it
+        # already rides them
+        kwargs = self.replanner.engine_kwargs(warm)
         try:
             result = self._goal_based_operation(
                 operation, state, None, OptimizationOptions(), dryrun,
@@ -1159,6 +1162,7 @@ class CruiseControl:
             result = self._goal_based_operation(
                 operation, state, None, OptimizationOptions(), dryrun,
                 engine, progress, strategy,
+                **self.replanner.engine_kwargs(None),
             )
         self.replanner.commit(state, result, generation, agg_mark)
         self.replanner.record_mode(mode, reason)

@@ -15,11 +15,19 @@ Two fixtures:
   cluster is feasible by construction (:func:`capacity_for`).
 
 Both sample metric windows (three unless told otherwise) before they
-return, so the monitor can build a model at once.  The facade plans on
-``engine``, ``"cuda"`` unless the caller asks for ``"greedy"`` (the
-reference harness's default), and the cuda engine runs on ``device``,
-``"cuda"`` unless the caller asks for ``"cpu"``, where the kernels' plain
-twins run.
+return, so the monitor can build a model at once.  Both take the
+incremental-replan and self-healing wiring as options, off by default:
+``replan`` (a :class:`~cruise_control_tpu_torch.replan.ReplanConfig`)
+attaches a :class:`~cruise_control_tpu_torch.replan.DeltaReplanner` to the
+facade, ``replan_heals=True`` routes the detector's full-stack rebalance
+fixes through it, and ``detector`` (the anomaly types to self-heal, ``()``
+for none) attaches the anomaly detector manager (``cc.anomaly_detector``)
+with a :class:`~cruise_control_tpu_torch.detector.SelfHealingNotifier`,
+wired as the reference's ``bootstrap.build_app`` wires them.  The facade
+plans on ``engine``, ``"cuda"`` unless the caller asks for ``"greedy"``
+(the reference harness's default), and the cuda engine runs on
+``device``, ``"cuda"`` unless the caller asks for ``"cpu"``, where the
+kernels' plain twins run.
 
 In-process, on the card::
 
@@ -34,16 +42,34 @@ In-process, on the card::
     srv.start()
     plan = CruiseControlClient(srv.url).post("rebalance", dryrun="true")
     srv.stop()
+
+A replan and a self-healing cycle, in-process (``device="cpu"`` runs the
+kernels' plain twins)::
+
+    from cruise_control_tpu_torch.detector import AnomalyType
+    from cruise_control_tpu_torch.replan import ReplanConfig
+
+    cc, backend, reporter, _ = fixture_stack(
+        random_cluster(seed=42), replan=ReplanConfig(), replan_heals=True,
+        detector=(AnomalyType.GOAL_VIOLATION,))
+    cc.get_proposals(ignore_cache=True)        # cold; the carry is kept
+    ...                                        # roll metric windows
+    cc.get_proposals(ignore_cache=True)        # warm, riding the carry
+    cc.anomaly_detector.run_detection_cycle(now_ms=0)   # detect and heal
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 
 from cruise_control_tpu_torch.common.resources import EMPTY_SLOT, Resource
+from cruise_control_tpu_torch.detector.anomalies import AnomalyType
+from cruise_control_tpu_torch.detector.manager import make_detector_manager
+from cruise_control_tpu_torch.detector.notifier import SelfHealingNotifier
 from cruise_control_tpu_torch.executor.backend import SimulatedClusterBackend
 from cruise_control_tpu_torch.executor.executor import Executor, ExecutorConfig
 from cruise_control_tpu_torch.facade import CruiseControl
@@ -58,9 +84,48 @@ from cruise_control_tpu_torch.monitor.sampling import (
     SimulatedMetricsReporter,
     WorkloadModel,
 )
+from cruise_control_tpu_torch.replan.planner import (
+    DeltaReplanner,
+    ReplanConfig,
+)
 
 #: metric window length (ms); the monitor keeps five
 WINDOW_MS = 1000
+#: the hard goals, the default of the anomaly.detection.goals config key
+HARD_GOALS = ("RackAwareGoal", "ReplicaCapacityGoal", "DiskCapacityGoal",
+              "NetworkInboundCapacityGoal", "NetworkOutboundCapacityGoal",
+              "CpuCapacityGoal")
+
+
+#: the reference bootstrap's defaults for the detector (ms):
+#: broker.failure.alert.threshold.ms, broker.failure.self.healing.
+#: threshold.ms, anomaly.detection.interval.ms and self.healing.cooldown.ms
+BROKER_FAILURE_ALERT_MS = 900_000
+BROKER_FAILURE_SELF_HEALING_MS = 1_800_000
+DETECTION_INTERVAL_MS = 300_000
+SELF_HEALING_COOLDOWN_MS = 300_000
+
+
+def _attach_detector(cc: CruiseControl, backend,
+                     self_healing: Sequence[AnomalyType]):
+    """The detector manager over ``cc`` and ``backend``, as the reference's
+    bootstrap builds it under its default config: a self-healing notifier
+    on for the ``self_healing`` anomaly types, the hard goals as the goals
+    whose violation is an anomaly (anomaly.detection.goals).  It attaches
+    itself as ``cc.anomaly_detector``; no timer thread runs until the
+    caller starts one (``manager.start()``)."""
+    notifier = SelfHealingNotifier(
+        enabled={t: t in self_healing for t in AnomalyType},
+        broker_failure_alert_threshold_ms=BROKER_FAILURE_ALERT_MS,
+        broker_failure_self_healing_threshold_ms=(
+            BROKER_FAILURE_SELF_HEALING_MS),
+    )
+    return make_detector_manager(
+        cc, backend=backend, notifier=notifier,
+        detection_goal_names=list(HARD_GOALS),
+        detection_interval_ms=DETECTION_INTERVAL_MS,
+        fix_cooldown_ms=SELF_HEALING_COOLDOWN_MS,
+    )
 
 
 def capacity_for(w: WorkloadModel, num_brokers: int,
@@ -117,7 +182,9 @@ def _backend(w: WorkloadModel, brokers, failed_brokers=None):
 
 def _stack(w: WorkloadModel, backend, broker_rack: Dict[int, int], *,
            windows: int, engine: str, device, capacity_resolver=None,
-           partition_topic: Optional[Dict[int, str]] = None):
+           partition_topic: Optional[Dict[int, str]] = None,
+           replan: Optional[ReplanConfig] = None, replan_heals: bool = False,
+           detector: Optional[Sequence[AnomalyType]] = None):
     topic = MetricsTopic()
     reporter = SimulatedMetricsReporter(w, topic)
     monitor = LoadMonitor(
@@ -130,8 +197,13 @@ def _stack(w: WorkloadModel, backend, broker_rack: Dict[int, int], *,
     for wdx in range(windows):
         reporter.report(time_ms=wdx * WINDOW_MS + 500)
         monitor.run_sampling_iteration((wdx + 1) * WINDOW_MS)
+    replanner = (None if replan is None
+                 else DeltaReplanner(monitor, dataclasses.replace(replan)))
     cc = CruiseControl(monitor, Executor(backend, ExecutorConfig()),
-                       engine=engine, device=device)
+                       engine=engine, device=device, replanner=replanner,
+                       replan_heals=replan_heals)
+    if detector is not None:
+        _attach_detector(cc, backend, detector)
     return cc, backend, reporter
 
 
@@ -144,8 +216,12 @@ def full_stack(
     failed_brokers=None,
     engine="cuda",
     device="cuda",
+    replan: Optional[ReplanConfig] = None,
+    replan_heals: bool = False,
+    detector: Optional[Sequence[AnomalyType]] = None,
 ):
-    """The whole system over a skewed simulated cluster.
+    """The whole system over a skewed simulated cluster (``replan``,
+    ``replan_heals`` and ``detector`` as in the module doc).
     Returns (cruise_control, backend, reporter)."""
     w, brokers = skewed_workload(
         num_partitions, num_brokers, rf, extra_brokers=extra_brokers
@@ -153,7 +229,8 @@ def full_stack(
     return _stack(
         w, _backend(w, brokers, failed_brokers),
         {b: b % 2 for b in sorted(brokers)}, windows=windows,
-        engine=engine, device=device,
+        engine=engine, device=device, replan=replan,
+        replan_heals=replan_heals, detector=detector,
     )
 
 
@@ -186,7 +263,10 @@ def workload_from_state(state) -> Tuple[WorkloadModel, Dict[int, int],
     return w, rack, topics
 
 
-def fixture_stack(state, engine="cuda", device="cuda"):
+def fixture_stack(state, engine="cuda", device="cuda",
+                  replan: Optional[ReplanConfig] = None,
+                  replan_heals: bool = False,
+                  detector: Optional[Sequence[AnomalyType]] = None):
     """The served stack over ``state``'s cluster (see the module doc).
 
     Returns (cruise_control, backend, reporter, seconds) where
@@ -198,6 +278,7 @@ def fixture_stack(state, engine="cuda", device="cuda"):
     cc, backend, reporter = _stack(
         w, backend, rack, windows=3, engine=engine, device=device,
         capacity_resolver=capacity_for(w, state.num_brokers),
-        partition_topic=topics,
+        partition_topic=topics, replan=replan, replan_heals=replan_heals,
+        detector=detector,
     )
     return cc, backend, reporter, {"sampling": time.perf_counter() - t0}

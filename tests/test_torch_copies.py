@@ -21,7 +21,8 @@ COPIES = (
     "analyzer/provision.py", "analyzer/verifier.py",
     "client/__init__.py",
     "common/__init__.py", "common/resources.py",
-    "detector/anomalies.py",
+    "detector/__init__.py", "detector/anomalies.py", "detector/detectors.py",
+    "detector/manager.py", "detector/notifier.py",
     "executor/__init__.py", "executor/backend.py",
     "executor/concurrency.py", "executor/executor.py", "executor/journal.py",
     "executor/notifier.py", "executor/tasks.py", "executor/throttle.py",
@@ -29,7 +30,7 @@ COPIES = (
     "monitor/__init__.py", "monitor/aggregator.py", "monitor/capacity.py",
     "monitor/load_monitor.py", "monitor/metric_defs.py",
     "monitor/sample_store.py", "monitor/sampling.py",
-    "replan/delta.py",
+    "replan/__init__.py", "replan/delta.py", "replan/planner.py",
     "server/__init__.py", "server/admission.py", "server/progress.py",
     "server/purgatory.py", "server/security.py", "server/user_tasks.py",
     "telemetry/__init__.py", "telemetry/critical_path.py",
@@ -41,7 +42,8 @@ COPIES = (
 ADAPTED = {
     "facade.py": "engine 'cuda' (CudaGoalOptimizer) in place of 'tpu' "
                  "and the default, cuda_config and a device argument, no "
-                 "degradation to the CPU on the card, torch broker states",
+                 "degradation to the CPU on the card, torch broker states, "
+                 "a cold replan hands the engine the carry",
     "server/http_server.py": "profile/kernels, profile/mesh and "
                              "profile/host answer 503 until their "
                              "observatories are ported",
@@ -51,10 +53,6 @@ ADAPTED = {
                                "families; the device families are not "
                                "ported yet",
     "client/cccli.py": "--engine offers 'cuda' in place of 'tpu'",
-    "replan/__init__.py": "exports only delta's names until the replanner "
-                          "is ported",
-    "detector/__init__.py": "exports only the anomaly vocabulary until the "
-                            "detectors are ported",
 }
 
 #: the sub-packages and modules of the served path

@@ -42,6 +42,7 @@ from cruise_control_tpu_torch.analyzer.verifier import (
 )
 from cruise_control_tpu_torch.models import generators as gen
 from cruise_control_tpu_torch.models.convert import device_model_from_numpy
+from cruise_control_tpu_torch.replan.delta import WarmStart
 
 FAST = dict(max_rounds=40, topk_per_round=128, max_moves_per_round=32)
 
@@ -75,9 +76,13 @@ def test_out_of_slice_knobs_raise(knob):
 def test_warm_start_and_mesh_raise():
     with pytest.raises(NotImplementedError, match="A11"):
         CudaGoalOptimizer(device="cpu", mesh=object())
+    # a warm start is served (tests/test_torch_warm_engine.py); one whose
+    # seed has another shape than the model raises
     state = gen.random_cluster(seed=1, num_brokers=6, num_partitions=20)
-    with pytest.raises(NotImplementedError, match="warm"):
-        CudaGoalOptimizer(device="cpu").optimize(state, warm_start=object())
+    seed = np.asarray(state.assignment)[:10]
+    warm = WarmStart(assignment=seed, leader_slot=np.zeros(10, np.int32))
+    with pytest.raises(AssertionError, match="seed shape drift"):
+        CudaGoalOptimizer(device="cpu").optimize(state, warm_start=warm)
 
 
 def test_unknown_knob_values_rejected():

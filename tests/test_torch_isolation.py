@@ -38,14 +38,16 @@ def test_import_pulls_in_no_jax_and_no_reference():
     assert res["bad"] == [], res["bad"]
     # the probe really walked the package, the repool, step-loop,
     # what-if, score-only round, corrected-cohort and incremental-rescore
-    # modules and the served path's included
+    # modules, the served path's and the replanner's and detector's
+    # included
     for mod in ("analyzer.cuda_optimizer", "ops.grid", "analyzer.pool_kernels",
                 "analyzer.step_graph", "analyzer.step_state", "whatif.engine",
                 "whatif.verdict_kernels", "analyzer.round_kernels",
                 "analyzer.corrected_kernel", "analyzer.rescore_kernels",
                 "facade", "server.http_server", "executor.executor",
                 "monitor.load_monitor", "telemetry.tracing",
-                "tools.served_stack"):
+                "tools.served_stack", "replan.planner", "detector.manager",
+                "detector.detectors"):
         assert f"cruise_control_tpu_torch.{mod}" in res["modules"], mod
 
 
