@@ -140,11 +140,40 @@ Phases, each printing one JSON line; any failure exits non-zero:
    graph captured after the phase's first plan; each request's and fix's
    wall-clock beside its ``timing_s`` and each request's model build
    (its ``facade.model`` spans), the warm plan's K9 / K10 / K11 launches,
-   dirty rows and marked rows, and the carry's bytes on the card.
+   dirty rows and marked rows, and the carry's bytes on the card;
+11. the standalone server, as users start it.  (a) In process at
+   1 000 brokers / 20 000 partitions (replication factor 3, 20 racks): a
+   properties file (``APP_PROPS``: 1 s metric windows, the replanner,
+   its heals and self-healing on), ``bootstrap.load_properties``, the
+   port's registry, ``bootstrap.build_app`` on the card; three metric
+   windows fed, the server started with the flight recorder, the SLO
+   engine and the host profiler running at their defaults while the
+   process's first plan captures the step chunk (the loop phase 10 kept
+   is dropped, as a fresh process has none; whether its key matches is
+   recorded).  Through the port's client: POST /rebalance (dry run)
+   twice, GET /proposals, POST /whatif (the likely futures), then GET
+   /state, /load, /diagnostics, /slo, /metrics (its ``cc_host_*``
+   families) and /ui (200 each), /profile/host armed before the plans
+   and polled to its artifact, /profile/kernels 503.  Every plan's
+   engine ``"cuda"``, no ``analyzer.engine_degraded`` event, each plan
+   verified and equal by sha256 to ``CudaGoalOptimizer`` at the app's
+   ``cuda.search.*`` config on the app's model, whose sha256 must be the
+   one the greedy bar was taken on; each plan's violation score no worse
+   than the port's greedy on that model (``APP_GREEDY_SCORE_BAR``, from
+   ``python3 chip_smoke.py --app-greedy-bar``: the greedy takes tens of
+   minutes of host time here); the what-if verdicts equal
+   ``evaluate_batch`` on the model; K1-K12 launched.  (b) ``python -m
+   cruise_control_tpu_torch <props> 0`` as a subprocess at 50 / 1 000:
+   its URL from the ``listening on`` line, GET /state polled to a valid
+   window, POST /rebalance answered on engine ``"cuda"``, then SIGTERM:
+   exit 0 within 30 s.  Each request's wall-clock beside its
+   ``timing_s``, the sampling and model-build seconds, the kept loop's
+   bytes and the subprocess's seconds to its first plan.
 
 Every kernel of a path must have launched on that path's run (the plan
 path: K1-K11, the what-if path: K12, the search paths: theirs, K13-K17
-among them; the served path: K1-K12; the replan path: K1-K11).  The last two lines are the ``{"kernels": [...]}`` summary
+among them; the served path: K1-K12; the replan path: K1-K11; the
+standalone server: K1-K12).  The last two lines are the ``{"kernels": [...]}`` summary
 and the ``{"ok": true, "device": ...}`` verdict.  Nothing here imports
 JAX.
 """
@@ -3672,11 +3701,407 @@ def replan_phase(device="cuda", scale=MIDSCALE):
     return launches
 
 
+# ---- phase 11: the standalone server -----------------------------------------
+
+#: phase 11 (a)'s properties: the simulated cluster at full width (its
+#: synthetic workload: partition p on brokers p, p + 1, p + 2, rates drawn
+#: from ``simulation.seed``), 1 s metric windows, the replanner and
+#: self-healing on; everything else at the registry's defaults
+APP_PROPS = {
+    "simulation.num.brokers": 1000, "simulation.num.partitions": 20_000,
+    "simulation.replication.factor": 3, "simulation.num.racks": 20,
+    "metric.sampling.interval.ms": 1000, "partition.metrics.window.ms": 1000,
+    "replan.enabled": "true", "replan.heal.enabled": "true",
+    "self.healing.enabled": "true",
+}
+#: phase 11 (b)'s properties: 50 brokers / 1 000 partitions, 1 s windows
+APP_SMALL_PROPS = {
+    "simulation.num.brokers": 50, "simulation.num.partitions": 1000,
+    "metric.sampling.interval.ms": 1000, "partition.metrics.window.ms": 1000,
+}
+#: the sha256 of phase 11 (a)'s model (its placement, loads, capacities,
+#: racks, broker states and topics) and the port's greedy engine's
+#: violation score on it (2 154 before), from ``python3 chip_smoke.py
+#: --app-greedy-bar`` on the H100 machine: the greedy took 2 030 s of host
+#: time there, too long for this script's run
+APP_MODEL_SHA256 = (
+    "1474aef5f53aacdb56d9627e19caf08cf1f431391ceb4f5fa0995b368cc226c3")
+APP_GREEDY_SCORE_BAR = 1700
+#: the GETs phase 11 (a) reads after its plans, each of which must answer
+#: 200
+APP_GETS = ("state", "load", "diagnostics", "slo", "metrics", "ui")
+
+
+def write_properties(path, props) -> None:
+    with open(path, "w") as f:
+        f.write("".join(f"{k}={v}\n" for k, v in props.items()))
+
+
+def model_sha256(state) -> str:
+    """The digest of a model's placement, loads, capacities and racks."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for name in ("assignment", "leader_slot", "leader_load", "follower_load",
+                 "broker_capacity", "broker_rack", "broker_state",
+                 "partition_topic"):
+        h.update(getattr(state, name).detach().cpu().contiguous().numpy()
+                 .tobytes())
+    return h.hexdigest()
+
+
+def app_get(app, endpoint: str, **params):
+    """A GET against the app's server through urllib: (body, seconds,
+    status); ``ui`` and ``metrics`` return their text."""
+    import urllib.error
+    import urllib.parse
+    import urllib.request
+
+    base = app.server.url
+    url = (base.replace("/kafkacruisecontrol", "/ui") if endpoint == "ui"
+           else f"{base}/{endpoint}")
+    if params:
+        url += "?" + urllib.parse.urlencode(params)
+    t = time.perf_counter()
+    try:
+        with urllib.request.urlopen(url, timeout=900) as resp:
+            raw, code = resp.read().decode(), resp.status
+    except urllib.error.HTTPError as e:
+        raw, code = e.read().decode(), e.code
+    seconds = time.perf_counter() - t
+    if endpoint in ("ui", "metrics"):
+        return raw, seconds, code
+    return json.loads(raw or "{}"), seconds, code
+
+
+def build_app_from(props, tmp):
+    """``python -m``'s path in process: a properties file, the registry,
+    ``bootstrap.build_app`` on the card.  Returns (app, config)."""
+    import os
+
+    from cruise_control_tpu_torch.bootstrap import build_app, load_properties
+    from cruise_control_tpu_torch.config.cruise_control_config import (
+        CruiseControlConfig,
+    )
+
+    path = os.path.join(tmp, "cc.properties")
+    write_properties(path, props)
+    cfg = CruiseControlConfig(load_properties(path))
+    return build_app(cfg, port=0), cfg
+
+
+def feed_app(app, windows: int = 3, window_ms: int = 1000) -> float:
+    """Three metric windows reported and fetched, as the reference's
+    bootstrap test feeds them; returns the seconds it took."""
+    t = time.perf_counter()
+    for w in range(windows):
+        app.reporter.report(time_ms=w * window_ms + 500)
+    app.fetcher_manager.fetch_once(now_ms=(windows + 1) * window_ms)
+    return time.perf_counter() - t
+
+
+def app_greedy_bar() -> dict:
+    """The port's greedy engine on phase 11 (a)'s model (the facade's
+    ``greedy`` engine: default goals, the app's constraint)."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        app, _ = build_app_from(APP_PROPS, tmp)
+        try:
+            sampling_s = feed_app(app)
+            cc = app.cruise_control
+            model = cc.load_monitor.cluster_model()
+            t = time.perf_counter()
+            greedy = cc._make_engine("greedy").optimize(model)
+            rec = {"phase": "app_greedy_bar", "nvidia_smi": nvidia_smi(),
+                   "model_sha256": model_sha256(model),
+                   "sampling_s": sampling_s,
+                   "greedy_s": time.perf_counter() - t,
+                   "violation_score_before": greedy.violation_score_before,
+                   "violation_score": greedy.violation_score_after,
+                   "actions": len(greedy.actions)}
+        finally:
+            app.shutdown()
+    emit(rec)
+    return rec
+
+
+def app_inprocess(journal):
+    """Phase 11 (a): the standalone server at 1 000 brokers / 20 000
+    partitions, built in process as ``python -m`` builds it, with its
+    recorder, SLO engine and host profiler running at their defaults.
+    Every kernel counter zeroed just before the requests and read just
+    after.  Returns (record, launches)."""
+    import gc
+    import tempfile
+    import threading
+
+    from cruise_control_tpu_torch.analyzer import cuda_optimizer as C
+    from cruise_control_tpu_torch.analyzer.goal_optimizer import make_goals
+    from cruise_control_tpu_torch.analyzer.verifier import verify_result
+    from cruise_control_tpu_torch.bootstrap import _cuda_search_config
+    from cruise_control_tpu_torch.server.http_server import (
+        _optimizer_response,
+    )
+    from cruise_control_tpu_torch.whatif.compiler import compile_futures
+    from cruise_control_tpu_torch.whatif.engine import (
+        evaluate_batch,
+        verdicts,
+    )
+    from cruise_control_tpu_torch.whatif.futures import likely_futures
+
+    # a fresh server process keeps no step loop: its first plan captures
+    # one while the recorder, SLO and host-profiler threads run.  The loop
+    # phase 10 left is dropped; its key says whether this process would
+    # have reused it
+    slot = "cuda:0"
+    kept_key = C._LOOPS[slot][0] if slot in C._LOOPS else None
+    C._LOOPS.clear()
+    gc.collect()
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        app, cfg = build_app_from(APP_PROPS, tmp)
+    build_s = time.perf_counter() - t
+    threads_live = sorted(th.name for th in threading.enumerate())
+    try:
+        cc = app.cruise_control
+        sampling_s = feed_app(app)
+        t = time.perf_counter()
+        model = cc.load_monitor.cluster_model()
+        model_s = time.perf_counter() - t
+        app.server.start()
+        # the host profiler's capture runs while the plans do; the SLO
+        # tick builds its artifact
+        armed = app_get(app, "profile/host", arm="true")
+        results = []
+        for name in ("rebalance", "serve_proposals"):
+            run = getattr(cc, name)
+
+            def spy(*a, _run=run, **kw):
+                out = _run(*a, **kw)
+                results.append(out[0] if isinstance(out, tuple) else out)
+                return out
+
+            setattr(cc, name, spy)
+        for fn in counters().values():
+            fn.launches = 0
+        first = served_request(app.server, "post", "rebalance",
+                               dryrun="true", verbose="true", **LONG_POLL)
+        second = served_request(app.server, "post", "rebalance",
+                                dryrun="true", verbose="true", **LONG_POLL)
+        get_props = served_request(app.server, "get", "proposals",
+                                   verbose="true")
+        whatif = served_request(app.server, "post", "whatif", **LONG_POLL)
+        torch.cuda.synchronize()
+        launches = {n: fn.launches for n, fn in counters().items()}
+        gets = {e: app_get(app, e) for e in APP_GETS}
+        kernels_503 = app_get(app, "profile/kernels")
+        deadline = time.monotonic() + 120
+        while True:
+            host = app_get(app, "profile/host")
+            if host[2] != 202 or time.monotonic() > deadline:
+                break
+            time.sleep(0.5)
+        loop_key, loop = C._LOOPS[slot]
+        gc.collect()
+        mem_loop = torch.cuda.memory_allocated() - mem0
+        # the direct engine on the facade's own model, at the app's config
+        direct = C.CudaGoalOptimizer(
+            config=_cuda_search_config(cfg), device="cuda").optimize(model)
+        direct_sha = proposals_sha256(json.loads(json.dumps(
+            _optimizer_response(direct, {"verbose": "true"})["proposals"])))
+        futures = likely_futures(model, k=8)
+        batch = compile_futures(model, futures)
+        want = verdicts(batch, evaluate_batch(
+            model, batch, capacity_scale=cc._whatif_capacity_scale(),
+            device="cuda"))
+        goals = make_goals(constraint=cc.constraint)
+        for res in results:
+            verify_result(model, res, goals)
+    finally:
+        app.shutdown()
+    sha = model_sha256(model)
+    plans = {"first": first, "second": second, "get_proposals": get_props}
+    rec = {"phase": "app_1000b_20k", "nvidia_smi": nvidia_smi(),
+           "build_app_s": build_s, "sampling_s": sampling_s,
+           "model_s": model_s, "model_sha256": sha,
+           "threads": threads_live,
+           "plans": {k: check_served(k, *v, journal)
+                     for k, v in plans.items()},
+           "results_verified": len(results),
+           "direct_sha256": direct_sha,
+           "direct_timing_s": direct.goal_summaries[0]["timing_s"],
+           "greedy_score_bar": APP_GREEDY_SCORE_BAR,
+           "whatif": {"status": whatif[2], "wallclock_s": whatif[1],
+                      "futures": whatif[0].get("numFutures"),
+                      "equals_engine": whatif[0].get("verdicts") == want},
+           "gets": {e: {"status": code, "wallclock_s": s}
+                    for e, (_, s, code) in gets.items()},
+           "profile_host": {"arm_status": armed[2], "status": host[2],
+                            "schema": (host[0].get("schema")
+                                       if host[2] == 200 else None)},
+           "profile_kernels_status": kernels_503[2],
+           "diagnostics_schema": gets["diagnostics"][0].get("schema"),
+           "slo_schema": gets["slo"][0].get("schema"),
+           "metrics_has_cc_host": "cc_host_" in gets["metrics"][0],
+           "ui_has_cuda": "<option>cuda</option>" in gets["ui"][0],
+           "loop_tensor_bytes": tensor_bytes(loop),
+           "loop_memory_delta_bytes": mem_loop,
+           "loop_key_as_phase_10": kept_key == loop_key,
+           "launches": {n: launches[n] for n in SERVED_PATH}}
+    emit(rec)
+    if any(p["proposals_sha256"] != direct_sha
+           for p in rec["plans"].values()):
+        raise AssertionError("the app's plans are not the engine's plan "
+                             "on its model")
+    if rec["plans"]["first"]["graph_captures"] != 1:
+        raise AssertionError("the app's first plan captured "
+                             f"{rec['plans']['first']['graph_captures']} "
+                             "step chunks (want 1)")
+    if len(results) != 3:
+        raise AssertionError(f"{len(results)} plans verified (want 3)")
+    if sha != APP_MODEL_SHA256:
+        raise AssertionError(f"the app's model moved: sha256 {sha}, the "
+                             f"greedy bar's was {APP_MODEL_SHA256}")
+    if any(p["violation_score"] > APP_GREEDY_SCORE_BAR
+           for p in rec["plans"].values()):
+        raise AssertionError(f"the app's plans score above the port's "
+                             f"greedy ({APP_GREEDY_SCORE_BAR})")
+    if whatif[2] != 200 or not rec["whatif"]["equals_engine"]:
+        raise AssertionError(f"POST /whatif: {rec['whatif']}")
+    bad = {e: code for e, (_, _, code) in gets.items() if code != 200}
+    if bad or not rec["metrics_has_cc_host"] or not rec["ui_has_cuda"] \
+            or rec["diagnostics_schema"] != "cc-tpu-flight-recorder/1" \
+            or rec["slo_schema"] != "cc-tpu-slo/1":
+        raise AssertionError(f"the app's GETs: {rec['gets']}")
+    if (armed[2], host[2], kernels_503[2]) != (202, 200, 503) \
+            or rec["profile_host"]["schema"] != "cc-tpu-host-profile/1":
+        raise AssertionError(f"GET /profile/host {armed[2]} then {host[2]}, "
+                             f"/profile/kernels {kernels_503[2]}")
+    for name in SERVED_PATH:
+        if launches[name] <= 0:
+            raise AssertionError(f"the app never launched {name}")
+    return rec, launches
+
+
+def app_subprocess():
+    """Phase 11 (b): ``python -m cruise_control_tpu_torch <props> 0`` as a
+    user starts it, at 50 brokers / 1 000 partitions: its URL from the
+    ``listening on`` line, GET /state polled until the monitor has a valid
+    window, then one POST /rebalance (200, engine ``"cuda"``), then
+    SIGTERM: exit 0 within 30 s."""
+    import os
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "cc.properties")
+        write_properties(path, APP_SMALL_PROPS)
+        log_path = os.path.join(tmp, "server.log")
+        with open(log_path, "w") as log:
+            rec = run_server_process(path, log)
+        if rec.get("rc") != 0:
+            with open(log_path) as f:
+                rec["server_log_tail"] = f.read()[-4000:]
+    emit(rec)
+    if rec.get("engine") != "cuda" or rec.get("rc") != 0:
+        raise AssertionError(f"python -m cruise_control_tpu_torch: {rec}")
+    return rec
+
+
+def run_server_process(path, log) -> dict:
+    """Start ``python -m cruise_control_tpu_torch <path> 0`` (stderr to
+    ``log``), plan once through it, SIGTERM it; always leaves it
+    stopped.  Returns the record (``rc`` None while it has not exited on
+    its own)."""
+    import os
+    import pathlib
+    import signal
+    import threading
+
+    from cruise_control_tpu_torch.client.cccli import CruiseControlClient
+
+    root = str(pathlib.Path(__file__).resolve().parent)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "cruise_control_tpu_torch", path, "0"],
+        cwd=root, stdout=subprocess.PIPE, stderr=log, text=True,
+        env={**os.environ, "PYTHONUNBUFFERED": "1"})
+    lines = []
+
+    def drain():
+        for line in proc.stdout:
+            lines.append(line.rstrip("\n"))
+
+    reader = threading.Thread(target=drain, daemon=True)
+    reader.start()
+    rec = {"phase": "app_subprocess_50b_1k", "rc": None}
+    try:
+        deadline = time.monotonic() + 180
+        url = None
+        while url is None and time.monotonic() < deadline \
+                and proc.poll() is None:
+            url = next((ln.split("listening on ")[1].split()[0]
+                        for ln in lines if "listening on " in ln), None)
+            time.sleep(0.05)
+        if url is None:
+            rec.update(rc=proc.poll(),
+                       error=f"no 'listening on' line: {lines}")
+            return rec
+        rec["listening_s"] = time.perf_counter() - t0
+        client = CruiseControlClient(url, timeout_s=600)
+        windows = 0
+        while windows < 1 and time.monotonic() < deadline:
+            windows = client.get("state")["MonitorState"]["numValidWindows"]
+            time.sleep(0.2)
+        rec["valid_windows_s"] = time.perf_counter() - t0
+        try:
+            body = client.post("rebalance", dryrun="true", **LONG_POLL)
+        except Exception as e:  # any non-200 fails the phase
+            rec["error"] = repr(e)
+            return rec
+        rec.update(first_plan_s=time.perf_counter() - t0,
+                   engine=body.get("engine"),
+                   actions=body.get("numActions"),
+                   violation_score=body.get("violationScoreAfter"),
+                   timing_s=body["goalSummaries"][0].get("timing_s"))
+        t = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        rec["rc"] = proc.wait(30)
+        rec["sigterm_exit_s"] = time.perf_counter() - t
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        reader.join(5)
+    return rec
+
+
+def app_phase():
+    """Phase 11 → the standalone server's launches at 1 000 / 20 000."""
+    from cruise_control_tpu_torch.telemetry import events
+
+    prev, journal = events.JOURNAL, events.EventJournal(enabled=True)
+    events.JOURNAL = journal
+    try:
+        _, launches = app_inprocess(journal)
+        if journal.recent(kind="analyzer.engine_degraded"):
+            raise AssertionError("the cuda engine degraded")
+    finally:
+        events.JOURNAL = prev
+    app_subprocess()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this "
               "script needs an NVIDIA card", file=sys.stderr)
         return 2
+    if sys.argv[1:] == ["--app-greedy-bar"]:
+        app_greedy_bar()
+        return 0
     from cruise_control_tpu_torch.analyzer.cuda_optimizer import (
         CudaGoalOptimizer,
         recompute_aggregates,
@@ -3961,6 +4386,9 @@ def main() -> int:
     # ---- replan and self-healing ----------------------------------------
     replan_launches = replan_phase()
 
+    # ---- the standalone server --------------------------------------------
+    app_launches = app_phase()
+
     # the kernels line: main-path shapes (mid-scale); errors over every case
     cases = [steps[c] for c in steps] + [
         {"whatif_verdict": r} for r in whatif_recs.values()] + [
@@ -3984,6 +4412,7 @@ def main() -> int:
             "launches_acting": acting[name],
             "launches_served": served_launches[name],
             "launches_replan": replan_launches.get(name, 0),
+            "launches_app": app_launches[name],
             "max_abs_err": errs[name], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],

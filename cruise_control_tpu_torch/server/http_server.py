@@ -666,12 +666,53 @@ class CruiseControlHttpServer:
             return self._send(
                 handler, 200, trace_mod.chrome_trace(tid, spans, matched)
             )
-        if endpoint in ("profile/kernels", "profile/mesh", "profile/host"):
-            # the kernel, mesh and host observatories are not ported yet:
-            # 503, the status a disabled observatory answers with
-            item = "A6" if endpoint == "profile/host" else "A10"
+        if endpoint in ("profile/kernels", "profile/mesh"):
+            # the kernel and mesh observatories are not ported yet: 503,
+            # the status a disabled observatory answers with
             return self._send(handler, 503, {
-                "errorMessage": f"{endpoint} not ported yet (ROADMAP {item})"
+                "errorMessage": f"{endpoint} not ported yet (ROADMAP A10)"
+            })
+        if endpoint == "profile/host":
+            # host observatory (docs/OBSERVABILITY.md "Host
+            # observatory"): ?arm=true[&samples=N] opens a capture over
+            # the next N sampling ticks (202 + state; poll), plain GETs
+            # serve the latest built cc-tpu-host-profile/1 artifact (404
+            # before the first capture; 202 while armed / building — the
+            # SLO tick builds)
+            from cruise_control_tpu_torch.telemetry import host_profile
+
+            profiler = host_profile.PROFILER
+            if not profiler.enabled:
+                return self._send(handler, 503, {
+                    "errorMessage": "host observatory disabled "
+                                    "(telemetry.host.enabled=false?)"
+                })
+            if _flag(params, "arm"):
+                samples = params.get("samples")
+                profiler.ensure_started()
+                state = profiler.arm(
+                    samples=int(samples) if samples else None,
+                    reason="http")
+                return self._send(handler, 202, {
+                    "message": "capture armed: the sampler collects the "
+                               "next ticks — poll GET /profile/host",
+                    "capture": state,
+                })
+            artifact = profiler.latest()
+            if artifact is not None:
+                return self._send(handler, 200, artifact)
+            state = profiler.state()
+            if state["state"] != "IDLE" or state["pendingParses"] \
+                    or state["activeParses"]:
+                return self._send(handler, 202, {
+                    "message": "capture in flight (armed, mid-build, or "
+                               "awaiting the SLO-tick build) — poll again",
+                    "capture": state,
+                })
+            return self._send(handler, 404, {
+                "errorMessage": "no host capture built yet — arm one "
+                                "with GET /profile/host?arm=true",
+                "capture": state,
             })
         if endpoint == "diagnostics":
             # flight-recorder artifact: retained time series + the merged

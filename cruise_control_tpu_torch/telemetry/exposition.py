@@ -19,10 +19,12 @@ Rendering rules (one metric family per registry entry):
 * Locks     -> ``cc_lock_wait_ms`` / ``cc_lock_hold_ms`` /
   ``cc_lock_acquisitions_total`` from :mod:`utils.locks`' contention
   counters (rendered whenever the span layer is — i.e. on the server path)
+* Host      -> ``cc_host_*`` summary gauges of :mod:`telemetry.host_profile`'s
+  sampling profiler (rendered beside the lock families while it is enabled)
 
 The reference's device families (compile counts, per-executable device
-cost, measured kernel and mesh budgets) and its sampling profiler's host
-families are not ported yet (ROADMAP.md A10 (device telemetry), A6).
+cost, measured kernel and mesh budgets) are not ported yet (ROADMAP.md A10
+(device telemetry)).
 
 Registry names like ``proposal-computation-timer`` or ``http.GET.state``
 are sanitized to the ``[a-zA-Z_:][a-zA-Z0-9_:]*`` metric grammar and
@@ -34,7 +36,7 @@ from __future__ import annotations
 import re
 from typing import Dict, List, Optional, Sequence, Tuple
 
-from cruise_control_tpu_torch.telemetry import profile
+from cruise_control_tpu_torch.telemetry import host_profile, profile
 from cruise_control_tpu_torch.telemetry.tracing import Telemetry
 from cruise_control_tpu_torch.utils import locks
 from cruise_control_tpu_torch.utils.metrics import MetricRegistry
@@ -175,9 +177,13 @@ def render_prometheus(
                         f'{metric}{{phase="{_escape_label(path)}"}} '
                         f"{_fmt(ent[field])}"
                     )
-        # named-lock contention counters (cc_lock_wait_ms /
-        # cc_lock_hold_ms / cc_lock_acquisitions_total)
-        families = tuple(locks.CONTENTION.families())
+        # host observatory: named-lock contention counters
+        # (cc_lock_wait_ms / cc_lock_hold_ms / cc_lock_acquisitions_total)
+        # + the sampling profiler's summary gauges (cc_host_*)
+        host_families = host_profile.PROFILER.families() \
+            if host_profile.PROFILER.enabled else ()
+        families = (tuple(locks.CONTENTION.families())
+                    + tuple(host_families))
     else:
         families = ()
 

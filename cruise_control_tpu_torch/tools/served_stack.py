@@ -12,7 +12,7 @@ Two fixtures:
   ``random_cluster`` one, say) turned into ground truth: its placement,
   racks, topics and per-partition rates become a :class:`WorkloadModel`
   and a :class:`SimulatedClusterBackend`, its capacities are sized so the
-  cluster is feasible by construction (:func:`capacity_for`).
+  cluster is feasible by construction (bootstrap's :func:`_capacity_for`).
 
 Both sample metric windows (three unless told otherwise) before they
 return, so the monitor can build a model at once.  Both take the
@@ -23,10 +23,10 @@ facade, ``replan_heals=True`` routes the detector's full-stack rebalance
 fixes through it, and ``detector`` (the anomaly types to self-heal, ``()``
 for none) attaches the anomaly detector manager (``cc.anomaly_detector``)
 with a :class:`~cruise_control_tpu_torch.detector.SelfHealingNotifier`,
-wired as the reference's ``bootstrap.build_app`` wires them.  The facade
-plans on ``engine``, ``"cuda"`` unless the caller asks for ``"greedy"``
-(the reference harness's default), and the cuda engine runs on
-``device``, ``"cuda"`` unless the caller asks for ``"cpu"``, where the
+wired as :func:`~cruise_control_tpu_torch.bootstrap.build_app` wires them.
+The facade plans on ``engine``, ``"cuda"`` unless the caller asks for
+``"greedy"`` (the reference harness's default), and the cuda engine runs
+on ``device``, ``"cuda"`` unless the caller asks for ``"cpu"``, where the
 kernels' plain twins run.
 
 In-process, on the card::
@@ -66,14 +66,17 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 
+from cruise_control_tpu_torch.bootstrap import _capacity_for
 from cruise_control_tpu_torch.common.resources import EMPTY_SLOT, Resource
+from cruise_control_tpu_torch.config.cruise_control_config import (
+    CruiseControlConfig,
+)
 from cruise_control_tpu_torch.detector.anomalies import AnomalyType
 from cruise_control_tpu_torch.detector.manager import make_detector_manager
 from cruise_control_tpu_torch.detector.notifier import SelfHealingNotifier
 from cruise_control_tpu_torch.executor.backend import SimulatedClusterBackend
 from cruise_control_tpu_torch.executor.executor import Executor, ExecutorConfig
 from cruise_control_tpu_torch.facade import CruiseControl
-from cruise_control_tpu_torch.monitor.capacity import StaticCapacityResolver
 from cruise_control_tpu_torch.monitor.load_monitor import (
     BackendMetadataClient,
     LoadMonitor,
@@ -91,25 +94,24 @@ from cruise_control_tpu_torch.replan.planner import (
 
 #: metric window length (ms); the monitor keeps five
 WINDOW_MS = 1000
+_DEFAULTS = CruiseControlConfig()
 #: the hard goals, the default of the anomaly.detection.goals config key
-HARD_GOALS = ("RackAwareGoal", "ReplicaCapacityGoal", "DiskCapacityGoal",
-              "NetworkInboundCapacityGoal", "NetworkOutboundCapacityGoal",
-              "CpuCapacityGoal")
-
-
-#: the reference bootstrap's defaults for the detector (ms):
+HARD_GOALS = tuple(_DEFAULTS.get_list("anomaly.detection.goals"))
+#: bootstrap's defaults for the detector (ms), from the registry:
 #: broker.failure.alert.threshold.ms, broker.failure.self.healing.
 #: threshold.ms, anomaly.detection.interval.ms and self.healing.cooldown.ms
-BROKER_FAILURE_ALERT_MS = 900_000
-BROKER_FAILURE_SELF_HEALING_MS = 1_800_000
-DETECTION_INTERVAL_MS = 300_000
-SELF_HEALING_COOLDOWN_MS = 300_000
+BROKER_FAILURE_ALERT_MS = _DEFAULTS.get_int(
+    "broker.failure.alert.threshold.ms")
+BROKER_FAILURE_SELF_HEALING_MS = _DEFAULTS.get_int(
+    "broker.failure.self.healing.threshold.ms")
+DETECTION_INTERVAL_MS = _DEFAULTS.get_int("anomaly.detection.interval.ms")
+SELF_HEALING_COOLDOWN_MS = _DEFAULTS.get_int("self.healing.cooldown.ms")
 
 
 def _attach_detector(cc: CruiseControl, backend,
                      self_healing: Sequence[AnomalyType]):
-    """The detector manager over ``cc`` and ``backend``, as the reference's
-    bootstrap builds it under its default config: a self-healing notifier
+    """The detector manager over ``cc`` and ``backend``, as bootstrap
+    builds it under the registry's defaults: a self-healing notifier
     on for the ``self_healing`` anomaly types, the hard goals as the goals
     whose violation is an anomaly (anomaly.detection.goals).  It attaches
     itself as ``cc.anomaly_detector``; no timer thread runs until the
@@ -126,30 +128,6 @@ def _attach_detector(cc: CruiseControl, backend,
         detection_interval_ms=DETECTION_INTERVAL_MS,
         fix_cooldown_ms=SELF_HEALING_COOLDOWN_MS,
     )
-
-
-def capacity_for(w: WorkloadModel, num_brokers: int,
-                 target_mean_util: float = 0.45) -> StaticCapacityResolver:
-    """Size per-broker capacities so the simulated cluster is feasible by
-    construction (mean utilization ≈ target under perfect balance)."""
-    rf = np.array([len(w.assignment[p]) for p in sorted(w.assignment)])
-    total_cpu = (
-        w.base_cpu * num_brokers
-        + float(np.sum(w.bytes_in * (w.cpu_per_bytes_in
-                                     + w.cpu_per_replication_in * (rf - 1))))
-        + float(np.sum(w.bytes_out * w.cpu_per_bytes_out))
-    )
-    totals = {
-        Resource.CPU: total_cpu,
-        Resource.DISK: float(np.sum(w.size_mb * rf)),
-        Resource.NW_IN: float(np.sum(w.bytes_in * rf)),
-        Resource.NW_OUT: float(np.sum(w.bytes_out)),
-    }
-    per_broker = {
-        r: max(t / num_brokers / target_mean_util, 1.0)
-        for r, t in totals.items()
-    }
-    return StaticCapacityResolver(per_broker)
 
 
 def skewed_workload(num_partitions=24, num_brokers=4, rf=2, seed=11,
@@ -277,7 +255,7 @@ def fixture_stack(state, engine="cuda", device="cuda",
     backend = _backend(w, set(rack))
     cc, backend, reporter = _stack(
         w, backend, rack, windows=3, engine=engine, device=device,
-        capacity_resolver=capacity_for(w, state.num_brokers),
+        capacity_resolver=_capacity_for(w, state.num_brokers),
         partition_topic=topics, replan=replan, replan_heals=replan_heals,
         detector=detector,
     )

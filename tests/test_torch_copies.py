@@ -21,20 +21,27 @@ COPIES = (
     "analyzer/provision.py", "analyzer/verifier.py",
     "client/__init__.py",
     "common/__init__.py", "common/resources.py",
+    "config/__init__.py", "config/__main__.py", "__main__.py",
     "detector/__init__.py", "detector/anomalies.py", "detector/detectors.py",
     "detector/manager.py", "detector/notifier.py",
     "executor/__init__.py", "executor/backend.py",
     "executor/concurrency.py", "executor/executor.py", "executor/journal.py",
     "executor/notifier.py", "executor/tasks.py", "executor/throttle.py",
+    "kafka/__init__.py", "kafka/backend.py", "kafka/confluent_wire.py",
+    "kafka/envelope.py", "kafka/metadata.py", "kafka/sample_store.py",
+    "kafka/sampler.py", "kafka/wire.py",
     "models/__init__.py", "models/builder.py", "models/generators.py",
     "monitor/__init__.py", "monitor/aggregator.py", "monitor/capacity.py",
-    "monitor/load_monitor.py", "monitor/metric_defs.py",
+    "monitor/fetcher.py", "monitor/load_monitor.py",
+    "monitor/metric_defs.py", "monitor/prometheus.py",
     "monitor/sample_store.py", "monitor/sampling.py",
     "replan/__init__.py", "replan/delta.py", "replan/planner.py",
     "server/__init__.py", "server/admission.py", "server/progress.py",
     "server/purgatory.py", "server/security.py", "server/user_tasks.py",
     "telemetry/__init__.py", "telemetry/critical_path.py",
-    "telemetry/events.py", "telemetry/profile.py", "telemetry/trace.py",
+    "telemetry/events.py", "telemetry/host_profile.py",
+    "telemetry/profile.py", "telemetry/recorder.py", "telemetry/slo.py",
+    "telemetry/trace.py",
     "utils/checksum.py", "utils/locks.py", "utils/metrics.py",
 )
 
@@ -44,22 +51,40 @@ ADAPTED = {
                  "and the default, cuda_config and a device argument, no "
                  "degradation to the CPU on the card, torch broker states, "
                  "a cold replan hands the engine the carry",
-    "server/http_server.py": "profile/kernels, profile/mesh and "
-                             "profile/host answer 503 until their "
-                             "observatories are ported",
+    "server/http_server.py": "profile/kernels and profile/mesh answer 503 "
+                             "until their observatories are ported "
+                             "(ROADMAP A10)",
     "telemetry/tracing.py": "device_span.block synchronizes the card of "
                             "CUDA tensors instead of jax.block_until_ready",
-    "telemetry/exposition.py": "renders the registry, span and lock "
-                               "families; the device families are not "
-                               "ported yet",
+    "telemetry/exposition.py": "renders the registry, span, lock and "
+                               "host-profiler families; the device "
+                               "families are not ported yet (ROADMAP A10)",
     "client/cccli.py": "--engine offers 'cuda' in place of 'tpu'",
+    "config/cruise_control_config.py": "the engine key group is cuda.* "
+                                       "(use.cuda.optimizer, "
+                                       "cuda.mesh.devices, 35 "
+                                       "cuda.search.* keys), the XLA "
+                                       "compilation-cache and approximate "
+                                       "top-k keys are gone, the docs of "
+                                       "four engine keys name the ROADMAP "
+                                       "item that gives them an effect, "
+                                       "sim.soak.engine defaults to cuda, "
+                                       "the four device-telemetry toggles "
+                                       "default to false, and a class path "
+                                       "into the JAX package is refused",
+    "bootstrap.py": "engine 'cuda' with CudaSearchConfig from "
+                    "cuda.search.* on a device argument that must exist; "
+                    "no XLA cache and no device observatories (A10); "
+                    "refuses non-default A4, A9, A10 and A11 keys",
+    "server/ui.html": "the engine select offers 'cuda' in place of 'tpu'",
 }
 
 #: the sub-packages and modules of the served path
 SERVED = ("analyzer/degradation.py", "analyzer/precompute.py",
-          "analyzer/goal_optimizer.py", "client", "detector", "executor",
-          "facade.py", "monitor", "replan", "server", "telemetry",
-          "utils/checksum.py", "utils/locks.py", "utils/metrics.py")
+          "analyzer/goal_optimizer.py", "bootstrap.py", "__main__.py",
+          "client", "config", "detector", "executor", "facade.py", "kafka",
+          "monitor", "replan", "server", "telemetry", "utils/checksum.py",
+          "utils/locks.py", "utils/metrics.py")
 
 
 def _as_port(text: str) -> str:

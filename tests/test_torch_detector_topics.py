@@ -2,11 +2,13 @@
 against the reference's (``tests/test_detector.py``: ``TestTopicAnomaly``,
 ``TestStateIntegration``, ``TestDetectorTuningKnobs``).  Each scenario runs
 on the reference's stack and on the port's greedy stack, and the port's
-outcome equals the reference's.  ``test_knobs_wired_from_config`` has no
-mirror: the port has no bootstrap or config registry yet."""
+outcome equals the reference's; the knobs wired from the config registry
+by each package's bootstrap land on the same detectors with the same
+values."""
 
 import numpy as np
 
+from torch_bootstrap_cases import PKGS, booted
 from torch_detector_cases import (
     ALL,
     anomalies,
@@ -107,3 +109,27 @@ def test_disk_failure_min_offline_dirs_tolerance(tmp_path):
 
     ref, port = on_both(scenario, tmp_path)
     assert port == ref
+
+
+def test_knobs_wired_from_config():
+    def knobs(pkg):
+        with booted(pkg, {
+            "goal.violation.distribution.threshold.multiplier": 2.5,
+            "metric.anomaly.percentile.lower.threshold": 10.0,
+            "topic.anomaly.min.bad.partitions": 3,
+            "disk.failure.min.offline.dirs": 2,
+            "self.healing.target.topic.replication.factor": 2,
+            "webserver.http.port": 0,
+            "use.tpu.optimizer": False,
+            "telemetry.recorder.enabled": False,
+        }) as app:
+            T = namespace(pkg).AnomalyType
+            dets = app.detector_manager.detectors
+            return (dets[T.GOAL_VIOLATION].threshold_multiplier,
+                    dets[T.METRIC_ANOMALY].finder.lower_percentile,
+                    dets[T.TOPIC_ANOMALY].finder.min_bad_partitions,
+                    dets[T.TOPIC_ANOMALY].finder.target_rf,
+                    dets[T.DISK_FAILURE].min_offline_dirs)
+
+    ref, port = (knobs(pkg) for pkg in PKGS)
+    assert port == ref == (2.5, 10.0, 3, 2, 2)

@@ -1,6 +1,7 @@
-"""The port stands alone: importing it (every module of it) pulls in
-neither JAX/Flax nor any module of the JAX reference package, and its
-entry points never fall back to the CPU when a card was asked for."""
+"""The port stands alone: importing it (every module of it) and resolving
+every class path its config registry defaults to pulls in neither
+JAX/Flax nor any module of the JAX reference package, and its entry
+points never fall back to the CPU when a card was asked for."""
 
 import json
 import os
@@ -19,11 +20,23 @@ import cruise_control_tpu_torch as pkg
 mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in mods:
     importlib.import_module(name)
+from cruise_control_tpu_torch.config.cruise_control_config import (
+    DEFAULT_CONFIG_DEF, ConfigType, resolve_class)
+classes = []
+for key in DEFAULT_CONFIG_DEF.keys().values():
+    paths = ([key.default] if key.type is ConfigType.CLASS
+             else key.default.split(",") if key.type is ConfigType.LIST
+             and isinstance(key.default, str)
+             and key.default.startswith("cruise_control") else [])
+    for path in paths:
+        if path:
+            cls = resolve_class(path)
+            classes.append(cls.__module__ + "." + cls.__name__)
 bad = sorted(
     n for n in sys.modules
     if n.split(".")[0] in ("jax", "jaxlib", "flax", "cruise_control_tpu")
 )
-print(json.dumps({"modules": mods, "bad": bad}))
+print(json.dumps({"modules": mods, "classes": classes, "bad": bad}))
 """
 
 
@@ -47,8 +60,15 @@ def test_import_pulls_in_no_jax_and_no_reference():
                 "facade", "server.http_server", "executor.executor",
                 "monitor.load_monitor", "telemetry.tracing",
                 "tools.served_stack", "replan.planner", "detector.manager",
-                "detector.detectors"):
+                "detector.detectors", "bootstrap", "__main__",
+                "config.cruise_control_config", "kafka.backend",
+                "monitor.fetcher", "telemetry.recorder", "telemetry.slo",
+                "telemetry.host_profile"):
         assert f"cruise_control_tpu_torch.{mod}" in res["modules"], mod
+    # every class path the registry defaults to resolved into the port
+    assert len(res["classes"]) >= 6, res["classes"]
+    assert all(c.startswith("cruise_control_tpu_torch.")
+               for c in res["classes"]), res["classes"]
 
 
 def test_default_device_without_card_raises(monkeypatch):

@@ -90,16 +90,20 @@ class TestGetEndpoints:
         assert e.value.code == 404
 
     def test_unported_observatories_answer_503(self, server):
-        """The kernel, mesh and host observatories are not ported yet: 503,
-        as the reference answers for a disabled observatory."""
+        """The kernel and mesh observatories are not ported yet: 503, as
+        the reference answers for a disabled observatory.  The host
+        observatory is ported: before its first capture it answers 404
+        and names the arming request, as the reference's does."""
         srv, _, _ = server
-        for endpoint, item in (("profile/kernels", "A10"),
-                               ("profile/mesh", "A10"),
-                               ("profile/host", "A6")):
+        for endpoint in ("profile/kernels", "profile/mesh"):
             with pytest.raises(CruiseControlError) as e:
                 client_for(srv).get(endpoint)
             assert e.value.code == 503
-            assert f"not ported yet (ROADMAP {item})" in str(e.value)
+            assert "not ported yet (ROADMAP A10)" in str(e.value)
+        with pytest.raises(CruiseControlError) as e:
+            client_for(srv).get("profile/host")
+        assert e.value.code == 404
+        assert "GET /profile/host?arm=true" in str(e.value)
         # the registry still renders
         with urllib.request.urlopen(f"{srv.url}/metrics") as resp:
             assert resp.status == 200
