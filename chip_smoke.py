@@ -168,12 +168,38 @@ Phases, each printing one JSON line; any failure exits non-zero:
    window, POST /rebalance answered on engine ``"cuda"``, then SIGTERM:
    exit 0 within 30 s.  Each request's wall-clock beside its
    ``timing_s``, the sampling and model-build seconds, the kept loop's
-   bytes and the subprocess's seconds to its first plan.
+   bytes and the subprocess's seconds to its first plan;
+12. the scenario simulator, the soak and proactive control
+   (``sim/*``, ``whatif/proactive.py``).  (a) ``run_scenario`` on the
+   card: ``proactive_beats_reactive_peak``'s journal fingerprint is the
+   reference's committed one (``SCENARIOS_r16.json``) and its what-if
+   launches K12; ``measure_proactive`` equals ``WHATIF_r16.json``'s
+   proactive block field for field; ``engine_failure_degrades_to_greedy``
+   meets its on-card rule (``sim/__main__.py: ON_CARD``: the scripted
+   failure surfaces as a failed fix naming it, no degradation record, no
+   greedy plan).  (b) ``run_soak`` on the production day at its full
+   scale (1 024 brokers, 16 racks, 4 096 partitions, replication factor
+   2, engine ``"cuda"``, seed 12) cut to ``SOAK_MINUTES`` virtual minutes
+   with its fault schedule derived from the cut (``cut_day``): every
+   gate green, heals HEALED or NO_ANOMALY, a broker kill, a disk failure
+   and a hot skew landed and healed, more warm replans than cold, every
+   plan on ``"cuda"``, no degradation, K1-K11 launched; the wall seconds,
+   each replan's mode, wall-clock and ``timing_s``, the card allocator's
+   live-buffer trend and the journal fingerprint printed.  (c)
+   ``bootstrap.build_app`` at 1 000 / 20 000 with
+   ``whatif.proactive.enabled=true``: the scheduler fed a diurnal series
+   around the monitor's observed ingress (amplitude
+   ``PROACTIVE_AMPLITUDE``, a projected peak four times the load at its
+   trough) decides at the trough: a forecast and a trigger, no failed
+   what-if or rebalance, the verdict equal to ``evaluate_batch`` on the
+   app's model, K12 launched before K1-K11, every plan on ``"cuda"``, the
+   execution finished or stopped within ``PROACTIVE_EXECUTION_BOUND_S``.
 
 Every kernel of a path must have launched on that path's run (the plan
 path: K1-K11, the what-if path: K12, the search paths: theirs, K13-K17
 among them; the served path: K1-K12; the replan path: K1-K11; the
-standalone server: K1-K12).  The last two lines are the ``{"kernels": [...]}`` summary
+standalone server: K1-K12; the simulator: K12 in (a), K1-K11 in (b), K1-K12
+in (c)).  The last two lines are the ``{"kernels": [...]}`` summary
 and the ``{"ok": true, "device": ...}`` verdict.  Nothing here imports
 JAX.
 """
@@ -4094,6 +4120,407 @@ def app_phase():
     return launches
 
 
+# ---- phase 12: the simulator, the soak and proactive control ---------------
+
+#: the kernels phase 12's soak and pre-peak rebalance launch
+SIM_PATH = _PLAN
+
+#: phase 12 (a)'s scenarios: the one held to the reference's committed
+#: fingerprint and what-if block on the card, and the one whose outcome
+#: the card changes (``sim/__main__.py: ON_CARD``)
+PROACTIVE_SCENARIO = "proactive_beats_reactive_peak"
+LADDER_SCENARIO = "engine_failure_degrades_to_greedy"
+#: phase 12 (b)'s horizon: the production day (``sim.soak.day_spec``,
+#: 1 440 virtual minutes) cut to this many virtual minutes
+SOAK_MINUTES = 180
+#: the fault classes of the day's schedule (``FaultScheduleConfig``) and
+#: the three a cut day keeps at least one of
+SOAK_COUNTS = ("broker_deaths", "rack_losses", "disk_failures", "hot_skews",
+               "load_perturbations", "metric_gaps", "process_crashes",
+               "broker_flaps", "analyzer_outages", "execution_stalls",
+               "request_storms")
+SOAK_KEPT = ("broker_deaths", "disk_failures", "hot_skews")
+#: the shortest quiet tail a cut day keeps, so its last fault heals before
+#: the end (the day's is 100 minutes)
+SOAK_MIN_TAIL_MIN = 40
+#: the heals a cut day must start: one each of its kept classes
+SOAK_HEALS = ("BROKER_FAILURE", "DISK_FAILURE", "GOAL_VIOLATION")
+#: phase 12 (c)'s diurnal series: ``whatif.proactive.period.ms`` and the
+#: amplitude around the monitor's observed ingress; sampled each minute
+#: from the crest to the trough, where the projected peak an hour ahead
+#: is (1 + a) / (1 - a) = 4 times the load now
+PROACTIVE_PERIOD_MS = 7_200_000
+PROACTIVE_AMPLITUDE = 0.6
+#: how long phase 12 (c) waits for the pre-peak rebalance's execution
+#: before it stops it (``Executor.stop_execution``, then
+#: ``app.shutdown()``)
+PROACTIVE_EXECUTION_BOUND_S = 300.0
+
+
+def committed(name: str) -> dict:
+    """A JSON artifact at the root of the checkout."""
+    import pathlib
+
+    return json.loads((pathlib.Path(__file__).resolve().parent / name)
+                      .read_text())
+
+
+def zero_counters() -> None:
+    for fn in counters().values():
+        fn.launches = 0
+
+
+def read_counters(device="cuda") -> dict:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    return {n: fn.launches for n, fn in counters().items()}
+
+
+def sim_scenarios(device="cuda"):
+    """Phase 12 (a): two registered scenarios on the card.  The proactive
+    scenario's journal fingerprint must be the reference's committed one
+    (``SCENARIOS_r16.json``) and its forecast's what-if must launch K12;
+    ``measure_proactive`` (the scenario and its reactive twin) must equal
+    ``WHATIF_r16.json``'s proactive block field for field; the
+    engine-failure scenario must meet its on-card rule (the scripted
+    failure surfaces as a failed fix naming it, no degradation record, no
+    greedy plan).  Returns (record, launches)."""
+    from cruise_control_tpu_torch.sim import make_scenario, run_scenario
+    from cruise_control_tpu_torch.sim.__main__ import ON_CARD
+    from cruise_control_tpu_torch.whatif.artifact import measure_proactive
+
+    pinned = {s["name"]: s["journalFingerprint"]
+              for s in committed("SCENARIOS_r16.json")["scenarios"]}
+    block = committed("WHATIF_r16.json")["proactive"]
+    zero_counters()
+    t = time.perf_counter()
+    pro = run_scenario(make_scenario(PROACTIVE_SCENARIO), device=device)
+    pro_s = time.perf_counter() - t
+    pro_launches = read_counters(device)
+    t = time.perf_counter()
+    measured = measure_proactive(PROACTIVE_SCENARIO, device=device)
+    measure_s = time.perf_counter() - t
+    t = time.perf_counter()
+    ladder = run_scenario(make_scenario(LADDER_SCENARIO), device=device)
+    ladder_s = time.perf_counter() - t
+    launches = read_counters(device)
+    outcome, why, rule = ON_CARD[LADDER_SCENARIO]
+    rec = {"phase": "sim_scenarios", "nvidia_smi": nvidia_smi(),
+           PROACTIVE_SCENARIO: {
+               "outcome": pro.heal_outcome(), "wallclock_s": pro_s,
+               "fingerprint": pro.fingerprint(),
+               "fingerprint_as_committed":
+                   pro.fingerprint() == pinned[PROACTIVE_SCENARIO],
+               "triggers": len(pro.events_of("proactive.trigger")),
+               "whatif_verdict_launches": pro_launches["whatif_verdict"]},
+           "measure_proactive": {
+               "wallclock_s": measure_s,
+               "equals_committed": measured == block,
+               "leadVirtualMs": measured["leadVirtualMs"]},
+           LADDER_SCENARIO: {
+               "outcome": ladder.heal_outcome(), "expected": outcome,
+               "wallclock_s": ladder_s, "rule_errors": rule(ladder),
+               "why": why},
+           "launches": launches}
+    emit(rec)
+    if not rec[PROACTIVE_SCENARIO]["fingerprint_as_committed"]:
+        raise AssertionError(f"{PROACTIVE_SCENARIO}'s journal is not the "
+                             "committed one on the card")
+    if pro_launches["whatif_verdict"] <= 0:
+        raise AssertionError(f"{PROACTIVE_SCENARIO} never launched K12")
+    if measured != block:
+        raise AssertionError(f"measure_proactive on the card: {measured}, "
+                             f"committed {block}")
+    if ladder.heal_outcome() != outcome or rec[LADDER_SCENARIO][
+            "rule_errors"]:
+        raise AssertionError(f"{LADDER_SCENARIO} on the card: "
+                             f"{rec[LADDER_SCENARIO]}")
+    return rec, launches
+
+
+def cut_day(minutes: int = SOAK_MINUTES):
+    """``day_spec(seed=12)`` cut to ``minutes`` virtual minutes as the soak
+    CLI cuts it from ``sim.soak.duration.minutes`` (the horizon and the
+    diurnal period), with its fault schedule derived from the cut horizon:
+    each class's count scaled by the horizon's share of the day (rounded
+    half up; a broker kill, a disk failure and a hot skew kept at one at
+    least) and the quiet tail likewise (``SOAK_MIN_TAIL_MIN`` at least).
+    Scale, seed, engine, cadences and gates stay the day's."""
+    from cruise_control_tpu_torch.sim.soak import MIN_MS, day_spec
+
+    day = day_spec(seed=12)
+    sched = day.schedule_config()
+    share = minutes * MIN_MS / day.duration_ms
+    counts = {f: max(int(getattr(sched, f) * share + 0.5),
+                     1 if f in SOAK_KEPT else 0) for f in SOAK_COUNTS}
+    sched = dataclasses.replace(
+        sched, duration_ms=minutes * MIN_MS,
+        quiet_tail_ms=max(SOAK_MIN_TAIL_MIN * MIN_MS,
+                          int(sched.quiet_tail_ms * share)),
+        **counts)
+    return dataclasses.replace(day, duration_ms=minutes * MIN_MS,
+                               diurnal_period_ms=minutes * MIN_MS,
+                               schedule=sched)
+
+
+def soak_replans(journal) -> list:
+    """Each ``replan.end`` in journal order: its mode, whether it was
+    served from the snapshot, its wall-clock seconds and the engine's
+    ``timing_s`` of the plan it ran (the ``optimize.end`` before it)."""
+    out, last = [], None
+    for e in journal:
+        p = e.get("payload", {})
+        if e["kind"] == "optimize.end":
+            last = p
+        elif e["kind"] == "replan.end":
+            summ = (last or {}).get("goalSummaries") or [{}]
+            out.append({"mode": p.get("mode"),
+                        "shortCircuit": bool(p.get("shortCircuit")),
+                        "operation": e.get("operation"),
+                        "wallclock_s": p.get("durationS"),
+                        "timing_s": (None if p.get("shortCircuit")
+                                     else summ[0].get("timing_s"))})
+            last = None
+    return out
+
+
+def sim_soak(device="cuda", spec=None):
+    """Phase 12 (b): the production day at its full scale (1 024 brokers,
+    16 racks, 4 096 partitions, replication factor 2, engine ``"cuda"``)
+    cut to ``SOAK_MINUTES`` virtual minutes (:func:`cut_day`; ``spec``
+    replaces it, to rehearse at a smaller scale), through ``run_soak``.
+    Every gate green, heals HEALED or NO_ANOMALY with no unhealed type, a
+    broker kill, a disk failure and a hot skew landed and healed, warm
+    replans outnumbering cold ones, every plan on engine ``"cuda"``, no
+    degradation, K1-K11 launched.  Returns (record, launches)."""
+    import gc
+
+    from cruise_control_tpu_torch.analyzer import cuda_optimizer as C
+    from cruise_control_tpu_torch.sim.soak import make_soak_artifact, run_soak
+
+    spec = spec or cut_day()
+    # the soak's leak gate reads the card's allocator: start it without
+    # the loop an earlier phase kept
+    C._LOOPS.clear()
+    gc.collect()
+    zero_counters()
+    t = time.perf_counter()
+    result = run_soak(spec, device=device)
+    wall = time.perf_counter() - t
+    launches = read_counters(device)
+    art = make_soak_artifact(result)
+    journal = result.scenario.journal
+    replans = soak_replans(journal)
+    engines = sorted({e["payload"].get("engine") for e in journal
+                      if e["kind"] == "optimize.end"})
+    landed = sorted({e["payload"].get("fault") for e in journal
+                     if e["kind"] == "sim.fault"})
+    per_type = art["heals"]["perType"]
+    samples = result.observer.samples
+    rec = {"phase": "sim_soak", "nvidia_smi": nvidia_smi(),
+           "scale": art["scale"],
+           "minutes": spec.duration_ms // MINUTE_MS,
+           "ticks": art["horizon"]["ticks"], "wallclock_s": wall,
+           "schedule": art["schedule"], "gates": art["gates"],
+           "allOk": art["allOk"], "heals": {
+               k: art["heals"][k] for k in ("outcome", "unhealedTypes",
+                                            "fixesStarted",
+                                            "actionsExecuted", "replans",
+                                            "perType", "latencyMs")},
+           "faults_landed": landed, "engines": engines,
+           "degraded": len([e for e in journal
+                            if e["kind"] == "analyzer.engine_degraded"]),
+           "replans": replans,
+           "replan_wallclock_s_by_mode": {
+               m: [r["wallclock_s"] for r in replans if r["mode"] == m]
+               for m in ("cold", "warm")},
+           "live_buffers": {
+               "trend_mb": art["resources"]["trends"]["liveBufferMb"],
+               "live_arrays": [s["liveArrays"] for s in samples],
+               "mb": [s["liveBufferMb"] for s in samples]},
+           "journalFingerprint": art["journalFingerprint"],
+           "launches": {n: launches[n] for n in SIM_PATH}}
+    emit(rec)
+    red = sorted(k for k, v in art["gates"].items()
+                 if k != "distinctFaultClasses" and v is not True)
+    if red or not art["allOk"]:
+        raise AssertionError(f"soak gates red: {red}")
+    if art["heals"]["outcome"] not in ("HEALED", "NO_ANOMALY") \
+            or art["heals"]["unhealedTypes"]:
+        raise AssertionError(f"soak heals: {rec['heals']}")
+    missing = [k for k in ("kill_broker", "disk_failure",
+                           "hot_partition_skew") if k not in landed]
+    unhealed = [t for t in SOAK_HEALS
+                if per_type.get(t, {}).get("fixesStarted", 0) <= 0]
+    if missing or unhealed:
+        raise AssertionError(f"faults not landed {missing}, not healed "
+                             f"{unhealed}")
+    warm, cold = art["heals"]["replans"]["warm"], \
+        art["heals"]["replans"]["cold"]
+    if warm <= cold:
+        raise AssertionError(f"{warm} warm replans against {cold} cold")
+    if engines != ["cuda"] or rec["degraded"]:
+        raise AssertionError(f"soak engines {engines}, "
+                             f"{rec['degraded']} degradations")
+    for name in SIM_PATH:
+        if launches[name] <= 0:
+            raise AssertionError(f"the soak never launched {name}")
+    return rec, launches
+
+
+def sim_proactive():
+    """Phase 12 (c): proactive control through ``bootstrap.build_app`` at
+    1 000 brokers / 20 000 partitions (phase 11 (a)'s properties, the
+    scheduler on, its daemon's tick longer than the phase, its period
+    ``PROACTIVE_PERIOD_MS``).  The scheduler is fed a diurnal series
+    around the monitor's observed ingress up to its trough and asked to
+    decide there: a forecast and a trigger journaled, no skip for a
+    failed what-if or rebalance, the verdict equal to ``evaluate_batch``
+    on the app's model for the same future, K12 launched by the what-if
+    and K1-K11 by the pre-peak rebalance after it, on engine ``"cuda"``;
+    the execution finished, or stopped within
+    ``PROACTIVE_EXECUTION_BOUND_S``.  Returns (record, launches)."""
+    import math
+    import tempfile
+    import threading
+
+    from cruise_control_tpu_torch.server.progress import OperationProgress
+    from cruise_control_tpu_torch.telemetry import events
+    from cruise_control_tpu_torch.whatif import (
+        compile_futures,
+        evaluate_batch,
+        verdicts,
+    )
+
+    props = {**APP_PROPS, "whatif.proactive.enabled": "true",
+             "whatif.proactive.period.ms": PROACTIVE_PERIOD_MS,
+             "whatif.proactive.interval.ms": 24 * 3_600_000}
+    period, amp = PROACTIVE_PERIOD_MS, PROACTIVE_AMPLITUDE
+    now = 3 * period // 4
+    prev, journal = events.JOURNAL, events.EventJournal(enabled=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        app, _ = build_app_from(props, tmp)
+    asked, done = [], {}
+    worker, finished = None, False
+    try:
+        events.JOURNAL = journal
+        sampling_s = feed_app(app)
+        cc, sched = app.cruise_control, app.proactive_scheduler
+        base = cc.load_monitor.observed_total_ingress()
+        for t in range(period // 4, now + 1, MINUTE_MS):
+            sched.record(t, base * (1.0 + amp * math.sin(
+                2.0 * math.pi * t / period)))
+        whatif = cc.whatif
+
+        def spy(futures):
+            # the model the what-if reads, before the rebalance moves it
+            state = cc._model(None, OperationProgress("WHATIF"))
+            t = time.perf_counter()
+            result = whatif(futures)
+            asked.append({"futures": futures, "state": state,
+                          "result": result,
+                          "wallclock_s": time.perf_counter() - t,
+                          "launches": read_counters()})
+            return result
+
+        cc.whatif = spy
+
+        def decide():
+            t = time.perf_counter()
+            try:
+                done["triggered"] = sched.maybe_trigger(now)
+            except Exception as e:  # recorded, and fails the phase below
+                done["error"] = repr(e)
+            done["wallclock_s"] = time.perf_counter() - t
+
+        zero_counters()
+        worker = threading.Thread(target=decide, name="proactive-decide",
+                                  daemon=True)
+        worker.start()
+        worker.join(PROACTIVE_EXECUTION_BOUND_S)
+        finished = not worker.is_alive()
+        if not finished:
+            cc.executor.stop_execution()
+    finally:
+        t = time.perf_counter()
+        app.shutdown()
+        if worker is not None:
+            worker.join(60)
+        shutdown_s = time.perf_counter() - t
+        events.JOURNAL = prev
+    if worker is not None and worker.is_alive():
+        raise AssertionError("the pre-peak execution did not stop within "
+                             f"{PROACTIVE_EXECUTION_BOUND_S + 60} s")
+    launches = read_counters()
+    recs = journal.recent()
+    kinds = [e["kind"] for e in recs]
+    skips = [e["payload"].get("reason") for e in recs
+             if e["kind"] == "proactive.skip"]
+    ends = [e["payload"] for e in recs if e["kind"] == "optimize.end"]
+    executed = [e["payload"] for e in recs if e["kind"] == "execute.end"]
+    rec = {"phase": "sim_proactive_1000b_20k", "nvidia_smi": nvidia_smi(),
+           "amplitude": amp, "period_ms": period, "decided_at_ms": now,
+           "sampling_s": sampling_s, "observed_ingress": base,
+           "forecast": next((e["payload"] for e in recs
+                             if e["kind"] == "proactive.forecast"), None),
+           "trigger": next((e["payload"] for e in recs
+                            if e["kind"] == "proactive.trigger"), None),
+           "skips": skips, "decision": done,
+           "finished_within_bound": finished,
+           "shutdown_s": shutdown_s,
+           "plans": [{"engine": p.get("engine"),
+                      "operation": p.get("operation"),
+                      "actions": p.get("numActions"),
+                      "wallclock_s": p.get("durationS"),
+                      "timing_s": (p.get("goalSummaries") or [{}])[0]
+                      .get("timing_s")} for p in ends],
+           "executions": executed,
+           "launches": {n: launches[n] for n in SERVED_PATH}}
+    if asked:
+        a = asked[0]
+        batch = compile_futures(a["state"], a["futures"])
+        want = verdicts(batch, evaluate_batch(
+            a["state"], batch, capacity_scale=cc._whatif_capacity_scale(),
+            device="cuda"))
+        rec["whatif"] = {
+            "factor": a["futures"][0].events[0].arg("factor"),
+            "wallclock_s": a["wallclock_s"],
+            "verdict": a["result"].verdicts[0],
+            "equals_engine": a["result"].verdicts == want,
+            "launches_before_rebalance": {
+                n: a["launches"][n] for n in SERVED_PATH}}
+    emit(rec)
+    if "proactive.forecast" not in kinds or rec["trigger"] is None \
+            or not done.get("triggered"):
+        raise AssertionError(f"no proactive trigger: {done}, skips {skips}")
+    if {"whatif-failed", "rebalance-failed"} & set(skips):
+        raise AssertionError(f"proactive skips: {skips}")
+    w = rec["whatif"]
+    if not w["equals_engine"] or w["verdict"]["goalViolations"] < 1:
+        raise AssertionError(f"the projected peak's verdict: {w}")
+    if w["launches_before_rebalance"]["whatif_verdict"] <= 0 or any(
+            w["launches_before_rebalance"][n] for n in SIM_PATH):
+        raise AssertionError("the what-if did not launch K12 alone: "
+                             f"{w['launches_before_rebalance']}")
+    if not ends or any(p["engine"] != "cuda" for p in rec["plans"]) \
+            or "analyzer.engine_degraded" in kinds:
+        raise AssertionError(f"the pre-peak plans: {rec['plans']}")
+    for name in SERVED_PATH:
+        if launches[name] <= 0:
+            raise AssertionError(f"phase 12 (c) never launched {name}")
+    return rec, launches
+
+
+def sim_phase():
+    """Phase 12 → every kernel's launches over its three parts."""
+    total = {n: 0 for n in KERNELS}
+    for part in (sim_scenarios, sim_soak, sim_proactive):
+        _, launches = part()
+        for n in KERNELS:
+            total[n] += launches[n]
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this "
@@ -4389,6 +4816,9 @@ def main() -> int:
     # ---- the standalone server --------------------------------------------
     app_launches = app_phase()
 
+    # ---- the simulator, the soak and proactive control --------------------
+    sim_launches = sim_phase()
+
     # the kernels line: main-path shapes (mid-scale); errors over every case
     cases = [steps[c] for c in steps] + [
         {"whatif_verdict": r} for r in whatif_recs.values()] + [
@@ -4413,6 +4843,7 @@ def main() -> int:
             "launches_served": served_launches[name],
             "launches_replan": replan_launches.get(name, 0),
             "launches_app": app_launches[name],
+            "launches_sim": sim_launches[name],
             "max_abs_err": errs[name], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],

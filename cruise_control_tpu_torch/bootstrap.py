@@ -77,8 +77,7 @@ class App:
     flight_recorder: object = None
     #: telemetry/slo.SloEngine; None when disabled
     slo_engine: object = None
-    #: whatif/proactive.ProactiveScheduler: not ported yet (ROADMAP A9),
-    #: so always None
+    #: whatif/proactive.ProactiveScheduler; None when disabled
     proactive_scheduler: object = None
 
     def shutdown(self) -> None:
@@ -343,7 +342,6 @@ _UNPORTED = {
     "telemetry.kernel.enabled": "A10",
     "telemetry.mesh.enabled": "A10",
     "cuda.search.profiler.trace.dir": "A10",
-    "whatif.proactive.enabled": "A9",
     "cuda.search.pipeline.depth": "A4",
     "cuda.search.shard.tables": "A11",
     "cuda.search.shard.donate": "A11",
@@ -352,8 +350,8 @@ _UNPORTED = {
 
 def _refuse_unported(cfg: CruiseControlConfig) -> None:
     """Raise on a key this port cannot honour yet: the A10 device
-    observatories and search trace, the A9 proactive scheduler, drive-loop
-    pipelining (A4) and a multi-card mesh (A11)."""
+    observatories and search trace, drive-loop pipelining (A4) and a
+    multi-card mesh (A11)."""
     from cruise_control_tpu_torch.config.cruise_control_config import (
         DEFAULT_CONFIG_DEF,
         ConfigException,
@@ -984,10 +982,26 @@ def build_app(
             interval_s=cfg.get("proposal.precompute.interval.ms") / 1000,
             engine=cfg.get("proposal.precompute.engine"),
         )
-    # whatif.proactive.enabled is refused (ROADMAP A9): no proactive
-    # scheduler to start
+    proactive = None
+    if cfg.get_boolean("whatif.proactive.enabled"):
+        # forecast-driven proactive control: fit the diurnal
+        # curve to observed ingress, project the peak, rebalance BEFORE
+        # the what-if verdict says a goal breaks
+        from cruise_control_tpu_torch.whatif.proactive import ProactiveScheduler
+
+        proactive = ProactiveScheduler(
+            cc,
+            period_ms=cfg.get_int("whatif.proactive.period.ms"),
+            horizon_ms=cfg.get_int("whatif.proactive.horizon.ms"),
+            threshold=cfg.get_double("whatif.proactive.threshold"),
+            cooldown_ms=cfg.get_int("whatif.proactive.cooldown.ms"),
+            sample_fn=monitor.observed_total_ingress,
+        )
+        proactive.start(
+            interval_s=cfg.get("whatif.proactive.interval.ms") / 1000,
+        )
     return App(cfg, backend, reporter, cc, fetchers, server, detector,
-               flight_recorder, slo_engine)
+               flight_recorder, slo_engine, proactive)
 
 
 def _movement_strategy(cfg: CruiseControlConfig):

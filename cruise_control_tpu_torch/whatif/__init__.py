@@ -5,8 +5,8 @@ maintenance, topic growth, expressed in the timeline-DSL vocabulary —
 into perturbed model batches and evaluates every future in ONE kernel
 call (hand kernel K12 over a stacked leading futures axis, padded to a
 power of two so request sizes share a handful of shapes).  The
-proactive scheduler of the reference waits for the port's serving stack
-(ROADMAP A6).
+proactive scheduler projects the workload's diurnal peak and rebalances
+*before* the projected breach (``proactive.*`` journal kinds).
 """
 
 from cruise_control_tpu_torch.whatif.cache import WhatifCache
@@ -24,11 +24,13 @@ from cruise_control_tpu_torch.whatif.futures import (
     topic_growth,
     traffic_scale,
 )
+from cruise_control_tpu_torch.whatif.proactive import ProactiveScheduler
 
 __all__ = [
     "FutureBatch",
     "FutureEvent",
     "FutureSpec",
+    "ProactiveScheduler",
     "WhatifCache",
     "broker_loss",
     "compile_futures",

@@ -1,9 +1,9 @@
 """``python -m cruise_control_tpu_torch.whatif --artifact PATH`` — run
 the what-if subsystem's two gated measurements (the N≥64 batched sweep
 on the card and the proactive-vs-reactive scenario twins) and write/print
-the ``cc-tpu-whatif/1`` artifact.  Exits 1 when any gate fails.  Until
-the port has the scenario simulator (ROADMAP A9) it stops at the
-proactive leg with ``NotImplementedError``."""
+the ``cc-tpu-whatif/1`` artifact.  Exits 1 when any gate fails.  Both
+run on ``--device`` (default ``cuda``; ``cpu`` runs the kernels' plain
+twins)."""
 
 from __future__ import annotations
 
@@ -30,10 +30,14 @@ def main(argv=None) -> int:
                         help="batched sweep size (default %(default)s)")
     parser.add_argument("--best-of", type=int, default=3,
                         help="timing repetitions (default %(default)s)")
+    parser.add_argument("--device", default="cuda",
+                        help="the card the engines run on (default "
+                             "%(default)s)")
     args = parser.parse_args(argv)
 
-    batch = measure_batch(num_futures=args.futures, best_of=args.best_of)
-    proactive = measure_proactive()
+    batch = measure_batch(num_futures=args.futures, best_of=args.best_of,
+                          device=args.device)
+    proactive = measure_proactive(device=args.device)
     art = make_artifact(batch, proactive)
     blob = json.dumps(art, indent=1, sort_keys=True)
     if args.artifact:

@@ -17,14 +17,14 @@ zero detector anomalies and zero reactive fixes (the rebalance landed
 before the breach), and its heal p99 must beat the reactive twin's
 (``proactiveBeatsReactiveHealP99``).
 
-The proactive leg needs the scenario simulator, which the port does not
-have yet (ROADMAP A9): :func:`measure_proactive` raises until then.  The
-artifact's contract is the reference's (``tests/schemas/
-artifacts.schema.json``).
+The artifact's contract is the reference's (``tests/schemas/
+artifacts.schema.json``); the port's proactive leg reproduces the
+reference's committed ``WHATIF_r16.json`` block field for field.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import List, Optional
 
@@ -135,13 +135,55 @@ def measure_batch(num_futures: int = MIN_FUTURES, best_of: int = 3,
     }
 
 
-def measure_proactive(scenario: str = "proactive_beats_reactive_peak"):
-    """The proactive-vs-reactive scenario twins: they need the scenario
-    simulator (``sim``), which the port does not have yet."""
-    raise NotImplementedError(
-        f"measure_proactive({scenario!r}) needs the scenario simulator, "
-        "which the port has not ported yet (ROADMAP A9)"
+def _scenario_side(result, mitigation_ms) -> dict:
+    """One twin's journal collapsed into the artifact record.
+    ``mitigation_ms`` is the side's first-mitigation virtual time: the
+    proactive trigger for the proactive run, the first started fix for
+    the reactive one."""
+    pcts = result.heal_latency_percentiles()
+    return {
+        "outcome": result.heal_outcome(),
+        "anomalies": len(result.anomalies()),
+        "fixesStarted": len(result.fixes_started()),
+        "healP99Ms": int(pcts.get(99, 0)),
+        "mitigationVirtualMs": (
+            None if mitigation_ms is None else int(mitigation_ms)
+        ),
+        "journalFingerprint": result.fingerprint(),
+    }
+
+
+def measure_proactive(scenario: str = "proactive_beats_reactive_peak",
+                      device="cuda"):
+    """Run the scenario with proactive control ON and its reactive twin
+    (identical spec, proactive off) — the forecast's time-lead is the
+    only variable.  Both run their engines on ``device``."""
+    from cruise_control_tpu_torch.sim import make_scenario, run_scenario
+
+    spec = make_scenario(scenario)
+    pro = run_scenario(spec, device=device)
+    rea = run_scenario(dataclasses.replace(
+        spec, name=f"{scenario}__reactive_twin", proactive_enabled=False,
+    ), device=device)
+    trig = pro.events_of("proactive.trigger")
+    fixes = rea.fixes_started()
+    pro_side = _scenario_side(
+        pro, trig[0]["ts"] * 1000.0 if trig else None,
     )
+    rea_side = _scenario_side(
+        rea, fixes[0]["timeMs"] if fixes else None,
+    )
+    lead = None
+    if (pro_side["mitigationVirtualMs"] is not None
+            and rea_side["mitigationVirtualMs"] is not None):
+        lead = (rea_side["mitigationVirtualMs"]
+                - pro_side["mitigationVirtualMs"])
+    return {
+        "scenario": scenario,
+        "proactive": pro_side,
+        "reactive": rea_side,
+        "leadVirtualMs": lead,
+    }
 
 
 def make_artifact(batch: dict, proactive: dict,

@@ -99,6 +99,7 @@ def test_bootstrap_reads_capacity_and_cluster_configs_files(tmp_path):
              "telemetry.kernel.enabled": "true",
              "telemetry.mesh.enabled": "true",
              "cuda.search.profiler.trace.dir": "trace"}),
+    # A9 is ported: its key now builds the app and wires the scheduler
     ("A9", {"whatif.proactive.enabled": "true"}),
     ("A4", {"cuda.search.pipeline.depth": "0"}),
     ("A11", {"cuda.mesh.devices": "2", "cuda.search.shard.tables": "false",
@@ -109,7 +110,21 @@ def test_unported_keys_are_refused_before_anything_starts(item, refused):
     from cruise_control_tpu_torch.config.cruise_control_config import (
         CruiseControlConfig,
     )
+    from cruise_control_tpu_torch.whatif.proactive import ProactiveScheduler
 
+    if item == "A9":
+        with booted(PORT, {**SMALL, **refused}) as app:
+            sched = app.proactive_scheduler
+            assert isinstance(sched, ProactiveScheduler)
+            assert sched.cc is app.cruise_control
+            assert sched.state_summary()["running"]
+            assert (sched.period_ms, sched.horizon_ms, sched.threshold,
+                    sched.cooldown_ms) == (86_400_000, 3_600_000, 1.1,
+                                           1_800_000)
+            assert sched._sample_fn == \
+                app.cruise_control.load_monitor.observed_total_ingress
+        assert not sched.state_summary()["running"]
+        return
     threads = threading.active_count()
     for key, value in refused.items():
         with pytest.raises(ConfigException,

@@ -38,11 +38,14 @@ COPIES = (
     "replan/__init__.py", "replan/delta.py", "replan/planner.py",
     "server/__init__.py", "server/admission.py", "server/progress.py",
     "server/purgatory.py", "server/security.py", "server/user_tasks.py",
+    "sim/__init__.py", "sim/artifact.py", "sim/backend.py",
+    "sim/fault_schedule.py", "sim/timeline.py", "sim/workload.py",
     "telemetry/__init__.py", "telemetry/critical_path.py",
     "telemetry/events.py", "telemetry/host_profile.py",
     "telemetry/profile.py", "telemetry/recorder.py", "telemetry/slo.py",
     "telemetry/trace.py",
     "utils/checksum.py", "utils/locks.py", "utils/metrics.py",
+    "whatif/proactive.py",
 )
 
 #: served-path modules the port adapts, and why each differs
@@ -75,16 +78,34 @@ ADAPTED = {
     "bootstrap.py": "engine 'cuda' with CudaSearchConfig from "
                     "cuda.search.* on a device argument that must exist; "
                     "no XLA cache and no device observatories (A10); "
-                    "refuses non-default A4, A9, A10 and A11 keys",
+                    "refuses non-default A4, A10 and A11 keys",
     "server/ui.html": "the engine select offers 'cuda' in place of 'tpu'",
+    "sim/simulator.py": "run_scenario takes a device (resolved first, "
+                        "handed to the facade); the scripted engine "
+                        "failure hits 'cuda'; kernel_capture_scans > 0 "
+                        "raises until the kernel observatory is ported "
+                        "(ROADMAP A10)",
+    "sim/scenarios.py": "engine_failure_degrades_to_greedy runs engine "
+                        "'cuda'",
+    "sim/soak.py": "run_soak and the CLI take a device; the leak gate "
+                   "reads the card's allocator instead of "
+                   "jax.live_arrays; the day runs engine 'cuda'; no XLA "
+                   "cache",
+    "sim/__main__.py": "--device; on the card a scenario listed in ON_CARD "
+                       "(the engine-failure ladder, which never degrades "
+                       "there) is held to its on-card outcome",
+    "whatif/artifact.py": "the batch leg times CudaGoalOptimizer; both "
+                          "legs take a device",
+    "whatif/__main__.py": "--device for both legs",
 }
 
 #: the sub-packages and modules of the served path
 SERVED = ("analyzer/degradation.py", "analyzer/precompute.py",
           "analyzer/goal_optimizer.py", "bootstrap.py", "__main__.py",
           "client", "config", "detector", "executor", "facade.py", "kafka",
-          "monitor", "replan", "server", "telemetry", "utils/checksum.py",
-          "utils/locks.py", "utils/metrics.py")
+          "monitor", "replan", "server", "sim", "telemetry",
+          "utils/checksum.py", "utils/locks.py", "utils/metrics.py",
+          "whatif/proactive.py")
 
 
 def _as_port(text: str) -> str:

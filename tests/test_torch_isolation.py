@@ -51,8 +51,8 @@ def test_import_pulls_in_no_jax_and_no_reference():
     assert res["bad"] == [], res["bad"]
     # the probe really walked the package, the repool, step-loop,
     # what-if, score-only round, corrected-cohort and incremental-rescore
-    # modules, the served path's and the replanner's and detector's
-    # included
+    # modules, the served path's, the replanner's, the detector's, the
+    # simulator's and the proactive scheduler's included
     for mod in ("analyzer.cuda_optimizer", "ops.grid", "analyzer.pool_kernels",
                 "analyzer.step_graph", "analyzer.step_state", "whatif.engine",
                 "whatif.verdict_kernels", "analyzer.round_kernels",
@@ -63,7 +63,9 @@ def test_import_pulls_in_no_jax_and_no_reference():
                 "detector.detectors", "bootstrap", "__main__",
                 "config.cruise_control_config", "kafka.backend",
                 "monitor.fetcher", "telemetry.recorder", "telemetry.slo",
-                "telemetry.host_profile"):
+                "telemetry.host_profile", "sim", "sim.simulator",
+                "sim.scenarios", "sim.soak", "sim.__main__",
+                "whatif.proactive"):
         assert f"cruise_control_tpu_torch.{mod}" in res["modules"], mod
     # every class path the registry defaults to resolved into the port
     assert len(res["classes"]) >= 6, res["classes"]

@@ -231,13 +231,14 @@ def test_measure_batch_on_cpu_and_the_proactive_leg_waits():
     assert rec["verdicts"]["survivable"] + rec["verdicts"]["unsurvivable"] \
         == 8
     assert rec["ratio"] > 0 and rec["singlePlanWallS"] > 0
-    with pytest.raises(NotImplementedError, match="A9"):
-        A.measure_proactive()
-    art = A.make_artifact(rec, {
-        "scenario": "s", "leadVirtualMs": None,
-        "proactive": {"anomalies": 0, "fixesStarted": 0, "healP99Ms": 1},
-        "reactive": {"anomalies": 1, "fixesStarted": 1, "healP99Ms": 2}},
-        now=0.0)
+    # the proactive leg runs on the port's simulator (its equality with
+    # the committed block: tests/test_torch_proactive.py)
+    pro = A.measure_proactive(device="cpu")
+    assert pro["scenario"] == "proactive_beats_reactive_peak"
+    assert pro["proactive"]["anomalies"] == 0 and pro["leadVirtualMs"] > 0
+    art = A.make_artifact(rec, pro, now=0.0)
     assert art["schema"] == "cc-tpu-whatif/1"
     assert art["gates"]["singleDispatch"] and not art["gates"][
         "atLeast64Futures"]
+    assert art["gates"]["proactiveNoBreach"]
+    assert art["gates"]["proactiveBeatsReactiveHealP99"]
