@@ -193,13 +193,43 @@ Phases, each printing one JSON line; any failure exits non-zero:
    trough) decides at the trough: a forecast and a trigger, no failed
    what-if or rebalance, the verdict equal to ``evaluate_batch`` on the
    app's model, K12 launched before K1-K11, every plan on ``"cuda"``, the
-   execution finished or stopped within ``PROACTIVE_EXECUTION_BOUND_S``.
+   execution finished or stopped within ``PROACTIVE_EXECUTION_BOUND_S``;
+13. the device observatories (``telemetry/{kernel_budget,mesh_budget,
+   device_stats,device_cost}.py``), (a)-(f) run right after phase 2, so
+   that its capture is the process's first profiler session (CUPTI
+   dropped kernel records in a process that had run the later phases'
+   sessions), (g) after phase 12.  Phase
+   11 (a)'s ``build_app`` at 1 000 / 20 000 with the four toggles at their
+   defaults (on) and the SLO tick each second; the engine plans the app's
+   model once, disarmed (the step loop kept); then (a) ``GET
+   /profile/kernels?arm=true&scans=1`` (202), POST /rebalance, polled to
+   200: the ``cc-tpu-kernel-budget/2`` artifact schema-valid, dialect
+   ``"device"``, one unit, the card's name, bucket shares summing to 1
+   within 1e-9, every path kernel's records exactly those of its launches
+   over the trace's window (a capture observer; K9 makes six a launch),
+   none reported dropped, device busy
+   within the call's device time; (b) ``GET /profile/mesh``: busy +
+   transfer + collective + gap equal the window, the ledger's
+   ``analyzer.scan_fetch`` bytes the packed fetch's size, and
+   ``?audit=true``; (c) ``GET /metrics``: the ``cc_jit_*`` counts of the
+   chunk capture and the path's kernel loads, ``cc_device_*``,
+   ``cc_kernel_*``, ``cc_transfer_*``; ``GET /slo``'s
+   ``memory.live.buffer.mb`` measured; (d) the app's model planned
+   disarmed and with the four toggles off: equal plans, both wall-clocks
+   printed; (e) with ``cuda.search.profiler.trace.dir``: the same plan, a
+   trace that parses as ``legacy-trace-dir``; (f)
+   ``proactive_beats_reactive_peak`` with a capture armed keeps its
+   committed fingerprint, and the reference's capture probe on engine
+   ``"cuda"`` traces a scan call, parses on the virtual clock and
+   fingerprints alike twice; (g) after phase 12, the app's model planned
+   again under a capture: each path kernel's records and the records the
+   artifact reports dropped add up to its launches' records.
 
 Every kernel of a path must have launched on that path's run (the plan
 path: K1-K11, the what-if path: K12, the search paths: theirs, K13-K17
 among them; the served path: K1-K12; the replan path: K1-K11; the
 standalone server: K1-K12; the simulator: K12 in (a), K1-K11 in (b), K1-K12
-in (c)).  The last two lines are the ``{"kernels": [...]}`` summary
+in (c); the observatories: K1-K11).  The last two lines are the ``{"kernels": [...]}`` summary
 and the ``{"ok": true, "device": ...}`` verdict.  Nothing here imports
 JAX.
 """
@@ -210,6 +240,7 @@ import copy
 import dataclasses
 import functools
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -239,11 +270,6 @@ MIDSCALE_ROUND = (8192, 1000, 8192)
 #: contraction), so they should agree to the bit; the bound leaves room
 #: for the scores' 1e6 / 1e4 repair bonuses
 RTOL, ATOL = 1e-5, 1e-4
-#: published H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor
-#: cores, HBM bandwidth
-PEAK_F32 = 67e12
-PEAK_BYTES = 3.35e12
-
 _REF = "cruise_control_tpu/analyzer/tpu_optimizer.py"
 #: every hand-written kernel (``cruise_control_tpu_torch/csrc/<name>.cu``)
 #: → the reference code it replaces: phase 2 builds these, phases 3 and 7
@@ -474,10 +500,8 @@ def check_grid_top_r(label, args, consts):
                         "grid_top_r_kernel") if label == "midscale" else None)
     plain_ms = cuda_ms(lambda: G.grid_top_r_plain(*args), reps=20)
     # least time for the same work: inputs read once, outputs written once;
-    # the function's least operations (ops/grid.py: grid_top_r_ops)
-    nbytes = (K * (G._SF + 3 * S + 2) + D * (G._DF + G._DI) + G._NC) * 4 \
-        + K * R * 8
-    ops = G.grid_top_r_ops(K * D, n_feasible, S, D)
+    # the function's least operations (ops/grid.py: grid_top_r_work)
+    nbytes, ops = G.grid_top_r_work(K, D, S, R, n_feasible)
     n = K
     W, grid = G.grid_top_r_geometry(
         n, D, torch.cuda.get_device_properties(0).multi_processor_count,
@@ -701,8 +725,17 @@ def bitwise(label, got, want) -> None:
 
 
 def bound(nbytes: float, ops: float) -> dict:
-    """Least time for the work: bytes at HBM rate vs f32 operations."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
+    """Least time for the work: bytes at HBM rate vs f32 operations, at
+    the published H100 SXM peaks (NVIDIA data sheet: HBM3 bandwidth, f32
+    outside the tensor cores) the kernel observatory divides by too
+    (``ops/kernels.py``)."""
+    from cruise_control_tpu_torch.ops.kernels import (
+        HBM_BYTES_PER_S,
+        PEAK_F32_FLOPS,
+    )
+
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_F32_FLOPS * 1e3
     return {"bytes": nbytes, "operations": ops,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
@@ -837,16 +870,7 @@ def check_pool_tables(label, args, kw, has_cap, timed):
             _pool_outputs(PK.pool_tables_plain, s0, t0), a, kw,
             {"percentile_cload": has_cap, "P": P, "S": S, "B": B,
              "rows_refreshed": n_ref},
-            # each input once: the broker tables; a partition's slots,
-            # leader slot, must-move flags, exclusion and touched mark; a
-            # refreshed row's load rows and written tables, an untouched
-            # row's stored tables; both priorities out, the dest scores
-            B * (4 * NR * (3 if has_cap else 2) + 15) + P * (5 * S + 6)
-            + n_ref * (8 * NR + 8 * S) + (P - n_ref) * 8 * S + P * 8 * S
-            + B * 4,
-            # ~60 operations a broker; a refreshed slot's divisions and
-            # rack scan; ~12 a slot for the two priorities
-            B * 60 + n_ref * S * (2 * NR + S + 6) + P * S * 12,
+            *PK.pool_tables_work(P, S, B, NR, has_cap, n_ref),
             plain_kw={}, timed=timed and "[" not in name,
             tag="pool_tables_")
     if timed:
@@ -1010,7 +1034,6 @@ def check_top_select(label, name, args, kw, timed, has_cap=False):
 
     x, hi, lo, flat = (list(args) + [None, None])[:4]
     N, k = x.shape[0], hi.shape[0]
-    log_k = max(k - 1, 1).bit_length()
     rec = record_kernel(
         label, name, outs(PK.top_select), outs(PK.top_select_plain), args,
         kw, {"percentile_cload": has_cap, "N": N, "k": k,
@@ -1019,11 +1042,8 @@ def check_top_select(label, name, args, kw, timed, has_cap=False):
                      x.device).multi_processor_count),
              "attrs": PK.top_select_attrs(k),
              "finite": int(torch.isfinite(x).sum())},
-        # each key read once; the k indices (and slots, flat ids) out
-        N * 4 + k * 4 * (1 + (lo is not None)) + k * 8 * (flat is not None),
-        # three radix passes, the gather over N keys; the rank of the k
-        # kept (the least a comparison sort needs: k log2 k)
-        4 * N + k * log_k, timed=timed, tag="top_select_kernel",
+        *PK.top_select_work(N, k, lo is not None, flat is not None),
+        timed=timed, tag="top_select_kernel",
         exact=True)
     rec["library_ms"] = cuda_ms(lambda: torch.topk(x, k))
     rec["library_sort_ms"] = cuda_ms(
@@ -1078,18 +1098,8 @@ def check_grid_terms(label, args, has_cap, timed, name="grid_terms"):
         {"percentile_cload": has_cap, "K": K, "D": D, "S": S, "B": B,
          "distinct_partitions": n_part,
          "attrs": G.grid_terms_attrs(S, W == 4 * NR + 1)},
-        # each input once: kp, ks and the pool; each distinct partition
-        # row (slots, origins, must-move, leader slot, load row); the
-        # broker tables; the constants; the four packed tables and the
-        # brokers' costs out
-        K * 8 + D * 4 + n_part * (9 * S + 4 + 4 * W)
-        + B * (4 * (NR * (3 if has_cap else 2) + 4) + 6)
-        + 4 * (G._NC + G._NT)
-        + K * 4 * (G._SF + 3 * S + 2) + D * 4 * (G._DF + G._DI) + B * 4,
-        # two broker costs (~85 operations each) and ~20 more a source;
-        # one cost and ~20 more a destination, one a broker's cost
-        # (csrc/grid_terms.cu)
-        K * 190 + D * 105 + B * 85, timed=timed,
+        *G.grid_terms_work(K, D, B, S, W, NR, has_cap, n_part),
+        timed=timed,
         tag="grid_terms_", exact=True)}
 
 
@@ -1137,16 +1147,9 @@ def check_score_candidates(label, args, kw, has_cap, timed,
          "distinct_partitions": n_part,
          "distinct_brokers": n_brk,
          "attrs": K6.score_candidates_attrs(S, W == 4 * NR + 1)},
-        # each input once: the four ids a candidate; each distinct
-        # partition's row (slots, origins, must-move, leader slot, load
-        # row); each broker read (tables as K2's, and its cost from K2's
-        # table); the constants; delta and the feasible flag out
-        N * 16 + n_part * (9 * S + 4 + 4 * W)
-        + n_brk * (4 * (NR * (3 if has_cap else 2) + 4) + 6 + 4)
-        + 4 * (3 * NR + 16) + N * 5,
-        # two broker costs, after the move (~85 operations each; K2's
-        # table gives the two before it) and ~60 more a candidate
-        N * 230, timed=timed, tag="score_candidates_",
+        *K6.score_candidates_work(N, m.capacity.shape[0], S, W, NR, has_cap,
+                                  n_part, n_brk),
+        timed=timed, tag="score_candidates_",
         exact=True)
     return {name: rec}
 
@@ -1264,13 +1267,7 @@ def check_budget_accept(label, args, kw, has_cap, timed,
         {"percentile_cload": has_cap, "C": Cn, "B": B, "NB": NB,
          "distinct_dst": int(torch.unique(args[2]).numel()),
          "distinct_src": int(torch.unique(args[3]).numel())},
-        # each input once: the broker tables, the C rows' ids, vectors and
-        # flags; the flags and the two [B, NB] budget tables out
-        B * (4 * 4 * (3 if has_cap else 2) + 10) + Cn * (13 + 4 * NB)
-        + Cn + 2 * B * NB * 4,
-        # the budgets' column sums and tests; per round two prefix tests
-        # and the draw-down, ~11 operations a row and dim each
-        B * (12 * 3 + 40) + 2 * (2 * 4 + 3) * Cn * NB,
+        *SK.budget_accept_work(B, Cn, NB, has_cap),
         timed=timed, exact=True)}
 
 
@@ -1346,15 +1343,7 @@ def check_per_src_top(label, args, kw, timed, has_cap=False,
         {"percentile_cload": has_cap, "L": L, "K": K, "B": B, "Q": Q,
          "dest_terms": kw.get("dest_terms", False),
          "scratch_bytes": SK.per_src_top_scratch_bytes(K, L, B)},
-        # each input once: a candidate's lp, score, leader slot and
-        # leader's placement word; a row's 8-byte slot, placement word,
-        # source term and top destination term, its broker out; a
-        # broker's winner's lsl and destination word, its best transfer
-        # out; the Q rows and scores out
-        L * 16 + K * 24 + B * 24 + Q * B * 8,
-        # a key a candidate and a row (~2 operations), a row's best score
-        # (2), a broker's Q picks over its rows
-        L * 2 + K * 4 + Q * K * 2, timed=timed, exact=True)
+        *SK.per_src_top_work(L, K, B, Q), timed=timed, exact=True)
     # the rows' best scores, which the step's launch does not write out
     bitwise(f"{label} {name} row_best", row_best(*args, **kw),
             [SK.per_src_top_inputs_plain(m, slot, src, vals, **kw)[1]])
@@ -1432,22 +1421,11 @@ def check_compact_rows(label, args, kw, has_cap, timed, name="compact_rows"):
     out = K7._compact_rows(*args)
     NB = out.move_vec.shape[1]
     n_part = int(torch.unique(out.cand_p).numel())
-    log_c = max(C - 1, 1).bit_length()
     return {name: record_kernel(
         label, name, K7.compact_rows, K7._compact_rows, args, kw,
         {"percentile_cload": has_cap, "NROW": nrow, "C": C, "R": R,
          "distinct_partitions": n_part},
-        # each input once: the NROW scores; a kept row's q row index,
-        # R scores and pool indices, source term, kp / ks / sb and its
-        # leadership entry; R pool entries a kept move row at most; each
-        # distinct partition's leader slot and load row; the outputs
-        nrow * 4 + C * (4 + 8 * R + 4 + 12 + 16 + 4 * R)
-        + n_part * (4 + 4 * W)
-        + C * (1 + 8 * R + 8 + 8 + 4 * NB + 1 + 8 + 1 + 4),
-        # four histogram passes and the gather over NROW keys, two bitonic
-        # sorts of C keys, ~(8R + 2NB + 30) operations a kept row
-        5 * nrow * 3 + 2 * C * log_c * (log_c + 1) // 2
-        + C * (8 * R + 2 * NB + 30),
+        *K7.compact_rows_work(nrow, C, R, NB, W, n_part),
         plain_kw={}, timed=timed, exact=True)}
 
 
@@ -1465,32 +1443,18 @@ def commit_plan(args):
     return int(rows.numel()), int(torch.unique(touched).numel())
 
 
-def commit_bytes(args, has_cap, n_commit, touched, extra=0):
-    """Bytes K8's function must move: every candidate row's 40 bytes, its
-    partition's leader slot and load row (the excluded-load column aside:
-    a row's gated contribution reaches the column maxima even when it is
-    not committed, as a NaN times 0 would), every broker aggregate read
-    (an untouched one changes only if it holds -0.0), the touched
-    brokers' aggregates written, the M_step output rows, a commit's
-    placement entry and mark, and the carry."""
+def commit_work(args, has_cap, n_commit, touched, prev_marks=None):
+    """K8's work on its arguments (``analyzer/commit_kernels.py:
+    commit_batch_work``): ``n_commit`` rows committed, ``touched`` brokers;
+    with ``prev_marks`` the marks form (the step before's marks cleared)."""
+    from cruise_control_tpu_torch.analyzer import commit_kernels as K89
+
     m = args[0]
-    C, W = args[5].shape[0], m.pload.shape[1]
     B, NR = m.capacity.shape
-    ncol = NR * (2 if has_cap else 1) + 4
-    return (C * (40 + 4 + 4 * (W - 1)) + B * ncol * 4 + touched * ncol * 4
-            + args[11] * 16 + n_commit * 6 + 16 * 4 * 2 + 4 * 4 + extra)
-
-
-def commit_ops(args, has_cap, n_commit):
-    """Operations of K8's function: a key a row, the sort of the committed
-    keys, a row's gated contributions, a commit's ~12 operations a column,
-    an add an aggregate."""
-    m = args[0]
-    C, B, NR = args[5].shape[0], *m.capacity.shape
-    ncol = NR * (2 if has_cap else 1) + 4
-    log_n = max(n_commit - 1, 1).bit_length()
-    return (4 * C + n_commit * log_n * (log_n + 1) // 2 + C * 2 * ncol
-            + n_commit * 12 * ncol + B * ncol)
+    return K89.commit_batch_work(
+        args[5].shape[0], m.pload.shape[1], B, NR, args[11], has_cap,
+        n_commit, touched, marks=prev_marks is not None,
+        prev_marks=prev_marks)
 
 
 def check_commit_batch(label, args, kw, has_cap, timed, name="commit_batch"):
@@ -1519,8 +1483,7 @@ def check_commit_batch(label, args, kw, has_cap, timed, name="commit_batch"):
         {"percentile_cload": has_cap, "C": C, "M_step": args[11],
          "B": m.capacity.shape[0], "commits": n_commit,
          "touched_brokers": touched},
-        commit_bytes(args, has_cap, n_commit, touched),
-        commit_ops(args, has_cap, n_commit),
+        *commit_work(args, has_cap, n_commit, touched),
         plain_kw={}, timed=timed, exact=True)}
 
 
@@ -1653,10 +1616,8 @@ def check_match_batch(label, args, kw, has_cap, timed, name="match_batch"):
          "cohort_rows": 0 if acc is None else int(acc.sum()),
          "dest_cap": kw.get("dest_cap", 1), "src_cap": kw.get("src_cap", 1),
          "rounds_to_fixed_outputs": auction_rounds(args, kw)},
-        # the alternates, ids and cohort flags (or the three occupancy
-        # tables) in; take, score, destination out
-        N * A * 8 + N * 16 + (N if acc is not None else 2 * B + P) + N * 13,
-        (kw.get("rounds") or A) * N * 20, timed=timed, exact=True)}
+        *SK.match_batch_work(N, A, B, P, acc is not None, kw.get("rounds")),
+        timed=timed, exact=True)}
 
 
 def match_cases(calls, dev, seed=37):
@@ -1718,12 +1679,7 @@ def check_recompute_aggregates(label, m, has_cap, timed):
          "top_broker_share": top_broker_share(m.assignment),
          "attrs": kernels.attrs("recompute_aggregates",
                                 lib.recompute_aggregates_attrs)},
-        # each input once: the placement and leader slots, the leader and
-        # follower load rows (and capacity loads); six aggregates out
-        P * S * 4 + P * 4 + P * NR * 4 * (4 if has_cap else 2)
-        + B * (NR * (2 if has_cap else 1) + 4) * 4,
-        # per slot: a column max and a fixed-point product and add a column
-        P * S * (NR * (2 if has_cap else 1) + 2) * 3, timed=timed,
+        *K89.recompute_aggregates_work(P, S, B, NR, has_cap), timed=timed,
         tag="recompute_aggregates_", exact=True)
     if timed:
         rec["device_ms_by_phase"] = device_ms(
@@ -2126,15 +2082,8 @@ def check_whatif_verdict(label, args, plain_reps=10, library=True):
         "device_ms_by_phase": phases,
         "plain_ms": cuda_ms(lambda: VK.verdict_plain(*args), reps=plain_reps,
                             warmup=1),
-        # each input once: the placement, leader slots and two load rows
-        # a partition; capacity, rack and liveness a broker; each future's
-        # dead row and multipliers; 82 bytes of verdict a future out.
-        # Operations a future: ~20 a partition (its rated load rows) and
-        # ~16 a slot (select and mask its row, add it to its broker's and
-        # the total, compare)
-        **bound(P * S * 4 + P * 4 + 2 * P * R * 4 + B * (R * 4 + 5)
-                + N * B + N * P * 4 + N * 82,
-                N * (P * 5 * R + P * S * 4 * R)),
+        # whatif/verdict_kernels.py: whatif_verdict_work
+        **bound(*VK.whatif_verdict_work(N, P, S, B, R)),
         "library_ms": None, "library_note": LIBRARY_NOTES["whatif_verdict"],
     }
     if library:
@@ -2340,30 +2289,19 @@ def round_inputs(state, cfg_kw, dev):
                 tconsts=tconsts, forms=forms)
 
 
-#: ~f32 operations of one fused broker cost (csrc/broker_cost.cuh: about
-#: 13 a resource, then the count, leadership and network terms)
-BROKER_COST_OPS = 85
-
-
 def score_columnar_ops(scores, K, D, B, S, NR, has_cap):
-    """The least f32 operations of K14's function on this run's data.  A
-    move cell's source costs depend only on its pool row and its
-    destination's old cost only on the broker, so each is counted once (a
-    row's new source cost, every broker's old cost); every move cell needs
-    its feasibility (the capacity test, 2·NR, the rack and duplicate scan,
-    3·S, ~8 flags), a feasible one also the destination's new cost and the
-    delta's sums; a leadership transfer needs ~12 operations of
-    feasibility, a feasible one its two new costs and ~30 more; every
-    candidate's score is negated into the key."""
+    """The least f32 operations of K14's function on this run's data
+    (``analyzer/round_kernels.py: score_columnar_work``, with the feasible
+    move cells and leadership transfers of ``scores``) → (operations,
+    feasible moves, feasible transfers)."""
+    from cruise_control_tpu_torch.analyzer import round_kernels as RK
+
     n_mv = K * D
     feas_mv = int(torch.isfinite(scores[:n_mv]).sum())
     feas_ld = int(torch.isfinite(scores[n_mv:]).sum())
-    return (n_mv * (2 * NR + 3 * S + 8)
-            + feas_mv * (BROKER_COST_OPS + (NR if has_cap else 0) + 2)
-            + K * (BROKER_COST_OPS + 30) + B * BROKER_COST_OPS
-            + (scores.shape[0] - n_mv) * 12
-            + feas_ld * (2 * BROKER_COST_OPS + 30)
-            + scores.shape[0]), feas_mv, feas_ld
+    _, ops = RK.score_columnar_work(K, D, 0, S, B, NR, 0, scores.shape[0],
+                                    has_cap, feas_mv, feas_ld)
+    return ops, feas_mv, feas_ld
 
 
 def check_round_kernels(label, r, timed, whole=True):
@@ -2399,6 +2337,8 @@ def check_round_kernels(label, r, timed, whole=True):
             # K14: each input once — the pools, every partition's row
             # (slots, origins, must-move flags, leader slot, load row), the
             # broker tables, the constants — and the N keys out
+            nbytes, _ = RK.score_columnar_work(K, D, P, S, B, NR, W, N,
+                                               has_cap)
             recs["score_columnar"] = record_kernel(
                 label, "score_columnar", one(RK.score_columnar),
                 lambda *a: [RK.round_keys_plain(
@@ -2407,10 +2347,7 @@ def check_round_kernels(label, r, timed, whole=True):
                 {"percentile_cload": has_cap, "K": K, "D": D, "P": P,
                  "S": S, "N": N, "feasible_moves": feas_mv,
                  "feasible_transfers": feas_ld, "writes": "the flat key"},
-                K * 8 + D * 4 + P * (9 * S + 4 + 4 * W)
-                + B * (4 * (NR * (3 if has_cap else 2) + 4) + 6) + 4 * 28
-                + N * 4, ops,
-                plain_kw={}, timed=timed, exact=True)
+                nbytes, ops, plain_kw={}, timed=timed, exact=True)
         else:
             key = RK.round_keys(*key_args)
             N = key.shape[0]
@@ -2418,9 +2355,8 @@ def check_round_kernels(label, r, timed, whole=True):
                 label, "round_pack[keys]", one(RK.round_keys),
                 one(RK.round_keys_plain), key_args, {},
                 {"percentile_cload": has_cap, "N": N},
-                # the scores read once, the key written once; a negation
-                # each
-                N * 8, N, timed=timed, tag="round_pack_keys_kernel",
+                *RK.round_keys_work(N), timed=timed,
+                tag="round_pack_keys_kernel",
                 exact=True)
             vals, ls = key_args
             rec["library_two_calls_ms"] = cuda_ms(
@@ -2442,10 +2378,7 @@ def check_round_kernels(label, r, timed, whole=True):
             label, f"round_pack{sfx}", one(RK.round_pack),
             one(RK.round_pack_plain), (key, sel, kp, ks, dp), layout,
             {"percentile_cload": has_cap, "N": N, "k": k},
-            # the k selected indices and their keys, ~4 ids each (pool
-            # row, slot, destination, leadership entry) read once; the
-            # packed [5, k] out; ~10 operations each
-            k * (4 + 4 + 16) + 5 * k * 4, 10 * k, timed=timed,
+            *RK.round_pack_work(k), timed=timed,
             tag="round_pack_kernel", exact=True)
         rec["library_ms"] = cuda_ms(lambda: torch.topk(key, k))
         emit({"phase": "kernel_library", "case": label,
@@ -2476,7 +2409,6 @@ def check_corrected(label, state, cfg_kw, dev, timed):
     S = m.assignment.shape[1]
     NR = m.capacity.shape[1]
     qual = args[8]
-    log_c = max(Cn - 1, 1).bit_length()
     name = "corrected_accept" + ("" if cfg.cohort_stack_tol >= 1.0
                                  else "[stack_tol]")
     rec = record_kernel(
@@ -2485,14 +2417,7 @@ def check_corrected(label, state, cfg_kw, dev, timed):
         {"percentile_cload": has_cap, "C": Cn, "NB": NB,
          "qualified": int(qual.sum()),
          "stack_tol": cfg.cohort_stack_tol},
-        # each input once: a row's ids, move vector, flags and snapshot
-        # score, its partition's slots and must-move flags and their
-        # racks, its two brokers' tables; the accept flags out
-        Cn * (4 * NB + 25 + S * 9 + 2 * (4 * (NR * (3 if has_cap else 2)
-                                              + 4) + 4)) + Cn,
-        # two sorts of C keys, two scans of C·NB, four broker costs (~85
-        # operations each) and ~60 more a row
-        2 * Cn * log_c * (log_c + 1) // 2 + 2 * 4 * Cn * NB + Cn * 400,
+        *K15.corrected_accept_work(Cn, NB, S, NR, has_cap),
         plain_kw={"snap_score": kw["snap_score"]}, timed=timed,
         exact=True)
     if timed:
@@ -2715,13 +2640,8 @@ def check_incremental_kernels(label, state, cfg_kw, dev, timed):
     recs["stale_sets"] = record_kernel(
         label, "stale_sets", after(RK.stale_sets, (7, 8, 9, 10, 11)),
         after(RK.stale_sets_plain, (7, 8, 9, 10, 11)), a16, kw16, base,
-        # each input once: the pools (kp, dest_pool, lp, lsl), a leadership
-        # entry's leader slot and two assignment words, the marks, the
-        # carry; the three lists, counts and carry out
-        K * 4 + D * 4 + L * 8 + L * 12 + B + P + 2 * 4 * SS.NSTATE
-        + (RB + CB + LB + 3) * 4,
-        # a test and a scan step an entry, twice (count, then compact)
-        4 * (K + D + L), plain_kw={}, timed=timed, exact=True)
+        *RK.stale_sets_work(K, D, L, B, P, RB, CB, LB), plain_kw={},
+        timed=timed, exact=True)
 
     (a17, kw17), = calls["grid_patch"]
     m17, cfg, ca, kp17, ks17, dp17, packed, cidx17, tb17, dt, bd, st17 = a17
@@ -2730,21 +2650,12 @@ def check_incremental_kernels(label, state, cfg_kw, dev, timed):
     g_c = G.move_grid_scores(m17, cfg, ca, kp17, ks17, dp_c.to(torch.int32))
     feas = int(torch.isfinite(g_c).sum())
     n_stale = int((cidx17 >= 0).sum())
-    src_b = K * 4 * (G._SF + 3 * S + 2)
     recs["grid_patch"] = record_kernel(
         label, "grid_patch", after(RK.grid_patch, (9, 10)),
         after(RK.grid_patch_plain, (9, 10)), a17, kw17,
         dict(base, R=R, feasible_cells=feas, stale_columns=n_stale,
              attrs=RK.grid_patch_attrs(S, has_cap, CB)),
-        # each input once: K2's source rows, the list and the destination
-        # rows of its stale columns, the constants, the stored (dt, bd)
-        # and the pool entries and marks they index; (dt, bd) out
-        src_b + CB * 4 + n_stale * 4 * (G._DF + G._DI) + 4 * G._NC
-        + 2 * K * R * 8 + D * 4 + B,
-        # K1's count over the K · n_stale cells of the stale columns, one
-        # test a -1 column, and a compare per merged entry
-        G.grid_top_r_ops(K * n_stale, feas, S, n_stale) + (CB - n_stale)
-        + 2 * K * (R + n_stale),
+        *RK.grid_patch_work(K, D, B, S, R, CB, n_stale, feas),
         plain_kw={}, timed=timed, exact=True)
 
     # K1 and K6 on the stale rows / entries (the patch's (b) and (c)), and
@@ -2770,10 +2681,8 @@ def check_incremental_kernels(label, state, cfg_kw, dev, timed):
             after(lambda *a: G.grid_rescore_carry_plain(
                 *a[:12], rows=a[12], n_rows=a[13]), (8, 9)), args, {},
             dict(base, rows=nrows, feasible_cells=nfeas),
-            nrows * 4 * (G._SF + 3 * S + 2 + 1) + D * 4 * (G._DF + G._DI)
-            + 4 * G._NC + nrows * R * 8,
-            G.grid_top_r_ops(nrows * D, nfeas, S, D), plain_kw={},
-            timed=timed, exact=True)
+            *G.grid_top_r_work(nrows, D, S, R, nfeas, listed=True),
+            plain_kw={}, timed=timed, exact=True)
     # the carry form writes the leadership scores only (no feasibility)
     ls, _ = kw6["out"]
     k6 = tuple(a6) + (ls, None, kw6["rows"], kw6["n_rows"], kw6["gate"], 0,
@@ -2794,10 +2703,9 @@ def check_incremental_kernels(label, state, cfg_kw, dev, timed):
             args, {}, dict(base, N=n),
             # as phase 3's K6 record, for the n candidates scored, with
             # the score out and no feasibility
-            n * 16 + min(n, n_part) * (9 * S + 4 + 4 * W)
-            + B * (4 * (NR * (3 if has_cap else 2) + 4) + 6 + 4)
-            + 4 * (3 * NR + 16) + n * 4,
-            n * 230, plain_kw={}, timed=timed, tag="score_candidates_",
+            *K6.score_candidates_work(n, B, S, W, NR, has_cap,
+                                      min(n, n_part), B, carry=True),
+            plain_kw={}, timed=timed, tag="score_candidates_",
             exact=True)
 
     # K8 with the marks: it clears the step before's from its lists, then
@@ -2825,9 +2733,7 @@ def check_incremental_kernels(label, state, cfg_kw, dev, timed):
              touched_brokers=touched, marks_cleared=prev),
         # as phase 3's K8 record, and the marks: the lists read and
         # written, a mark a broker or partition set and cleared
-        commit_bytes(a8, has_cap, n_commit, touched,
-                     2 * 3 * a8[11] * 4 + 3 * (prev + n_commit)),
-        commit_ops(a8, has_cap, n_commit),
+        *commit_work(a8, has_cap, n_commit, touched, prev_marks=prev),
         plain_kw={}, timed=timed, exact=True)
     return recs
 
@@ -3923,7 +3829,8 @@ def app_inprocess(journal):
         torch.cuda.synchronize()
         launches = {n: fn.launches for n, fn in counters().items()}
         gets = {e: app_get(app, e) for e in APP_GETS}
-        kernels_503 = app_get(app, "profile/kernels")
+        # the kernel observatory is on and holds no capture yet: 404
+        kernels_404 = app_get(app, "profile/kernels")
         deadline = time.monotonic() + 120
         while True:
             host = app_get(app, "profile/host")
@@ -3968,7 +3875,7 @@ def app_inprocess(journal):
            "profile_host": {"arm_status": armed[2], "status": host[2],
                             "schema": (host[0].get("schema")
                                        if host[2] == 200 else None)},
-           "profile_kernels_status": kernels_503[2],
+           "profile_kernels_status": kernels_404[2],
            "diagnostics_schema": gets["diagnostics"][0].get("schema"),
            "slo_schema": gets["slo"][0].get("schema"),
            "metrics_has_cc_host": "cc_host_" in gets["metrics"][0],
@@ -4002,10 +3909,10 @@ def app_inprocess(journal):
             or rec["diagnostics_schema"] != "cc-tpu-flight-recorder/1" \
             or rec["slo_schema"] != "cc-tpu-slo/1":
         raise AssertionError(f"the app's GETs: {rec['gets']}")
-    if (armed[2], host[2], kernels_503[2]) != (202, 200, 503) \
+    if (armed[2], host[2], kernels_404[2]) != (202, 200, 404) \
             or rec["profile_host"]["schema"] != "cc-tpu-host-profile/1":
         raise AssertionError(f"GET /profile/host {armed[2]} then {host[2]}, "
-                             f"/profile/kernels {kernels_503[2]}")
+                             f"/profile/kernels {kernels_404[2]}")
     for name in SERVED_PATH:
         if launches[name] <= 0:
             raise AssertionError(f"the app never launched {name}")
@@ -4521,6 +4428,495 @@ def sim_phase():
     return total
 
 
+# ---- phase 13: the device observatories ----------------------------------------
+#: phase 13's app: phase 11 (a)'s at the four device-telemetry toggles'
+#: defaults (on), its SLO tick (which parses captures) each second
+OBSERVATORY_PROPS = {**APP_PROPS, "telemetry.slo.interval.ms": 1000}
+#: the kernels a scan call launches (K9 runs at the model's upload and the
+#: plan's end, outside the call)
+SCAN_CALL_KERNELS = tuple(n for n in _PLAN if n != "recompute_aggregates")
+#: the reference's committed probe of a capture inside a scenario
+#: (tests/test_kernel_budget.py), on engine "cuda"
+CAPTURE_PROBE_MINUTES = 10
+
+
+@functools.lru_cache(maxsize=None)
+def artifact_schemas():
+    """The artifact contract's checker, ``tests/test_artifact_schemas.py``
+    (its ``SCHEMAS`` and ``validate``), loaded from its file."""
+    import importlib.util
+    import pathlib
+
+    path = (pathlib.Path(__file__).resolve().parent / "tests"
+            / "test_artifact_schemas.py")
+    spec = importlib.util.spec_from_file_location("artifact_schemas", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def schema_errors(value, name: str) -> list:
+    """The first place where ``value`` breaks artifact schema ``name``,
+    or none."""
+    checker = artifact_schemas()
+    try:
+        checker.validate(value, checker.SCHEMAS[name])
+    except AssertionError as e:
+        return [str(e)]
+    return []
+
+
+def kernel_records(art: dict, launched: dict) -> dict:
+    """Each path kernel's records in a capture's artifact, the records its
+    launches in the capture's window made (``kernel_budget.
+    RECORDS_PER_LAUNCH`` a launch) and the records the artifact reports
+    dropped."""
+    from cruise_control_tpu_torch.telemetry.kernel_budget import (
+        RECORDS_PER_LAUNCH,
+    )
+
+    return {n: {"recorded": art["by_category"].get(n, {}).get(
+                    "count_per_unit", 0.0) * art["units"],
+                "launched": launched.get(n, 0) * RECORDS_PER_LAUNCH.get(n, 1),
+                "dropped": art["dropped_records"].get(n, 0)}
+            for n in _PLAN}
+
+
+class LaunchWindow:
+    """A capture observer: every kernel counter at the trace's start and
+    finish (the window the artifact counts)."""
+
+    def __init__(self):
+        self.start = self.finish = None
+
+    def on_trace_start(self, meta):
+        self.start = {n: fn.launches for n, fn in counters().items()}
+
+    def on_trace_finish(self, meta):
+        self.finish = {n: fn.launches for n, fn in counters().items()}
+
+    def launches(self) -> dict:
+        return {n: self.finish[n] - self.start[n] for n in self.start}
+
+
+def poll(app, endpoint: str, seconds: float = 60.0):
+    """GET ``endpoint`` until it stops answering 202 (the SLO tick
+    parses) → (body, seconds, status) and the seconds it took."""
+    t = time.perf_counter()
+    while True:
+        got = app_get(app, endpoint)
+        if got[2] != 202 or time.perf_counter() - t > seconds:
+            return got, time.perf_counter() - t
+        time.sleep(0.1)
+
+
+def metric_value(text: str, series: str):
+    """The value of one exposition series (``name{labels}``), or None."""
+    for line in text.splitlines():
+        if line.startswith(series + " "):
+            return float(line.split()[-1])
+    return None
+
+
+def observatory_served():
+    """Phase 13 (a)-(c): arm, plan and read the observatories through the
+    app's HTTP server.  Returns (record, launches, model, config)."""
+    import tempfile
+
+    from cruise_control_tpu_torch.analyzer import cuda_optimizer as C
+    from cruise_control_tpu_torch.bootstrap import _cuda_search_config
+    from cruise_control_tpu_torch.telemetry import kernel_budget as KB
+    from cruise_control_tpu_torch.telemetry import mesh_budget as MB
+
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        app, cfg = build_app_from(OBSERVATORY_PROPS, tmp)
+    build_s = time.perf_counter() - t
+    window = LaunchWindow()
+    KB.CAPTURE.add_observer(window)
+    scans, results = [], []
+    real_scan_call = C._scan_call
+
+    def spy_scan(*a, **k):
+        out = real_scan_call(*a, **k)
+        scans.append(out[0])
+        return out
+    try:
+        cc = app.cruise_control
+        sampling_s = feed_app(app)
+        app.server.start()
+        run = cc.rebalance
+
+        def spy(*a, **kw):
+            out = run(*a, **kw)
+            results.append(out[0] if isinstance(out, tuple) else out)
+            return out
+        cc.rebalance = spy
+        C._scan_call = spy_scan
+        # a first plan, disarmed, by the engine on the app's model at the
+        # app's config: the process keeps its step loop, so the traced
+        # call replays it without a capture, as a served app's does
+        model = cc.load_monitor.cluster_model()
+        _, warm_s = run_plan(C.CudaGoalOptimizer(
+            config=_cuda_search_config(cfg)), model)
+        before = app_get(app, "profile/kernels")
+        armed = app_get(app, "profile/kernels", arm="true", scans="1")
+        zero_counters()
+        post = served_request(app.server, "post", "rebalance",
+                              dryrun="true", verbose="true", **LONG_POLL)
+        torch.cuda.synchronize()
+        launches = {n: fn.launches for n, fn in counters().items()}
+        C._scan_call = real_scan_call
+        (art, _, kcode), parse_wait_s = poll(app, "profile/kernels")
+        mesh, _ = poll(app, "profile/mesh")
+        metrics = app_get(app, "metrics")[0]
+        slo = app_get(app, "slo")[0]
+        state = KB.CAPTURE.state()
+        parsed = KB.CAPTURE.latest_parsed()
+        mparsed = MB.MESH.latest_parsed()
+        audit = app_get(app, "profile/mesh", audit="true")
+    finally:
+        C._scan_call = real_scan_call
+        KB.CAPTURE.remove_observer(window)
+        app.shutdown()
+    res = results[0]
+    summ = res.goal_summaries[0]
+    counted = window.launches() if window.finish is not None else {}
+    records = kernel_records(art, counted) if kcode == 200 else {}
+    # (a) the kernels artifact
+    total = parsed.total_time_us if parsed is not None else 0.0
+    shares = {}
+    if parsed is not None:
+        for row in parsed.rows:
+            shares[row.bucket] = shares.get(row.bucket, 0.0) + row.time_us
+    share_sum = sum(v / total for v in shares.values()) if total else 0.0
+    first = scans[0] if scans else None
+    packed_bytes = (4 * int(first.step_counts.sum())
+                    + 4 * len(first.step_counts)) * 4 if first else None
+    ledger = (mesh[0].get("transfers", {}).get("ledger", {}).get("by_fn", {})
+              if mesh[2] == 200 else {})
+    worst_split = max(
+        (abs(d.busy_us + d.collective_us + d.transfer_us + d.gap_us
+             - d.wall_us) for d in mparsed.devices.values()),
+        default=None) if mparsed is not None else None
+    kernel_fns = {n: metric_value(
+        metrics, f'cc_jit_compile_total{{fn="ops.kernels.{n}"}}')
+        for n in KERNELS}
+    slo_row = next((r for r in slo.get("slos", [])
+                    if r["name"] == "memory.live.buffer.mb"), {})
+    rec = {
+        "phase": "observatory_1000b_20k", "nvidia_smi": nvidia_smi(),
+        "build_app_s": build_s, "sampling_s": sampling_s,
+        "statuses": {"before": before[2], "arm": armed[2],
+                     "rebalance": post[2], "kernels": kcode,
+                     "mesh": mesh[2], "audit": audit[2]},
+        "plan": {"wallclock_s": post[1], "warm_engine_wallclock_s": warm_s,
+                 "timing_s": summ["timing_s"],
+                 "steps": summ["steps"], "scan_calls": summ["rounds"],
+                 "graph_captures": summ["graph_captures"]},
+        # the process's first profiler session: CUPTI's start-up, inside
+        # the request under the device lock
+        "capture": {"first_session_start_s": KB.SESSION_STARTS["first"],
+                    "sessions": KB.SESSION_STARTS["count"],
+                    "stop_export_s": state["lastStopS"],
+                    "parse_s": state["lastParseS"],
+                    "parse_wait_s": parse_wait_s,
+                    "refusals": state["refusals"],
+                    "audit_s": MB.MESH.last_audit_s},
+        "kernels_artifact": {
+            "schema_errors": schema_errors(art, KB.SCHEMA)
+            if kcode == 200 else ["no artifact"],
+            "dialect": art.get("dialect"), "units": art.get("units"),
+            "chip": art.get("hw", {}).get("chip"),
+            "device_busy_ms": art.get("per_unit", {}).get("device_busy_ms"),
+            "kernels_per_unit": art.get("per_unit", {}).get("kernels"),
+            "bytes_mb": art.get("per_unit", {}).get("bytes_mb"),
+            "hbm_floor_ms": art.get("per_unit", {}).get("hbm_floor_ms"),
+            "hbm_utilization_of_busy": art.get("hbm_utilization_of_busy"),
+            "by_bucket": art.get("by_bucket"),
+            "share_sum_unrounded": share_sum,
+            "dropped_records": art.get("dropped_records"),
+            "records": records},
+        "mesh_artifact": {
+            "schema_errors": schema_errors(mesh[0], MB.SCHEMA)
+            if mesh[2] == 200 else ["no artifact"],
+            "wall": mesh[0].get("wall"),
+            "worst_split_error_us": worst_split,
+            "transfers_trace": mesh[0].get("transfers", {}).get("trace"),
+            "ledger": ledger, "packed_fetch_bytes": packed_bytes,
+            "replication": audit[0]},
+        "metrics": {
+            "scan_fn_compiles": metric_value(
+                metrics, 'cc_jit_compile_total{fn="analyzer.scan_fn"}'),
+            "kernel_library_compiles": kernel_fns,
+            "cache_hits": metric_value(
+                metrics, "cc_jit_persistent_cache_hits_total"),
+            "cache_puts": metric_value(
+                metrics, "cc_jit_persistent_cache_puts_total"),
+            "families": sorted({ln.split()[2] for ln in metrics.splitlines()
+                                if ln.startswith("# TYPE cc_")
+                                and any(f in ln for f in (
+                                    "cc_jit_", "cc_device_", "cc_kernel_",
+                                    "cc_shard_", "cc_transfer_",
+                                    "cc_mesh_"))})},
+        "slo_live_buffer": slo_row,
+        "launches": {n: launches[n] for n in _PLAN},
+    }
+    emit(rec)
+    ka, ma = rec["kernels_artifact"], rec["mesh_artifact"]
+    if rec["statuses"] != {"before": 404, "arm": 202, "rebalance": 200,
+                           "kernels": 200, "mesh": 200, "audit": 200}:
+        raise AssertionError(f"the observatories' ladder: {rec['statuses']}")
+    if rec["plan"]["graph_captures"] != 0:
+        raise AssertionError("the traced plan captured its chunk (the kept "
+                             "loop was not reused)")
+    if ka["schema_errors"] or ma["schema_errors"]:
+        raise AssertionError(f"artifacts off the schema: "
+                             f"{ka['schema_errors'] + ma['schema_errors']}")
+    if (ka["dialect"], ka["units"], ka["chip"]) != (
+            "device", 1, torch.cuda.get_device_name(0)):
+        raise AssertionError(f"kernels artifact: {ka['dialect']}, "
+                             f"{ka['units']} units, chip {ka['chip']}")
+    if abs(share_sum - 1.0) > 1e-9:
+        raise AssertionError(f"bucket shares sum to {share_sum!r}")
+    # every path kernel's records equal its launch counters' (K9 makes six
+    # a launch), none dropped, the scan call's kernels launched
+    if ka["dropped_records"] or any(
+            r["recorded"] != r["launched"] for r in records.values()) or any(
+            not records[n]["launched"] for n in SCAN_CALL_KERNELS):
+        raise AssertionError(f"kernel records {records} (dropped "
+                             f"{ka['dropped_records']})")
+    if ka["device_busy_ms"] > summ["timing_s"]["device"] * 1e3:
+        raise AssertionError(f"device busy {ka['device_busy_ms']} ms above "
+                             f"the call's {summ['timing_s']['device']} s")
+    if worst_split is None or worst_split > 1e-3 or abs(
+            ma["wall"]["reconciliation_pct"] - 100.0) > 1e-3:
+        raise AssertionError(f"mesh partition: worst {worst_split} µs, "
+                             f"{ma['wall']}")
+    fetch = ledger.get("analyzer.scan_fetch", {})
+    if (fetch.get("d2h_count"), fetch.get("d2h_bytes")) != (1, packed_bytes):
+        raise AssertionError(f"the ledger's scan fetch {fetch}, the packed "
+                             f"fetch {packed_bytes} bytes")
+    m = rec["metrics"]
+    # the captures and the loads of the path's kernels (every kernel the
+    # process loaded is counted; the path's loaded first)
+    if not (m["scan_fn_compiles"] or 0) >= 1 or any(
+            not (kernel_fns[n] or 0) >= 1 for n in _PLAN):
+        raise AssertionError(f"builds and captures uncounted: {m}")
+    for family in ("cc_device_bytes_accessed", "cc_kernel_busy_ms",
+                   "cc_transfer_bytes", "cc_jit_compile_total"):
+        if family not in m["families"]:
+            raise AssertionError(f"/metrics lacks {family}")
+    if slo_row.get("measured") is None:
+        raise AssertionError(f"memory.live.buffer.mb has no data: {slo_row}")
+    for name in _PLAN:
+        if launches[name] <= 0:
+            raise AssertionError(f"phase 13's plan never launched {name}")
+    return rec, launches, model, cfg
+
+
+def observatory_direct(model, cfg):
+    """Phase 13 (d)-(e): the app's model planned with the observatories
+    on but disarmed and with their toggles off (equal plans; both walls
+    printed, not gated), then with a search trace directory."""
+    import tempfile
+
+    from cruise_control_tpu_torch.analyzer import cuda_optimizer as C
+    from cruise_control_tpu_torch.bootstrap import _cuda_search_config
+    from cruise_control_tpu_torch.telemetry import (
+        device_cost,
+        device_stats,
+        kernel_budget,
+        mesh_budget,
+    )
+
+    search = _cuda_search_config(cfg)
+    opt = C.CudaGoalOptimizer(config=search)
+    on, s_on = run_plan(opt, model)
+    toggles = (device_stats, device_cost, kernel_budget, mesh_budget)
+    for mod in toggles:
+        mod.configure(enabled=False)
+    mesh_budget.MESH.ledger.enabled = False
+    try:
+        off, s_off = run_plan(opt, model)
+    finally:
+        for mod in toggles:
+            mod.configure(enabled=True)
+        mesh_budget.MESH.ledger.enabled = True
+    with tempfile.TemporaryDirectory() as tmp:
+        zero_counters()
+        traced, s_traced = run_plan(C.CudaGoalOptimizer(
+            config=dataclasses.replace(search, profiler_trace_dir=tmp)),
+            model)
+        launched = read_counters()
+        parsed = kernel_budget.parse_pending(max_parses=4)
+        art = kernel_budget.latest()
+        trace_mb = os.path.getsize(kernel_budget.newest_trace(tmp)) / 1e6
+    rec = {"phase": "observatory_direct", "nvidia_smi": nvidia_smi(),
+           # a later session's start-up (the trace directory's)
+           "session_start_s": kernel_budget.SESSION_STARTS["latest"],
+           "disarmed_wallclock_s": s_on, "toggles_off_wallclock_s": s_off,
+           "trace_dir_wallclock_s": s_traced,
+           "disarmed_sha256": actions_sha256(on),
+           "toggles_off_sha256": actions_sha256(off),
+           "trace_dir_sha256": actions_sha256(traced),
+           "legacy": {"parsed": parsed, "source": art["source"],
+                      "dialect": art["dialect"], "trace_mb": trace_mb,
+                      # the whole search's records, against the plan's
+                      # launch counters
+                      "records": kernel_records(art, launched),
+                      "device_busy_ms": art["per_unit"]["device_busy_ms"],
+                      "by_bucket": art["by_bucket"]}}
+    emit(rec)
+    if len({rec["disarmed_sha256"], rec["toggles_off_sha256"],
+            rec["trace_dir_sha256"]}) != 1:
+        raise AssertionError("the plans with the observatories on, off and "
+                             "tracing differ")
+    if (parsed, art["source"], art["dialect"]) != (
+            1, "legacy-trace-dir", "device"):
+        raise AssertionError(f"the trace directory's capture: {rec['legacy']}")
+    return rec
+
+
+def capture_probe():
+    """The reference's capture probe (a hot skew healed by the replanner,
+    ``tests/test_kernel_budget.py``) on engine "cuda", capturing one scan
+    call."""
+    from cruise_control_tpu_torch.sim import ScenarioSpec
+    from cruise_control_tpu_torch.sim.timeline import (
+        Timeline,
+        hot_partition_skew,
+    )
+
+    return ScenarioSpec(
+        name="kernel_capture_probe",
+        description="deterministic capture under a warm heal",
+        timeline=Timeline([hot_partition_skew(
+            2 * MINUTE_MS, factor=12.0, partitions=[0, 1, 2, 3])]),
+        self_healing={"goal_violation": True}, engine="cuda",
+        kernel_capture_scans=1,
+        duration_ms=CAPTURE_PROBE_MINUTES * MINUTE_MS)
+
+
+def observatory_scenarios():
+    """Phase 13 (f): ``proactive_beats_reactive_peak`` with a capture armed
+    keeps its committed fingerprint (its plans are greedy: nothing is
+    traced), and the capture probe on engine "cuda" traces a scan call,
+    parses on the virtual clock and fingerprints alike twice."""
+    from cruise_control_tpu_torch.analyzer import cuda_optimizer as C
+    from cruise_control_tpu_torch.sim import make_scenario, run_scenario
+    from cruise_control_tpu_torch.telemetry import kernel_budget as KB
+
+    pinned = {s["name"]: s["journalFingerprint"]
+              for s in committed("SCENARIOS_r16.json")["scenarios"]}
+    spec = dataclasses.replace(make_scenario(PROACTIVE_SCENARIO),
+                               kernel_capture_scans=1)
+    t = time.perf_counter()
+    pro = run_scenario(spec)
+    pro_s = time.perf_counter() - t
+    seen = []
+    runs = []
+
+    def on_tick(sim, now):
+        # the artifact the tick's parse made (the run's scope drops it)
+        art = KB.CAPTURE.latest()
+        if art is not None and not seen:
+            seen.append(art)
+    for _ in range(2):
+        # each run from no kept step loop: its first plan captures the
+        # chunk (the plan summaries count captures)
+        C._LOOPS.clear()
+        t = time.perf_counter()
+        runs.append((run_scenario(capture_probe(), on_tick=on_tick),
+                     time.perf_counter() - t))
+    a = runs[0][0]
+    kinds = [e["kind"] for e in a.journal]
+    art = seen[0] if seen else {}
+    rec = {"phase": "observatory_scenarios", "nvidia_smi": nvidia_smi(),
+           PROACTIVE_SCENARIO: {
+               "fingerprint": pro.fingerprint(), "wallclock_s": pro_s,
+               "fingerprint_as_committed":
+                   pro.fingerprint() == pinned[PROACTIVE_SCENARIO]},
+           "capture_probe": {
+               "wallclock_s": [s for _, s in runs],
+               "fingerprints": [r.fingerprint() for r, _ in runs],
+               "captures": kinds.count("profiler.capture.start"),
+               "parsed": kinds.count("profiler.mesh.parsed"),
+               "artifact": {k: art.get(k) for k in (
+                   "dialect", "source", "units", "per_unit")}}}
+    emit(rec)
+    if not rec[PROACTIVE_SCENARIO]["fingerprint_as_committed"]:
+        raise AssertionError(f"{PROACTIVE_SCENARIO} under a capture moved "
+                             "its fingerprint")
+    probe_rec = rec["capture_probe"]
+    if len(set(probe_rec["fingerprints"])) != 1 or not probe_rec[
+            "captures"] or not probe_rec["parsed"] or art.get(
+            "dialect") != "device":
+        raise AssertionError(f"the capture probe: {probe_rec}")
+    return rec
+
+
+def observatory_phase():
+    """Phase 13 (a)-(f) → every kernel's launches on the served capture's
+    plan, and the app's model and config, which (g) plans again."""
+    t = time.perf_counter()
+    _, launches, model, cfg = observatory_served()
+    observatory_direct(model, cfg)
+    observatory_scenarios()
+    # the phases after it start from no kept step loop, as before it ran
+    from cruise_control_tpu_torch.analyzer import cuda_optimizer as C
+
+    C._LOOPS.clear()
+    emit({"phase": "observatory", "seconds": time.perf_counter() - t})
+    return launches, model, cfg
+
+
+def observatory_late(model, cfg):
+    """Phase 13 (g), after phases 3-12: a capture of a 1000b/20k plan's
+    scan call in a process that has run hundreds of profiler sessions,
+    where CUPTI dropped kernel records before (ROADMAP §C).  Every path
+    kernel's records and the records the artifact reports dropped must
+    add up to its launches' records: the counts are exact or the
+    shortfall is reported."""
+    from cruise_control_tpu_torch.analyzer import cuda_optimizer as C
+    from cruise_control_tpu_torch.bootstrap import _cuda_search_config
+    from cruise_control_tpu_torch.telemetry import kernel_budget as KB
+
+    t = time.perf_counter()
+    KB.configure(enabled=True)
+    opt = C.CudaGoalOptimizer(config=_cuda_search_config(cfg))
+    # the step loop kept: the traced call replays it, as a served one does
+    run_plan(opt, model)
+    window = LaunchWindow()
+    KB.CAPTURE.add_observer(window)
+    try:
+        KB.arm(scans=1, reason="chip_smoke")
+        _, plan_s = run_plan(opt, model)
+        parsed = KB.parse_pending(max_parses=4)
+    finally:
+        KB.CAPTURE.remove_observer(window)
+    C._LOOPS.clear()
+    art = KB.latest()
+    records = kernel_records(art, window.launches())
+    rec = {"phase": "observatory_late", "nvidia_smi": nvidia_smi(),
+           "plan_wallclock_s": plan_s, "parsed": parsed,
+           "dialect": art["dialect"],
+           "sessions": KB.SESSION_STARTS["count"],
+           "dropped_records": art["dropped_records"],
+           "dropped_total": KB.CAPTURE.state()["droppedRecords"],
+           "records": records, "seconds": time.perf_counter() - t}
+    emit(rec)
+    if (parsed, art["dialect"]) != (1, "device"):
+        raise AssertionError(f"the late capture: {parsed} parsed, dialect "
+                             f"{art['dialect']}")
+    bad = {n: r for n, r in records.items()
+           if r["recorded"] + r["dropped"] != r["launched"]
+           or (n in SCAN_CALL_KERNELS and not r["launched"])}
+    if bad:
+        raise AssertionError(f"kernel records unaccounted for: {bad}")
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this "
@@ -4562,6 +4958,18 @@ def main() -> int:
     ptxas = {n: p.with_suffix(".log").read_text().strip().splitlines()[-4:]
              for n, p in built.items()}
     emit({"phase": "build", "seconds": build_s, "ptxas": ptxas})
+
+    # ---- the device observatories (phase 13), first ------------------------
+    # CUPTI dropped ~34 of a scan call's 1 540 kernel records in a process
+    # that had run phases 3-12's hundreds of profiler sessions, never in a
+    # fresh one (ROADMAP §C): (a)-(f) run before them and require every
+    # record; (g) captures again after them and requires the artifact to
+    # report any record it lacks
+    observatory_launches, obs_model, obs_cfg = observatory_phase()
+    if sys.argv[1:] == ["--observatory"]:
+        # phase 13 alone, after the build; no verdict line
+        print(nvidia_smi(), flush=True)
+        return 0
 
     # ---- kernels against their plain versions on the card ------------------
     mid = random_cluster(**MIDSCALE)
@@ -4819,6 +5227,9 @@ def main() -> int:
     # ---- the simulator, the soak and proactive control --------------------
     sim_launches = sim_phase()
 
+    # ---- phase 13 (g): a capture in the long-lived process ----------------
+    observatory_late(obs_model, obs_cfg)
+
     # the kernels line: main-path shapes (mid-scale); errors over every case
     cases = [steps[c] for c in steps] + [
         {"whatif_verdict": r} for r in whatif_recs.values()] + [
@@ -4844,6 +5255,7 @@ def main() -> int:
             "launches_replan": replan_launches.get(name, 0),
             "launches_app": app_launches[name],
             "launches_sim": sim_launches[name],
+            "launches_observatory": observatory_launches[name],
             "max_abs_err": errs[name], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],

@@ -219,6 +219,36 @@ def commit_batch_plain(m, acc, take_d, win_score_d, win_dst_d, cand_score,
     return m, tpp, c_step
 
 
+def commit_batch_work(C: int, W: int, B: int, NR: int, M_step: int,
+                      has_cap: bool, n_commit=None, touched=None,
+                      marks: bool = False, prev_marks=None):
+    """K8's work → (bytes, operations).  Bytes: every candidate row's 40
+    bytes, its partition's leader slot and load row (the excluded-load
+    column aside: a row's gated contribution reaches the column maxima
+    even when it is not committed, as a NaN times 0 would), every broker
+    aggregate read (an untouched one changes only if it holds -0.0), the
+    ``touched`` brokers' aggregates written, the M_step output rows, a
+    commit's placement entry and mark, and the carry; with ``marks`` the
+    lists read and written and a mark a broker or partition set and
+    cleared (``prev_marks`` of the step before).  Operations: a key a
+    row, the sort of the committed keys, a row's gated contributions, a
+    commit's ~12 operations a column, an add an aggregate.  Where not
+    counted, ``n_commit`` is M_step, ``touched`` two brokers a commit and
+    ``prev_marks`` M_step."""
+    n_commit = M_step if n_commit is None else n_commit
+    touched = min(B, 2 * n_commit) if touched is None else touched
+    ncol = NR * (2 if has_cap else 1) + 4
+    extra = 0
+    if marks:
+        prev = M_step if prev_marks is None else prev_marks
+        extra = 2 * 3 * M_step * 4 + 3 * (prev + n_commit)
+    log_n = max(n_commit - 1, 1).bit_length()
+    return (C * (40 + 4 + 4 * (W - 1)) + B * ncol * 4 + touched * ncol * 4
+            + M_step * 16 + n_commit * 6 + 16 * 4 * 2 + 4 * 4 + extra,
+            4 * C + n_commit * log_n * (log_n + 1) // 2 + C * 2 * ncol
+            + n_commit * 12 * ncol + B * ncol)
+
+
 def commit_batch(m, acc, take_d, win_score_d, win_dst_d, cand_score, d0,
                  is_move_row, cand_p, cand_s, cand_src, M_step: int, out,
                  tpp, improving, st, checked: bool = False, tb=None,
@@ -318,6 +348,8 @@ def commit_batch(m, acc, take_d, win_score_d, win_dst_d, cand_score, d0,
     )
     kernels.launched("commit_batch", err)
     commit_batch.launches += 1
+    kernels.note_work("commit_batch", lambda: commit_batch_work(
+        C, W, B, NR, M_step, has_cap, marks=marks is not None))
     return m, tpp, c_step
 
 
@@ -356,6 +388,17 @@ def _agg_layout(P: int, S: int, B: int, has_cap: bool, sms: int):
                                "does not pack its outputs")
         at += 4 * n
     return tuple(sizes), off[6]
+
+
+def recompute_aggregates_work(P: int, S: int, B: int, NR: int,
+                              has_cap: bool):
+    """K9's work → (bytes, operations): the placement and leader slots,
+    the leader and follower load rows (and capacity loads) in; six
+    aggregates out; per slot a column max and a fixed-point product and
+    add a column."""
+    return (P * S * 4 + P * 4 + P * NR * 4 * (4 if has_cap else 2)
+            + B * (NR * (2 if has_cap else 1) + 4) * 4,
+            P * S * (NR * (2 if has_cap else 1) + 2) * 3)
 
 
 def recompute_aggregates(m):
@@ -402,6 +445,8 @@ def recompute_aggregates(m):
     )
     kernels.launched("recompute_aggregates", err)
     recompute_aggregates.launches += 1
+    kernels.note_work("recompute_aggregates",
+                      lambda: recompute_aggregates_work(P, S, B, NR, has_cap))
     load, *rest = outs
     cload = rest.pop(0).view(B, NR) if has_cap else None
     lnwin, pot, rcount, lcount = rest

@@ -133,6 +133,24 @@ def _compact_rows(m, q_scores, q_rows, bl, src_term, vals, best_d,
 # K7: compaction and the cohort's inputs
 # ---------------------------------------------------------------------------------
 
+def compact_rows_work(nrow: int, C: int, R: int, NB: int, W: int,
+                      n_part=None):
+    """K7's work → (bytes, operations): the NROW scores; a kept row's q
+    row index, R scores and pool indices, source term, kp / ks / sb and
+    its leadership entry; R pool entries a kept move row at most; each of
+    ``n_part`` distinct partitions' leader slot and load row (C where not
+    counted); the outputs.  Four histogram passes and the gather over
+    NROW keys, two bitonic sorts of C keys, ~(8R + 2NB + 30) operations a
+    kept row."""
+    n_part = C if n_part is None else n_part
+    log_c = max(C - 1, 1).bit_length()
+    return (nrow * 4 + C * (4 + 8 * R + 4 + 12 + 16 + 4 * R)
+            + n_part * (4 + 4 * W)
+            + C * (1 + 8 * R + 8 + 8 + 4 * NB + 1 + 8 + 1 + 4),
+            5 * nrow * 3 + 2 * C * log_c * (log_c + 1) // 2
+            + C * (8 * R + 2 * NB + 30))
+
+
 def compact_rows(m, q_scores, q_rows, bl, src_term, vals, best_d,
                  dest_pool, kp, ks, sb, C: int, tol: float,
                  checked: bool = False,
@@ -217,6 +235,8 @@ def compact_rows(m, q_scores, q_rows, bl, src_term, vals, best_d,
     )
     kernels.launched("compact_rows", err)
     compact_rows.launches += 1
+    kernels.note_work("compact_rows", lambda: compact_rows_work(
+        nrow, C, R, NB, W))
     return out
 
 

@@ -152,6 +152,19 @@ def _library():
     return lib
 
 
+def corrected_accept_work(C: int, NB: int, S: int, NR: int,
+                          has_cap: bool):
+    """K15's work → (bytes, operations): a row's ids, move vector, flags
+    and snapshot score, its partition's slots and must-move flags and
+    their racks, its two brokers' tables; the accept flags out.  Two sorts
+    of C keys, two scans of C·NB, four broker costs (~85 operations each)
+    and ~60 more a row."""
+    log_c = max(C - 1, 1).bit_length()
+    return (C * (4 * NB + 25 + S * 9 + 2 * (4 * (NR * (3 if has_cap else 2)
+                                                 + 4) + 4)) + C,
+            2 * C * log_c * (log_c + 1) // 2 + 2 * 4 * C * NB + C * 400)
+
+
 def corrected_accept(m, cfg, ca, cand_p, cand_s, cand_src, d0, move_vec,
                      qual, tol: float, snap_score=None, consts=None,
                      tconsts=None, checked: bool = False):
@@ -236,6 +249,8 @@ def corrected_accept(m, cfg, ca, cand_p, cand_s, cand_src, d0, move_vec,
     )
     kernels.launched("corrected_accept", err)
     corrected_accept.launches += 1
+    kernels.note_work("corrected_accept", lambda: corrected_accept_work(
+        Cn, NB, S, R, has_cap))
     return acc
 
 

@@ -60,6 +60,7 @@ deterministic (:mod:`ops.segment`), so plans repeat run to run.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import threading
@@ -140,6 +141,7 @@ from cruise_control_tpu_torch.analyzer.step_state import StepState
 from cruise_control_tpu_torch.models.cluster_state import ClusterState
 from cruise_control_tpu_torch.models.stats import cluster_stats, stats_summary
 from cruise_control_tpu_torch.ops.cost import pack_pload
+from cruise_control_tpu_torch.ops import kernels
 from cruise_control_tpu_torch.ops.grid import (
     SRC_TERM_COL,
     grid_consts,
@@ -148,6 +150,12 @@ from cruise_control_tpu_torch.ops.grid import (
     grid_terms,
     launch_grid_top_r,
     terms_consts,
+)
+from cruise_control_tpu_torch.telemetry import (
+    device_cost,
+    device_stats,
+    kernel_budget,
+    mesh_budget,
 )
 from cruise_control_tpu_torch.utils.device import DEVICE_LOCK, resolve_device
 from cruise_control_tpu_torch.utils.logging import get_logger
@@ -223,9 +231,6 @@ def _check_config(cfg: CudaSearchConfig) -> None:
         raise ValueError(f"unknown cohort_mode {cfg.cohort_mode!r}")
     if cfg.topk_mode not in ("approx", "exact"):
         raise ValueError(f"unknown topk_mode {cfg.topk_mode!r}")
-    if cfg.profiler_trace_dir:
-        raise NotImplementedError("profiler_trace_dir is not ported yet "
-                                  "(ROADMAP.md A10 (device telemetry))")
 
 
 def _resolve_scoring(cfg: CudaSearchConfig) -> str:
@@ -456,6 +461,9 @@ class _StepLoop:
                    if cfg.incremental_rescore else None)
         self.chunk = StepChunk(functools.partial(_step, self), chunk,
                                list(STEP_KERNELS))
+        #: the key the search keeps the loop under (:func:`_keep_loop`):
+        #: the signature its chunk's capture is counted and costed by
+        self.key: Optional[tuple] = None
 
     def bind(self, m: DeviceModel, ca, consts) -> None:
         """Copy a search's fixed model tensors and constants in."""
@@ -616,6 +624,54 @@ def _incremental_rescore(lp: _StepLoop, checked: bool) -> torch.Tensor:
     return packed["src_f"][:, SRC_TERM_COL]
 
 
+#: the captured step chunk's name in the build and cost tables
+#: (telemetry/device_stats.py, telemetry/device_cost.py)
+SCAN_FN = "analyzer.scan_fn"
+ROUND_FN = "analyzer.round_fn"
+
+
+def _loop_nbytes(lp: "_StepLoop") -> int:
+    """Bytes of the step loop's static buffers, each storage once."""
+    seen, total = set(), 0
+    stack = [v for k, v in vars(lp).items() if k != "chunk"]
+    while stack:
+        x = stack.pop()
+        if isinstance(x, torch.Tensor):
+            st = x.untyped_storage()
+            if st.data_ptr() not in seen:
+                seen.add(st.data_ptr())
+                total += st.nbytes()
+        elif isinstance(x, dict):
+            stack.extend(x.values())
+        elif isinstance(x, (list, tuple)):
+            stack.extend(x)
+        elif dataclasses.is_dataclass(x) and not isinstance(x, type):
+            stack.extend(getattr(x, f.name) for f in dataclasses.fields(x))
+    return total
+
+
+def _capture_chunk(lp: "_StepLoop") -> None:
+    """The search's first step, eagerly (it checks every wrapper's inputs
+    and loads every kernel), then the chunk's CUDA-graph capture — counted
+    as a build of :data:`SCAN_FN` keyed by the loop's key, with its cost
+    queued: the captured launches' work a replay, the loop's buffers, the
+    allocator's growth across the capture."""
+    dev = lp.out.device
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    mem0 = torch.cuda.memory_allocated(dev)
+    _step(lp, False)
+    lp.chunk.capture()
+    torch.cuda.synchronize(dev)
+    seconds = time.perf_counter() - t0
+    key = lp.key if lp.key is not None else (str(dev), id(lp))
+    device_stats.MONITOR.record_compile(SCAN_FN, seconds, key)
+    device_cost.MONITOR.note_compile(SCAN_FN, key, device_cost.work_source(
+        lp.chunk.work, arg_bytes=_loop_nbytes(lp),
+        output_bytes=lp.out.nbytes + lp.st.state.nbytes + lp.st.counts.nbytes,
+        temp_bytes=max(0, torch.cuda.memory_allocated(dev) - mem0)))
+
+
 def _scan_call(m: DeviceModel, cfg: CudaSearchConfig, ca, consts, K: int,
                D: int, T: int, tables, loop: Optional[_StepLoop] = None,
                chunk: Optional[int] = None, capture: Optional[bool] = None,
@@ -651,11 +707,11 @@ def _scan_call(m: DeviceModel, cfg: CudaSearchConfig, ca, consts, K: int,
     syncs = replays = captures = 0
     checked = False
     if capture and lp.chunk.graph is None:
-        # one eager step checks every wrapper's inputs and loads every
-        # kernel before the capture
-        _step(lp, False)
-        lp.chunk.capture()
+        _capture_chunk(lp)
         captures = 1
+    # an armed kernel capture starts its trace here, after any graph
+    # capture (telemetry/kernel_budget.py); a no-op otherwise
+    kernel_budget.CAPTURE.begin()
     while True:
         if capture:
             lp.chunk.replay()
@@ -663,17 +719,19 @@ def _scan_call(m: DeviceModel, cfg: CudaSearchConfig, ca, consts, K: int,
         else:
             lp.chunk.run_eager(checked)
             checked = True
-        state = lp.st.state.cpu()               # the chunk's one host read
+        # the chunk's one host read
+        state = mesh_budget.fetch(lp.st.state, fn="analyzer.scan_carry")
         syncs += 1
         if not state[SS.ACTIVE]:
             break
+    device_cost.MONITOR.note_call(SCAN_FN, syncs)
 
     t_fetch = time.perf_counter()
     t, count = int(state[SS.STEP]), int(state[SS.COUNT])
-    packed = torch.cat([
+    packed = mesh_budget.fetch(torch.cat([
         lp.out[:, :count].reshape(-1),
         lp.st.counts[:, :t].reshape(-1).to(torch.float32),
-    ]).cpu().numpy()
+    ]), fn="analyzer.scan_fetch")
     syncs += 1
     body = packed[:4 * count].reshape(4, count).astype(np.int32)
     meta = packed[4 * count:].reshape(4, t).astype(np.int64)
@@ -1434,8 +1492,9 @@ class CudaGoalOptimizer:
         if tab is not None and tab[3]:
             carry.tables = (tab[0], tab[1])
             # one host read of the touched set, outside any capture
-            carry.pending_touched = (tab[2].cpu().numpy().astype(bool)
-                                     | post_table_touched)
+            carry.pending_touched = (
+                mesh_budget.fetch(tab[2], fn="analyzer.carry_fetch")
+                .astype(bool) | post_table_touched)
         else:
             carry.tables = None
             carry.pending_touched = None
@@ -1469,8 +1528,13 @@ class CudaGoalOptimizer:
         signature-based partial re-verification; ``carry`` (a
         :class:`replan.delta.ReplanCarry`) keeps the pool row tables on the
         card across plans, and the next warm start's first repool refreshes
-        only their marked rows (:meth:`_warm_device_model`)."""
-        with DEVICE_LOCK:
+        only their marked rows (:meth:`_warm_device_model`).
+
+        An armed kernel capture (``telemetry/kernel_budget.py``) is claimed
+        for this search's scan calls; ``profiler_trace_dir`` traces the
+        whole search into that directory through the same entry point."""
+        with DEVICE_LOCK, kernel_budget.CAPTURE.search_scope(
+                legacy_trace_dir=self.config.profiler_trace_dir):
             return self._optimize(state, options, warm_start, carry)
 
     def _optimize(self, state: ClusterState,
@@ -1518,7 +1582,12 @@ class CudaGoalOptimizer:
         t_up = time.perf_counter()
         m, tab, warm = self._warm_device_model(ctx, warm_start, carry)
         can = self._constraint_arrays_np(ctx)
+        t_ca = time.perf_counter()
         ca = {k: torch.as_tensor(v, device=self.device) for k, v in can.items()}
+        mesh_budget.note_transfer(
+            "h2d", "analyzer.constraints_upload",
+            sum(int(v.nbytes) for v in can.values()),
+            time.perf_counter() - t_ca)
         P, S, B = ctx.num_partitions, ctx.max_rf, ctx.num_brokers
         K, D = self._pool_sizes(P, S, B)
         evaluator = _HostEvaluator(ctx, cfg, can)
@@ -1656,11 +1725,15 @@ class CudaGoalOptimizer:
         # every call steps on: kept process-wide for the next search of the
         # same shape on the same card, by this optimizer or another.  The
         # budget is a host-loop knob: one loop serves every deadline
+        # the budget is a host-loop knob and the trace directory a
+        # telemetry one: neither keys the loop
         key = (str(m.assignment.device), P, S, B, K, D, T,
-               dataclasses.replace(cfg, time_budget_s=0.0),
+               dataclasses.replace(cfg, time_budget_s=0.0,
+                                   profiler_trace_dir=""),
                m.pload.shape[1], STEP_CHUNK)
         loop = _take_loop(key) or _StepLoop(m, cfg, ca, consts, K, D, T,
                                             STEP_CHUNK)
+        loop.key = key
         loop.bind(m, ca, consts)
         if warm is not None:
             # the first repool refreshes only the marked rows when the
@@ -1686,8 +1759,10 @@ class CudaGoalOptimizer:
                 t_cap = (int(np.clip(left / step_rate, 1, T))
                          if step_rate else min(T, 256))
             t_call = time.perf_counter()
-            res, m_new, tab_new = _scan_call(m, cfg, ca, consts, K, D, T, tab,
-                                             loop, t_cap=t_cap)
+            # an armed kernel capture's traced window (a no-op disarmed)
+            with kernel_budget.CAPTURE.scan_call():
+                res, m_new, tab_new = _scan_call(m, cfg, ca, consts, K, D, T,
+                                                 tab, loop, t_cap=t_cap)
             for k in device_loop:
                 device_loop[k] += res.diag[k]
             timing["fetch"] += res.diag["fetch_s"]
@@ -1797,6 +1872,7 @@ class CudaGoalOptimizer:
         dev = self.device
         consts = grid_consts(cfg, ca, dev)
         tconsts = terms_consts(cfg, ca, dev)
+        cost = device_cost.MONITOR
         accepted = rejected = rounds = 0
         for round_idx in range(rounds_budget):
             left = budget_left()
@@ -1805,12 +1881,22 @@ class CudaGoalOptimizer:
             evaluator.round_index = round_idx
             rounds += 1
             t_sc = time.perf_counter()
-            packed = _round(m, cfg, ca, K, D, consts, tconsts)
+            # the round's cost, once a shape (telemetry/device_cost.py)
+            sig = (str(dev), K, D, tuple(m.assignment.shape),
+                   _resolve_scoring(cfg))
+            fresh = cost.enabled and not cost.known(ROUND_FN, sig)
+            with (kernels.WORK.recording() if fresh
+                  else contextlib.nullcontext({})) as work:
+                packed = _round(m, cfg, ca, K, D, consts, tconsts)
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
+            cost.note_call(ROUND_FN)
+            if fresh:
+                cost.note_compile(ROUND_FN, sig, device_cost.work_source(
+                    work, output_bytes=packed.nbytes))
             t_f = time.perf_counter()
             scores, k_top, p_top, s_top, d_top = unpack_round_result(
-                packed.cpu().numpy())
+                mesh_budget.fetch(packed, fn="analyzer.round_fetch"))
             t_re = time.perf_counter()
             timing["score"] += t_f - t_sc
             timing["fetch"] += t_re - t_f

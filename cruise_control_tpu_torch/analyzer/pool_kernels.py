@@ -227,6 +227,22 @@ def top_select_plain(x, hi, lo=None, flat=None, S: int = 1, state=None,
 # K10: the repool's tables and priorities
 # ---------------------------------------------------------------------------------
 
+def pool_tables_work(P: int, S: int, B: int, NR: int, has_cap: bool,
+                     n_ref=None):
+    """K10's work → (bytes, operations): the broker tables; a partition's
+    slots, leader slot, must-move flags, exclusion and touched mark; a
+    refreshed row's load rows and written tables (``n_ref`` rows, every
+    row where not counted), an untouched row's stored tables; both
+    priorities out, the destination scores.  ~60 operations a broker; a
+    refreshed slot's divisions and rack scan; ~12 a slot for the two
+    priorities."""
+    n_ref = P if n_ref is None else n_ref
+    return (B * (4 * NR * (3 if has_cap else 2) + 15) + P * (5 * S + 6)
+            + n_ref * (8 * NR + 8 * S) + (P - n_ref) * 8 * S + P * 8 * S
+            + B * 4,
+            B * 60 + n_ref * S * (2 * NR + S + 6) + P * S * 12)
+
+
 def pool_tables(m, ca, pb: PoolBuffers, state, rows_budget: int,
                 checked: bool = False):
     """The repool's priority side of the plain twin
@@ -297,6 +313,8 @@ def pool_tables(m, ca, pb: PoolBuffers, state, rows_budget: int,
     )
     kernels.launched("pool_tables", err)
     pool_tables.launches += 1
+    kernels.note_work("pool_tables", lambda: pool_tables_work(
+        P, S, B, NR, has_cap))
 
 
 pool_tables.launches = 0
@@ -348,6 +366,17 @@ def top_select_attrs(k: int) -> dict:
     return kernels.attrs("top_select", lib.top_select_attrs, k)
 
 
+def top_select_work(N: int, k: int, slots: bool = False,
+                    flat: bool = False):
+    """K11's work → (bytes, operations): each key read once; the k
+    indices (and slots, flat ids) out; three radix passes and the gather
+    over N keys, the rank of the k kept (k log2 k, the least a comparison
+    sort needs)."""
+    log_k = max(k - 1, 1).bit_length()
+    return (N * 4 + k * 4 * (1 + slots) + k * 8 * flat,
+            4 * N + k * log_k)
+
+
 def top_select(x, hi, lo=None, flat=None, S: int = 1, state=None,
                ws=None):
     """The top-k of the plain twin :func:`top_select_plain` (same
@@ -391,6 +420,8 @@ def top_select(x, hi, lo=None, flat=None, S: int = 1, state=None,
     )
     kernels.launched("top_select", err)
     top_select.launches += 1
+    kernels.note_work("top_select", lambda: top_select_work(
+        N, k, lo is not None, flat is not None))
 
 
 top_select.launches = 0

@@ -45,6 +45,7 @@ from cruise_control_tpu_torch.ops.grid import (
     _TOPR,
     SRC_TERM_COL,
     _check_widths,
+    grid_top_r_ops,
     move_grid_scores,
     slot_instance,
 )
@@ -115,6 +116,17 @@ def stale_sets_plain(m, kp, dest_pool, lp, lsl, tb, tpm, state, ridx, cidx,
     lidx.copy_(_stale_order(l_stale, budgets[2]))
 
 
+def stale_sets_work(K: int, D: int, L: int, B: int, P: int, RB: int,
+                    CB: int, LB: int):
+    """K16's work → (bytes, operations): the pools (kp, dest_pool, lp,
+    lsl), a leadership entry's leader slot and two assignment words, the
+    marks, the carry; the three lists, counts and carry out.  A test and
+    a scan step an entry, twice (count, then compact)."""
+    return (K * 4 + D * 4 + L * 8 + L * 12 + B + P + 2 * 4 * SS.NSTATE
+            + (RB + CB + LB + 3) * 4,
+            4 * (K + D + L))
+
+
 def stale_sets(m, kp, dest_pool, lp, lsl, tb, tpm, state, ridx, cidx, lidx,
                nstale, refresh_steps: int, checked: bool = False) -> None:
     """K16: the step's stale sets, decision and index lists of the plain
@@ -156,6 +168,8 @@ def stale_sets(m, kp, dest_pool, lp, lsl, tb, tpm, state, ridx, cidx, lidx,
         lidx.data_ptr(), nstale.data_ptr(), kernels.stream(dev))
     kernels.launched("stale_sets", err)
     stale_sets.launches += 1
+    kernels.note_work("stale_sets", lambda: stale_sets_work(
+        K, D, L, B, P, RB, CB, LB))
 
 
 stale_sets.launches = 0
@@ -237,6 +251,23 @@ def grid_patch_attrs(S: int, has_cap: int, CB: int) -> dict:
     return lib._cc_attrs[key]
 
 
+def grid_patch_work(K: int, D: int, B: int, S: int, R: int, CB: int,
+                    n_stale=None, n_feasible=None):
+    """K17's work → (bytes, operations): K2's source rows, the list and
+    the destination rows of its ``n_stale`` stale columns (CB where not
+    counted), the constants, the stored (dt, bd) and the pool entries and
+    marks they index; (dt, bd) out.  K1's count over the K · n_stale
+    cells of the stale columns (``n_feasible`` feasible, all where not
+    counted), one test a -1 column, and a compare per merged entry."""
+    n_stale = CB if n_stale is None else n_stale
+    n_feasible = K * n_stale if n_feasible is None else n_feasible
+    nbytes = (K * 4 * (_SF + 3 * S + 2) + CB * 4
+              + n_stale * 4 * (_DF + _DI) + 4 * _NC
+              + 2 * K * R * 8 + D * 4 + B)
+    return nbytes, (grid_top_r_ops(K * n_stale, n_feasible, S, n_stale)
+                    + (CB - n_stale) + 2 * K * (R + n_stale))
+
+
 def grid_patch(m, cfg, ca, kp, ks, dest_pool, packed, cidx, tb, dt, bd,
                state, checked: bool = False) -> None:
     """K17: the patch's part (a) of the plain twin :func:`grid_patch_plain`
@@ -283,6 +314,8 @@ def grid_patch(m, cfg, ca, kp, ks, dest_pool, packed, cidx, tb, dt, bd,
         dt.data_ptr(), bd.data_ptr(), state.data_ptr(), kernels.stream(dev))
     kernels.launched("grid_patch", err)
     grid_patch.launches += 1
+    kernels.note_work("grid_patch", lambda: grid_patch_work(
+        K, D, B, S, R, CB))
 
 
 grid_patch.launches = 0

@@ -241,6 +241,55 @@ def _contiguous_f32(name: str, x, dev) -> None:
                          f"tensor on {dev}, got {x.dtype} on {x.device}")
 
 
+def round_keys_work(N: int):
+    """K13 (a)'s work → (bytes, operations): the N scores read, the key
+    written; a negation each."""
+    return N * 8, N
+
+
+def round_pack_work(k: int):
+    """K13 (b)'s work → (bytes, operations): the k selected indices and
+    their keys, ~4 ids each (pool row, slot, destination, leadership
+    entry) read once; the packed [5, k] out; ~10 operations each."""
+    return k * (4 + 4 + 16) + 5 * k * 4, 10 * k
+
+
+#: ~f32 operations of one fused broker cost (csrc/broker_cost.cuh: about
+#: 13 a resource, then the count, leadership and network terms)
+BROKER_COST_OPS = 85
+
+
+def score_columnar_work(K: int, D: int, P: int, S: int, B: int, NR: int,
+                        W: int, N: int, has_cap: bool, feas_mv=None,
+                        feas_ld=None):
+    """K14's work → (bytes, operations).  Bytes: each input once — the
+    pools, every partition's row (slots, origins, must-move flags, leader
+    slot, load row), the broker tables, the constants — and the N keys
+    out.  Operations on this run's data: a move cell's source costs
+    depend only on its pool row and its destination's old cost only on
+    the broker, so each is counted once (a row's new source cost, every
+    broker's old cost); every move cell needs its feasibility (the
+    capacity test, 2·NR, the rack and duplicate scan, 3·S, ~8 flags), a
+    feasible one (``feas_mv`` of them, every cell where not counted) also
+    the destination's new cost and the delta's sums; a leadership
+    transfer needs ~12 operations of feasibility, a feasible one
+    (``feas_ld``) its two new costs and ~30 more; every candidate's score
+    is negated into the key."""
+    n_mv = K * D
+    feas_mv = n_mv if feas_mv is None else feas_mv
+    feas_ld = N - n_mv if feas_ld is None else feas_ld
+    nbytes = (K * 8 + D * 4 + P * (9 * S + 4 + 4 * W)
+              + B * (4 * (NR * (3 if has_cap else 2) + 4) + 6) + 4 * 28
+              + N * 4)
+    ops = (n_mv * (2 * NR + 3 * S + 8)
+           + feas_mv * (BROKER_COST_OPS + (NR if has_cap else 0) + 2)
+           + K * (BROKER_COST_OPS + 30) + B * BROKER_COST_OPS
+           + (N - n_mv) * 12
+           + feas_ld * (2 * BROKER_COST_OPS + 30)
+           + N)
+    return nbytes, ops
+
+
 def round_keys(scores, l_scores=None) -> torch.Tensor:
     """K13 (a): the negated flat key of the plain twin
     :func:`round_keys_plain` → f32 [scores.numel() + L].  ``scores`` is
@@ -267,6 +316,7 @@ def round_keys(scores, l_scores=None) -> torch.Tensor:
         key.data_ptr(), kernels.stream(dev))
     kernels.launched("round_keys", err)
     round_keys.launches += 1
+    kernels.note_work("round_pack", lambda: round_keys_work(na + nb))
     return key
 
 
@@ -321,6 +371,7 @@ def round_pack(key, sel, kp, ks, dest_pool, best_i=None, lp=None, lsl=None,
         kernels.stream(dev))
     kernels.launched("round_pack", err)
     round_pack.launches += 1
+    kernels.note_work("round_pack", lambda: round_pack_work(k))
     return out
 
 
@@ -413,6 +464,8 @@ def score_columnar(m, cfg, ca, kp, ks, dest_pool, consts=None,
     )
     kernels.launched("score_columnar", err)
     score_columnar.launches += 1
+    kernels.note_work("score_columnar", lambda: score_columnar_work(
+        K, D, P, S, B, R, W, N, has_cap))
     return key
 
 

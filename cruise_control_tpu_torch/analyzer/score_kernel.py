@@ -248,6 +248,25 @@ def _score_candidates_into(m, cfg, ca, kind, cp, cs, cd, out, feasible,
     return out, feasible
 
 
+def score_candidates_work(N: int, B: int, S: int, W: int, NR: int,
+                          has_cap: bool, n_part=None, n_brokers=None,
+                          carry: bool = False):
+    """K6's work → (bytes, operations) for N candidates: the four ids a
+    candidate; each of ``n_part`` distinct partitions' row (slots,
+    origins, must-move, leader slot, load row; N where not counted); each
+    of ``n_brokers`` brokers read (tables as K2's, and its cost from K2's
+    table; B where not counted); the constants; delta and the feasible
+    flag out (the carry forms: the score alone).  Two broker costs after
+    the move (~85 operations each; K2's table gives the two before it)
+    and ~60 more a candidate."""
+    n_part = N if n_part is None else n_part
+    n_brokers = B if n_brokers is None else n_brokers
+    nbytes = (N * 16 + n_part * (9 * S + 4 + 4 * W)
+              + n_brokers * (4 * (NR * (3 if has_cap else 2) + 4) + 6 + 4)
+              + 4 * (3 * NR + 16) + N * (4 if carry else 5))
+    return nbytes, N * 230
+
+
 def score_candidates(m, cfg, ca, kind, cp, cs, cd, consts=None,
                      tconsts=None, checked: bool = False, out=None,
                      rows=None, n_rows=None, gate=None, want: int = 1,
@@ -369,6 +388,8 @@ def score_candidates(m, cfg, ca, kind, cp, cs, cd, consts=None,
     )
     kernels.launched("score_candidates", err)
     score_candidates.launches += 1
+    kernels.note_work("score_candidates", lambda: score_candidates_work(
+        n, B, S, W, R, has_cap, carry=out is not None))
     return delta, feasible
 
 

@@ -22,14 +22,19 @@ is no fall back to stepping eagerly.
 Launch counts: the wrappers count their launches when the step calls
 them, so during capture they would count launches that have not run.  The
 chunk takes those counts back after capture and adds them again at every
-replay, when the kernels do run.
+replay, when the kernels do run.  The launches' work (bytes and
+operations, ``ops/kernels.py: WORK``) goes the same way: noted into the
+chunk's own table at capture, and added to the open recorders (the kernel
+observatory's capture) at every replay.
 """
 
 from __future__ import annotations
 
-from typing import Callable, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import torch
+
+from cruise_control_tpu_torch.ops import kernels
 
 #: steps a chunk: a scan call of s steps reads the device carry
 #: ceil(s / STEP_CHUNK) times
@@ -48,6 +53,8 @@ class StepChunk:
         self.counted = counted
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.captured: List[int] = []
+        #: the captured launches' work: stem → [launches, bytes, operations]
+        self.work: Dict[str, List[float]] = {}
         self.replays = 0
 
     def run_eager(self, checked: bool) -> None:
@@ -61,9 +68,11 @@ class StepChunk:
         inputs were checked by an eager step before."""
         before = [f.launches for f in self.counted]
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
+        with kernels.WORK.recording(exclusive=True) as work, \
+                torch.cuda.graph(graph):
             for _ in range(self.n):
                 self.step(True)
+        self.work = work
         self.captured = [f.launches - b for f, b in zip(self.counted, before)]
         for f, b in zip(self.counted, before):
             f.launches = b
@@ -75,3 +84,5 @@ class StepChunk:
         self.replays += 1
         for f, n in zip(self.counted, self.captured):
             f.launches += n
+        if kernels.WORK.active:
+            kernels.WORK.add(self.work)

@@ -399,6 +399,18 @@ def per_src_top_scratch_bytes(K: int, L: int, B: int) -> int:
     return nbytes
 
 
+def per_src_top_work(L: int, K: int, B: int, Q: int):
+    """K3's work → (bytes, operations): a candidate's lp, score, leader
+    slot and leader's placement word; a row's 8-byte slot, placement
+    word, source term and top destination term, its broker out; a
+    broker's winner's lsl and destination word, its best transfer out;
+    the Q rows and scores out.  A key a candidate and a row (~2
+    operations), a row's best score (2), a broker's Q picks over its
+    rows."""
+    return (L * 16 + K * 24 + B * 24 + Q * B * 8,
+            L * 2 + K * 4 + Q * K * 2)
+
+
 def per_src_top(m, lp, lsl, l_scores, slot, src_term, vals, B: int, Q: int,
                 dest_terms: bool = False, row_best=None):
     """→ ((score f32, p, s, dst int32) [B] of the best leadership transfer
@@ -464,6 +476,7 @@ def per_src_top(m, lp, lsl, l_scores, slot, src_term, vals, B: int, Q: int,
     )
     kernels.launched("per_src_top", err)
     per_src_top.launches += 1
+    kernels.note_work("per_src_top", lambda: per_src_top_work(L, K, B, Q))
     return out, (rows, scores), sb
 
 
@@ -480,6 +493,16 @@ def budget_accept_plain(m, ca, dst_ids, src_ids, vec, eligible,
     src_b, dst_b = _cohort_budgets(m, ca, slack)
     return (_budget_accept(dst_ids, src_ids, vec, dst_b, src_b, eligible,
                              rounds), src_b, dst_b)
+
+
+def budget_accept_work(B: int, C: int, NB: int, has_cap: bool):
+    """K4's work → (bytes, operations): the broker tables, the C rows'
+    ids, vectors and flags in; the flags and the two [B, NB] budget
+    tables out.  The budgets' column sums and tests; per round two prefix
+    tests and the draw-down, ~11 operations a row and dim each."""
+    return (B * (4 * 4 * (3 if has_cap else 2) + 10) + C * (13 + 4 * NB)
+            + C + 2 * B * NB * 4,
+            B * (12 * 3 + 40) + 2 * (2 * 4 + 3) * C * NB)
 
 
 def budget_accept(m, ca, dst_ids, src_ids, vec, eligible, slack: float,
@@ -544,6 +567,8 @@ def budget_accept(m, ca, dst_ids, src_ids, vec, eligible, slack: float,
     )
     kernels.launched("budget_accept", err)
     budget_accept.launches += 1
+    kernels.note_work("budget_accept", lambda: budget_accept_work(
+        B, Cn, NB, has_cap))
     return acc, src_b, dst_b
 
 
@@ -601,6 +626,16 @@ def match_batch_plain(cand_score, cand_dst, cand_src, cand_p, tol: float,
                         init_used=init_used, dest_cap=dest_cap,
                         src_cap=src_cap, stack_ratio=stack_ratio,
                         rounds=rounds)
+
+
+def match_batch_work(N: int, A: int, B: int, P: int, cohort: bool,
+                     rounds=None):
+    """K5's work → (bytes, operations): the alternates, ids and cohort
+    flags (or the three occupancy tables) in; take, score, destination
+    out; ~20 operations a candidate a round (A rounds where not
+    given)."""
+    return (N * A * 8 + N * 16 + (N if cohort else 2 * B + P) + N * 13,
+            (rounds or A) * N * 20)
 
 
 def match_batch(cand_score, cand_dst, cand_src, cand_p, tol: float, B: int,
@@ -666,6 +701,8 @@ def match_batch(cand_score, cand_dst, cand_src, cand_p, tol: float, B: int,
     )
     kernels.launched("match_batch", err)
     match_batch.launches += 1
+    kernels.note_work("match_batch", lambda: match_batch_work(
+        N, A, B, P, acc is not None, rounds))
     return take, win_score, win_dst
 
 

@@ -337,11 +337,6 @@ def _capacity_for(w: WorkloadModel, num_brokers: int,
 #: keys whose modules the port has not ported yet, with the ROADMAP item
 #: that brings each: build_app refuses any value but the default
 _UNPORTED = {
-    "telemetry.device.stats.enabled": "A10",
-    "telemetry.device.cost.enabled": "A10",
-    "telemetry.kernel.enabled": "A10",
-    "telemetry.mesh.enabled": "A10",
-    "cuda.search.profiler.trace.dir": "A10",
     "cuda.search.pipeline.depth": "A4",
     "cuda.search.shard.tables": "A11",
     "cuda.search.shard.donate": "A11",
@@ -349,9 +344,8 @@ _UNPORTED = {
 
 
 def _refuse_unported(cfg: CruiseControlConfig) -> None:
-    """Raise on a key this port cannot honour yet: the A10 device
-    observatories and search trace, drive-loop pipelining (A4) and a
-    multi-card mesh (A11)."""
+    """Raise on a key this port cannot honour yet: drive-loop pipelining
+    (A4) and a multi-card mesh (A11)."""
     from cruise_control_tpu_torch.config.cruise_control_config import (
         DEFAULT_CONFIG_DEF,
         ConfigException,
@@ -392,8 +386,12 @@ def build_app(
         resolve_device(device)
     from cruise_control_tpu_torch.telemetry import (
         critical_path,
+        device_cost,
+        device_stats,
         events,
         host_profile,
+        kernel_budget,
+        mesh_budget,
         tracing,
     )
     from cruise_control_tpu_torch.telemetry import trace as trace_mod
@@ -404,6 +402,30 @@ def build_app(
         ring_size=cfg.get_int("telemetry.span.ring.size"),
         slow_span_log_s=cfg.get_double("telemetry.slow.span.log.ms") / 1000,
     )
+    device_stats.configure(
+        enabled=cfg.get_boolean("telemetry.device.stats.enabled"),
+        retrace_threshold=cfg.get_int(
+            "telemetry.device.stats.retrace.threshold"
+        ),
+    )
+    device_cost.configure(
+        enabled=cfg.get_boolean("telemetry.device.cost.enabled"),
+        hbm_gbps=cfg.get_double("telemetry.device.cost.hbm.gbps"),
+    )
+    kernel_budget.configure(
+        enabled=cfg.get_boolean("telemetry.kernel.enabled"),
+        default_scans=cfg.get_int("telemetry.kernel.capture.scans"),
+        trace_dir=cfg.get("telemetry.kernel.trace.dir") or "",
+    )
+    mesh_budget.configure(
+        enabled=cfg.get_boolean("telemetry.mesh.enabled"),
+        ledger_enabled=cfg.get_boolean("telemetry.mesh.ledger.enabled"),
+        audit_max_arrays=cfg.get_int("telemetry.mesh.audit.max.arrays"),
+    )
+    if cfg.get_boolean("telemetry.mesh.enabled"):
+        # ride the kernel observatory's capture pipeline: one armed
+        # capture feeds both /profile/kernels and /profile/mesh
+        mesh_budget.MESH.attach(kernel_budget.CAPTURE)
     host_profile.configure(
         enabled=cfg.get_boolean("telemetry.host.enabled"),
         interval_ms=cfg.get_double("telemetry.host.sample.interval.ms"),
@@ -851,6 +873,19 @@ def build_app(
     executor.detect_ongoing_at_startup(
         stop=cfg.get_boolean("stop.ongoing.execution.at.startup")
     )
+    if cfg.get_boolean("telemetry.device.stats.enabled"):
+        # live-buffer gauges ride the shared registry: GET /state JSON,
+        # /metrics gauge families, and the flight recorder's series
+        device_stats.install_gauges(cc.registry)
+    if cfg.get_boolean("telemetry.device.cost.enabled"):
+        # HBM-utilization estimate + pending-capture depth as gauges
+        device_cost.install_gauges(cc.registry)
+    if cfg.get_boolean("telemetry.kernel.enabled"):
+        # kernel-observatory capture count + pending-parse depth
+        kernel_budget.install_gauges(cc.registry)
+    if cfg.get_boolean("telemetry.mesh.enabled"):
+        # mesh-observatory parse counters
+        mesh_budget.install_gauges(cc.registry)
     if cfg.get_boolean("telemetry.host.enabled"):
         # the always-on host sampling profiler: lifetime sample count +
         # pending-build depth as gauges, sampler daemon started here
@@ -861,14 +896,25 @@ def build_app(
     if cfg.get_boolean("telemetry.recorder.enabled"):
         from cruise_control_tpu_torch.telemetry.recorder import FlightRecorder
 
-        # the device observatories (device stats and cost, the kernel and
-        # mesh budgets) are not ported yet (ROADMAP A10): no sources
+        def _device_summary() -> dict:
+            out = device_stats.MONITOR.summary()
+            # cost ESTIMATES, per fn / per executable / per device —
+            # beside the MEASURED kernel budget the artifact's
+            # kernelBudget block carries, one diagnostics dump holds both
+            out["deviceCost"] = device_cost.MONITOR.summary(detail=True)
+            return out
+
         flight_recorder = FlightRecorder(
             cc.registry,
             interval_s=cfg.get_double("telemetry.recorder.interval.ms")
             / 1000,
             retention=cfg.get_int("telemetry.recorder.retention.samples"),
             journal_source=detector.journal,
+            extra_sources=(
+                [device_stats.MONITOR.totals]
+                if cfg.get_boolean("telemetry.device.stats.enabled") else ()
+            ),
+            device_stats_source=_device_summary,
             dump_dir=cfg.get("telemetry.recorder.dump.dir"),
             # merge the decision journal into the artifact: an incident
             # dump carries the why alongside the numbers
@@ -888,6 +934,17 @@ def build_app(
             host_profile_source=(
                 host_profile.PROFILER.summary
                 if cfg.get_boolean("telemetry.host.enabled") else None
+            ),
+            # the measured kernel budget (latest parsed capture) rides
+            # the same dump the estimates do
+            kernel_budget_source=(
+                kernel_budget.CAPTURE.summary
+                if cfg.get_boolean("telemetry.kernel.enabled") else None
+            ),
+            # the mesh decomposition + replication audit beside it
+            mesh_budget_source=(
+                mesh_budget.MESH.summary
+                if cfg.get_boolean("telemetry.mesh.enabled") else None
             ),
             contention_source=locks.CONTENTION.snapshot,
             critical_path_source=critical_path.STORE.snapshot,
@@ -910,6 +967,14 @@ def build_app(
 
             on_breach.append(_dump_on_breach)
         maintenance = []
+        if cfg.get_boolean("telemetry.device.cost.enabled"):
+            # per-executable cost capture — pumped here, off every
+            # request thread
+            maintenance.append(device_cost.MONITOR.capture_pending)
+        if cfg.get_boolean("telemetry.kernel.enabled"):
+            # Chrome-trace parsing is seconds of host work at north-star
+            # scale — same discipline: the SLO tick pumps it
+            maintenance.append(kernel_budget.CAPTURE.parse_pending)
         if cfg.get_boolean("telemetry.host.enabled"):
             # host-profile artifact builds + the sustained-contention
             # detector ride the same maintenance tick: never a request

@@ -1019,9 +1019,10 @@ def default_config_def() -> ConfigDef:
              "after this many seconds (0 = unlimited; hard-goal repair "
              "always completes).", at_least(0), G)
     d.define("cuda.search.profiler.trace.dir", ConfigType.STRING, "",
-             Importance.LOW, "Trace searches into this directory.  Only "
-             "the default (empty: no trace) is accepted until ROADMAP "
-             "A10.", None, G)
+             Importance.LOW, "Trace every search into this directory "
+             "(a torch.profiler Chrome trace through the kernel "
+             "observatory's one session, parsed like a capture; empty: no "
+             "trace).", None, G)
     d.define("cuda.search.polish.rounds", ConfigType.INT, 0,
              Importance.LOW, "Score-only polish rounds after the resident "
              "search converges.", at_least(0), G)
@@ -1075,12 +1076,12 @@ def default_config_def() -> ConfigDef:
     d.define("telemetry.recorder.dump.dir", ConfigType.STRING, None,
              Importance.LOW, "Directory for incident artifacts (dumped on "
              "anomaly FIX_FAILED); None disables dump-to-file.", None, G)
-    d.define("telemetry.device.stats.enabled", ConfigType.BOOLEAN, False,
-             Importance.MEDIUM, "JAX compile observability: per-function "
-             "compile count/wall-time counters, the shape-churn retrace "
-             "detector, and live-buffer count/bytes gauges."
-             " Not ported yet: defaults to false, and true is "
-             "refused (ROADMAP A10).", None, G)
+    d.define("telemetry.device.stats.enabled", ConfigType.BOOLEAN, True,
+             Importance.MEDIUM, "Build observability: per-function counts and "
+             "seconds of the kernel libraries' builds and loads and of the "
+             "step chunk's CUDA-graph captures, the shape-churn retrace "
+             "detector over step-loop keys, and the card allocator's "
+             "live-buffer count/bytes gauges.", None, G)
     d.define("telemetry.device.stats.retrace.threshold", ConfigType.INT, 8,
              Importance.LOW, "Distinct compiled argument shapes per "
              "logical function above which further compiles count as "
@@ -1148,28 +1149,25 @@ def default_config_def() -> ConfigDef:
     d.define("telemetry.trace.spans.per.trace", ConfigType.INT, 512,
              Importance.LOW, "Root span trees retained per trace id.",
              at_least(1), G)
-    d.define("telemetry.device.cost.enabled", ConfigType.BOOLEAN, False,
-             Importance.MEDIUM, "Capture cost_analysis()/memory_analysis() "
-             "per compiled executable (flops, bytes accessed, arg/output/"
-             "temp HBM bytes) via one off-request AOT compile each, "
-             "exported as cc_device_* gauges and the live HBM-bandwidth "
-             "utilization estimate."
-             " Not ported yet: defaults to false, and true is "
-             "refused (ROADMAP A10).", None, G)
-    d.define("telemetry.device.cost.hbm.gbps", ConfigType.DOUBLE, 819.0,
+    d.define("telemetry.device.cost.enabled", ConfigType.BOOLEAN, True,
+             Importance.MEDIUM, "Capture each built executable's cost (a "
+             "captured step chunk, a round, a what-if call: work-model "
+             "operations and bytes a call, static, output and capture "
+             "memory) off the request path, exported as cc_device_* gauges "
+             "and the live HBM-bandwidth utilization estimate.", None, G)
+    d.define("telemetry.device.cost.hbm.gbps", ConfigType.DOUBLE, 3350.0,
              Importance.LOW, "Assumed per-device HBM bandwidth (GB/s) for "
-             "the utilization estimate.", at_least(0.001), G)
-    d.define("telemetry.kernel.enabled", ConfigType.BOOLEAN, False,
+             "the utilization estimate (an H100 SXM's HBM3: 3 350).",
+             at_least(0.001), G)
+    d.define("telemetry.kernel.enabled", ConfigType.BOOLEAN, True,
              Importance.MEDIUM, "Kernel observatory "
              "(telemetry/kernel_budget.py): allow on-demand device-kernel "
              "captures (GET /profile/kernels?arm=true) around drive-loop "
              "scan calls, parsed off the request thread into the "
              "cc-tpu-kernel-budget/2 artifact, cc_kernel_*/cc_shard_* "
              "metric families, and the /diagnostics kernelBudget block. "
-             "Disarmed cost is one attribute check per scan call "
-             "(bench.py profiler_overhead_pct gate)."
-             " Not ported yet: defaults to false, and true is "
-             "refused (ROADMAP A10).", None, G)
+             "Disarmed cost is one attribute check per scan call.",
+             None, G)
     d.define("telemetry.kernel.capture.scans", ConfigType.INT, 3,
              Importance.LOW, "Drive-loop scan calls traced per capture "
              "when the arm request names no count.", at_least(1), G)
@@ -1177,7 +1175,7 @@ def default_config_def() -> ConfigDef:
              Importance.LOW, "Parent directory for capture traces (a "
              "per-capture temp subdirectory is created and removed after "
              "parsing); empty = the system temp dir.", None, G)
-    d.define("telemetry.mesh.enabled", ConfigType.BOOLEAN, False,
+    d.define("telemetry.mesh.enabled", ConfigType.BOOLEAN, True,
              Importance.MEDIUM, "Mesh observatory "
              "(telemetry/mesh_budget.py): ride armed kernel captures to "
              "decompose wall time into busy / collective-wait / transfer "
@@ -1186,9 +1184,7 @@ def default_config_def() -> ConfigDef:
              "live arrays (GET /profile/mesh, cc_collective_*/"
              "cc_transfer_*/cc_mesh_* families, /diagnostics meshBudget "
              "block). No profiler session of its own — observes the "
-             "kernel observatory's captures."
-             " Not ported yet: defaults to false, and true is "
-             "refused (ROADMAP A10).", None, G)
+             "kernel observatory's captures.", None, G)
     d.define("telemetry.mesh.ledger.enabled", ConfigType.BOOLEAN, True,
              Importance.LOW, "Count bytes through the instrumented "
              "transfer entry points (mesh_budget.device_put/fetch) into "

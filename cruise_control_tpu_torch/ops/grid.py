@@ -428,6 +428,21 @@ def pack_grid_inputs(m, cfg, ca, dest_pool, terms, consts=None) -> dict:
                 has_cap=int(m.broker_cload is not None))
 
 
+def grid_top_r_work(rows: int, D: int, S: int, R: int,
+                     n_feasible=None, listed: bool = False):
+    """K1's work → (bytes, operations): each input once — a source row's
+    packed terms and slots (and, ``listed``, its row index: the row-list
+    and carry forms), the destination rows, the constants — and the
+    ``rows`` × R winners out; the function's least operations
+    (:func:`grid_top_r_ops`) over ``n_feasible`` feasible cells of the
+    rows × D grid (all of them where not counted)."""
+    cells = rows * D
+    n_feasible = cells if n_feasible is None else n_feasible
+    nbytes = ((rows * (_SF + 3 * S + 2 + (1 if listed else 0))
+               + D * (_DF + _DI) + _NC) * 4 + rows * R * 8)
+    return nbytes, grid_top_r_ops(cells, n_feasible, S, D)
+
+
 def launch_grid_top_r(packed: dict, R: int, out=None, rows=None,
                       n_rows=None, gate=None, want: int = 1,
                       dest_terms: bool = False):
@@ -490,6 +505,8 @@ def launch_grid_top_r(packed: dict, R: int, out=None, rows=None,
     )
     kernels.launched("grid_top_r", err)
     launch_grid_top_r.launches += 1
+    kernels.note_work("grid_top_r", lambda: grid_top_r_work(
+        n, D, S, R, listed=out is not None))
     return out_s, out_i
 
 
@@ -567,6 +584,23 @@ def grid_terms_attrs(S: int, has_cap: bool) -> dict:
             "grid_terms", lib.grid_terms_attrs, S,
             4 * _NR + 1 if has_cap else 2 * _NR + 1)
     return lib._cc_attrs[key]
+
+
+def grid_terms_work(K: int, D: int, B: int, S: int, W: int, NR: int,
+                    has_cap: bool, n_part=None):
+    """K2's work → (bytes, operations): each input once — kp, ks and the
+    pool; each of ``n_part`` distinct partition rows (slots, origins,
+    must-move, leader slot, load row; K where not counted); the broker
+    tables; the constants — and the four packed tables and the brokers'
+    costs out; two broker costs (~85 operations each) and ~20 more a
+    source, one cost and ~20 more a destination, one a broker's cost
+    (``csrc/grid_terms.cu``)."""
+    n_part = K if n_part is None else n_part
+    nbytes = (K * 8 + D * 4 + n_part * (9 * S + 4 + 4 * W)
+              + B * (4 * (NR * (3 if has_cap else 2) + 4) + 6)
+              + 4 * (_NC + _NT)
+              + K * 4 * (_SF + 3 * S + 2) + D * 4 * (_DF + _DI) + B * 4)
+    return nbytes, K * 190 + D * 105 + B * 85
 
 
 def grid_terms(m, cfg, ca, kp, ks, dest_pool, consts=None,
@@ -655,6 +689,8 @@ def grid_terms(m, cfg, ca, kp, ks, dest_pool, consts=None,
     )
     kernels.launched("grid_terms", err)
     grid_terms.launches += 1
+    kernels.note_work("grid_terms", lambda: grid_terms_work(
+        K, D, B, S, W, _NR, has_cap))
     return packed
 
 

@@ -7,18 +7,25 @@ checkout (listed in ``.gitignore``), keyed by a hash of the source and of
 the shared headers (``csrc/*.cuh``), so an edited kernel or header never
 loads a stale library.  Nothing here runs at import:
 the CPU tests import every module of the package without a compiler.
+
+Builds and loads are told to the :data:`LISTENERS` (the device-stats
+monitor, ``telemetry/device_stats.py``, registers there): each library's
+first load in a process, with its ``nvcc`` seconds when the process built
+it, and each library the process built.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Any, Dict, Iterable, List
 
 import torch
 
@@ -38,8 +45,29 @@ NVCC_FLAGS = (
 #: H100 shared memory one block may use (bytes), dynamic opt-in included
 SMEM_LIMIT = 232_448
 
+#: the card's roofline denominators (H100 SXM): HBM3 bytes a second and
+#: f32 operations a second — what a kernel's bound (``chip_smoke.py``) and
+#: the kernel observatory's floors divide its work model by
+HBM_BYTES_PER_S = 3.35e12
+PEAK_F32_FLOPS = 67e12
+
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
+#: kernel → nvcc seconds of the build this process made of it, until its
+#: first load counts them
+_built_s: Dict[str, float] = {}
+#: build and load listeners: ``on_kernel_put(name)`` after each library
+#: this process built, ``on_kernel_load(name, seconds, library, built)`` at
+#: each library's first load in the process (``seconds`` includes the
+#: build's ``nvcc`` seconds where ``built``)
+LISTENERS: List[Any] = []
+
+
+def add_listener(listener: Any) -> None:
+    """Register a build and load listener (idempotent)."""
+    with _lock:
+        if listener not in LISTENERS:
+            LISTENERS.append(listener)
 
 
 def _nvcc() -> str:
@@ -76,6 +104,7 @@ def build(names: Iterable[str]) -> Dict[str, Path]:
         return out
     nvcc = _nvcc()
     procs = {}
+    t0 = time.perf_counter()
     for n, p in todo.items():
         tmp = p.with_suffix(f".{os.getpid()}.tmp")
         procs[n] = (tmp, subprocess.Popen(
@@ -90,6 +119,11 @@ def build(names: Iterable[str]) -> Dict[str, Path]:
             failed.append(f"{n}: nvcc exited {proc.returncode}\n{log}")
             continue
         os.replace(tmp, out[n])
+        # the builds run together: each is charged the wall until its
+        # compiler was collected
+        _built_s[n] = time.perf_counter() - t0
+        for listener in list(LISTENERS):
+            listener.on_kernel_put(n)
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return out
@@ -100,8 +134,15 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _loaded.get(name)
         if lib is None:
-            lib = ctypes.CDLL(str(build([name])[name]))
+            path = build([name])[name]
+            t0 = time.perf_counter()
+            lib = ctypes.CDLL(str(path))
             _loaded[name] = lib
+            nvcc_s = _built_s.pop(name, None)
+            seconds = (nvcc_s or 0.0) + time.perf_counter() - t0
+            for listener in list(LISTENERS):
+                listener.on_kernel_load(name, seconds, path.name,
+                                        nvcc_s is not None)
         return lib
 
 
@@ -151,6 +192,82 @@ def attrs(kernel: str, fn, *args) -> Dict[str, int]:
         raise RuntimeError(f"{kernel}: attributes query failed (CUDA error "
                            f"{err})")
     return dict(zip(ATTR_KEYS, out))
+
+
+class WorkLedger:
+    """Bytes and operations of the hand kernels' launches, by ``csrc``
+    stem, noted by each wrapper where it launches its kernel while a
+    recorder is open (:meth:`recording`; the kernel observatory's capture,
+    a step chunk's CUDA-graph capture).  The work is the kernel's work
+    model at the launch's shapes (the ``*_work`` function beside each
+    wrapper), the count ``chip_smoke.py`` bounds the kernel with, taken at
+    the most its shapes can need where the work depends on the data.
+    Disarmed cost: one attribute check a launch (:attr:`active` is an
+    empty list)."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        #: open recorders: stem → [launches, bytes, operations]
+        self.active: List[Dict[str, List[float]]] = []
+
+    def note(self, stem: str, nbytes: float, ops: float) -> None:
+        """One launch of kernel ``stem``, moving ``nbytes`` and doing
+        ``ops``."""
+        with self._lock:
+            for rec in self.active:
+                row = rec.setdefault(stem, [0, 0.0, 0.0])
+                row[0] += 1
+                row[1] += nbytes
+                row[2] += ops
+
+    def add(self, work: Dict[str, List[float]], times: int = 1) -> None:
+        """Add a recorded table ``times`` over (a captured chunk's
+        replays)."""
+        with self._lock:
+            for rec in self.active:
+                for stem, (n, b, o) in work.items():
+                    row = rec.setdefault(stem, [0, 0.0, 0.0])
+                    row[0] += n * times
+                    row[1] += b * times
+                    row[2] += o * times
+
+    def open(self) -> Dict[str, List[float]]:
+        """A new recorder, open until :meth:`close`."""
+        rec: Dict[str, List[float]] = {}
+        with self._lock:
+            self.active = self.active + [rec]
+        return rec
+
+    def close(self, rec: Dict[str, List[float]]) -> None:
+        with self._lock:
+            self.active = [r for r in self.active if r is not rec]
+
+    @contextlib.contextmanager
+    def recording(self, exclusive: bool = False):
+        """Record the launches noted inside the block → the table.  With
+        ``exclusive`` the other recorders see nothing of the block (a
+        CUDA-graph capture notes launches that have not run)."""
+        rec: Dict[str, List[float]] = {}
+        with self._lock:
+            prev = self.active
+            self.active = [rec] if exclusive else prev + [rec]
+        try:
+            yield rec
+        finally:
+            with self._lock:
+                self.active = (prev if exclusive else
+                               [r for r in self.active if r is not rec])
+
+
+#: the process-wide ledger the wrappers note their launches' work into
+WORK = WorkLedger()
+
+
+def note_work(stem: str, work) -> None:
+    """Note one launch of kernel ``stem`` whose work model ``work()``
+    gives (bytes, operations) — evaluated only while a recorder is open."""
+    if WORK.active:
+        WORK.note(stem, *work())
 
 
 def on_cpu(x: torch.Tensor) -> bool:

@@ -666,11 +666,88 @@ class CruiseControlHttpServer:
             return self._send(
                 handler, 200, trace_mod.chrome_trace(tid, spans, matched)
             )
-        if endpoint in ("profile/kernels", "profile/mesh"):
-            # the kernel and mesh observatories are not ported yet: 503,
-            # the status a disabled observatory answers with
-            return self._send(handler, 503, {
-                "errorMessage": f"{endpoint} not ported yet (ROADMAP A10)"
+        if endpoint == "profile/kernels":
+            # kernel observatory (docs/OBSERVABILITY.md "Reading a kernel
+            # budget"): ?arm=true[&scans=N] arms a capture of the next N
+            # drive-loop scan calls (202 + state; trigger an optimization
+            # and poll), plain GETs serve the latest parsed
+            # cc-tpu-kernel-budget/2 artifact (404 before the first
+            # capture; 202 while armed / parsing — the SLO tick parses)
+            from cruise_control_tpu_torch.telemetry import kernel_budget
+
+            capture = kernel_budget.CAPTURE
+            if not capture.enabled:
+                return self._send(handler, 503, {
+                    "errorMessage": "kernel observatory disabled "
+                                    "(telemetry.kernel.enabled=false?)"
+                })
+            if _flag(params, "arm"):
+                scans = params.get("scans")
+                state = capture.arm(
+                    scans=int(scans) if scans else None, reason="http")
+                return self._send(handler, 202, {
+                    "message": "capture armed: run an optimization and "
+                               "poll GET /profile/kernels",
+                    "capture": state,
+                })
+            artifact = capture.latest()
+            if artifact is not None:
+                return self._send(handler, 200, artifact)
+            state = capture.state()
+            if state["state"] != "IDLE" or state["pendingParses"] \
+                    or state["activeParses"]:
+                return self._send(handler, 202, {
+                    "message": "capture in flight (armed, mid-parse, or "
+                               "awaiting the SLO-tick parse) — poll again",
+                    "capture": state,
+                })
+            return self._send(handler, 404, {
+                "errorMessage": "no kernel capture parsed yet — arm one "
+                                "with GET /profile/kernels?arm=true",
+                "capture": state,
+            })
+        if endpoint == "profile/mesh":
+            # mesh observatory (docs/OBSERVABILITY.md "Mesh observatory"):
+            # the same 202-arm/poll ladder as /profile/kernels — one armed
+            # capture feeds both artifacts.  ?audit=true runs the
+            # replication audit inline (a cheap live-array metadata walk)
+            from cruise_control_tpu_torch.telemetry import kernel_budget
+            from cruise_control_tpu_torch.telemetry import mesh_budget
+
+            mesh = mesh_budget.MESH
+            if not mesh.enabled or not kernel_budget.CAPTURE.enabled:
+                return self._send(handler, 503, {
+                    "errorMessage": "mesh observatory disabled "
+                                    "(telemetry.mesh.enabled=false or "
+                                    "telemetry.kernel.enabled=false?)"
+                })
+            if _flag(params, "audit"):
+                return self._send(handler, 200, mesh.audit())
+            if _flag(params, "arm"):
+                scans = params.get("scans")
+                state = mesh.arm(
+                    scans=int(scans) if scans else None, reason="http")
+                return self._send(handler, 202, {
+                    "message": "capture armed: run an optimization and "
+                               "poll GET /profile/mesh",
+                    "mesh": state,
+                })
+            artifact = mesh.latest()
+            if artifact is not None:
+                return self._send(handler, 200, artifact)
+            state = mesh.state()
+            cap = state["capture"]
+            if cap["state"] != "IDLE" or cap["pendingParses"] \
+                    or cap["activeParses"]:
+                return self._send(handler, 202, {
+                    "message": "capture in flight (armed, mid-parse, or "
+                               "awaiting the SLO-tick parse) — poll again",
+                    "mesh": state,
+                })
+            return self._send(handler, 404, {
+                "errorMessage": "no mesh capture parsed yet — arm one "
+                                "with GET /profile/mesh?arm=true",
+                "mesh": state,
             })
         if endpoint == "profile/host":
             # host observatory (docs/OBSERVABILITY.md "Host

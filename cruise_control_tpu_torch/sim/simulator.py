@@ -82,6 +82,9 @@ HARD_DETECTION_GOALS = (
 #: cacheAgeS rides proposals responses (all wall-clock).
 _VOLATILE_KEYS = ("ts",)
 _VOLATILE_PAYLOAD_KEYS = ("durationS", "latencyMs", "elapsedS", "cacheAgeS")
+#: wall-clock fields inside a payload's goal summaries: the cuda engine's
+#: pass summaries time their phases (``timing_s``)
+_VOLATILE_SUMMARY_KEYS = ("timing_s",)
 
 
 @dataclasses.dataclass
@@ -164,9 +167,11 @@ class ScenarioSpec:
     #: the engine the facade optimizes with (self-heals AND proposals).
     #: Scenarios keep the greedy default; the 1000-broker soak runs "cuda".
     engine: str = "greedy"
-    #: >0: arm the kernel observatory for this many scan calls.  The
-    #: observatory is not ported yet (ROADMAP A10): run_scenario refuses
-    #: any value but 0 before anything starts.
+    #: >0: arm the kernel observatory for this many drive-loop scan calls
+    #: at scenario start (telemetry/kernel_budget.py), on the VIRTUAL
+    #: clock with deterministic ``sim-capture-N`` ids, parse pumped once
+    #: per tick — capture events land in the journal bit-reproducibly.
+    #: Only meaningful with ``engine="cuda"`` (greedy never scans).
     kernel_capture_scans: int = 0
     # metric-anomaly finder tuning (the production metric.anomaly.* keys;
     # defaults mirror PercentileMetricAnomalyFinder's).  A full-stack
@@ -411,6 +416,12 @@ def journal_fingerprint(journal: Sequence[dict]) -> str:
                 k: v for k, v in r["payload"].items()
                 if k not in _VOLATILE_PAYLOAD_KEYS
             }
+            summaries = r["payload"].get("goalSummaries")
+            if isinstance(summaries, list):
+                r["payload"]["goalSummaries"] = [
+                    {k: v for k, v in g.items()
+                     if k not in _VOLATILE_SUMMARY_KEYS}
+                    if isinstance(g, dict) else g for g in summaries]
         h.update(json.dumps(r, sort_keys=True, default=str).encode())
         h.update(b"\n")
     return h.hexdigest()
@@ -1215,19 +1226,40 @@ def run_scenario(spec: ScenarioSpec, on_tick=None,
     engines run on ("cpu" runs them on their kernels' plain twins); it
     raises when a card is asked for and none is present."""
     resolve_device(device)
-    if spec.kernel_capture_scans > 0:
-        raise NotImplementedError(
-            f"kernel_capture_scans={spec.kernel_capture_scans}: the kernel "
-            "observatory is not ported yet (ROADMAP A10)"
-        )
     spec.timeline.reset()
     clock_ms = [0.0]
+    # deterministic kernel capture (kernel_capture_scans > 0): virtual
+    # clock + sim-capture-N ids, so profiler.capture.* journal records
+    # fingerprint bit-stably; a no-op scope otherwise
+    from cruise_control_tpu_torch.telemetry import kernel_budget, mesh_budget
+
+    cap_seq = [0]
+
+    def _next_capture_id() -> str:
+        cap_seq[0] += 1
+        return f"sim-capture-{cap_seq[0]}"
+
+    capture_scope = (
+        kernel_budget.CAPTURE.scoped(
+            clock=lambda: clock_ms[0] / 1000.0,
+            id_factory=_next_capture_id,
+        )
+        if spec.kernel_capture_scans > 0 else contextlib.nullcontext()
+    )
     with _scenario_journal(
         ring_size=spec.journal_ring_size, path=spec.journal_path,
         max_bytes=spec.journal_max_bytes, max_files=spec.journal_max_files,
         clock=lambda: clock_ms[0] / 1000.0,
-    ) as journal:
+    ) as journal, capture_scope:
         sim = _Sim(spec, device=device)
+        if spec.kernel_capture_scans > 0:
+            # the mesh observatory rides the same capture (observer
+            # hooks); attach is idempotent, and its profiler.mesh.parsed
+            # payloads are deterministic under the scoped clock/ids
+            if mesh_budget.MESH.enabled:
+                mesh_budget.MESH.attach(kernel_budget.CAPTURE)
+            kernel_budget.CAPTURE.arm(
+                scans=spec.kernel_capture_scans, reason="scenario")
         events.emit(
             "sim.scenario_start", name=spec.name, seed=spec.seed,
             brokers=spec.num_brokers, partitions=spec.num_partitions,
@@ -1282,6 +1314,10 @@ def run_scenario(spec: ScenarioSpec, on_tick=None,
                 # the process is down but the cluster lives on: in-flight
                 # reassignments keep progressing, brokers keep flapping
                 sim.backend.tick()
+            if spec.kernel_capture_scans > 0:
+                # the SLO tick's job in production; synchronous here so
+                # the artifact lands deterministically within the run
+                kernel_budget.CAPTURE.parse_pending()
             if on_tick is not None:
                 on_tick(sim, now)
         sim.stop_serving()  # graceful drain (journaled) before the end mark

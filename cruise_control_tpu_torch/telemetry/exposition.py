@@ -16,15 +16,29 @@ Rendering rules (one metric family per registry entry):
   must not corrupt the whole scrape)
 * Phases    -> ``cc_phase_seconds_total`` / ``cc_phase_self_seconds_total``
   / ``cc_phase_count_total`` with a ``phase`` label per span path
+* Device    -> ``cc_jit_compile_total`` / ``cc_jit_compile_seconds_total``
+  / ``cc_jit_retraces_total`` (``fn`` label per logical function — a
+  kernel library's build or load, ``ops.kernels.<name>``, and the step
+  chunk's CUDA-graph capture, ``analyzer.scan_fn`` — + an ``all``
+  aggregate) + the kernel build cache's counters, from
+  :mod:`telemetry.device_stats` (rendered whenever the span layer is —
+  i.e. on the server path)
+* Cost      -> ``cc_device_flops`` / ``cc_device_bytes_accessed`` /
+  ``cc_device_hbm_{arg,output,temp}_bytes`` / ``cc_device_call_rate_per_s``
+  (``fn`` label) + ``cc_device_hbm_utilization_estimate``, from
+  :mod:`telemetry.device_cost` — already-captured costs only, a scrape
+  never computes one
+* Kernel    -> ``cc_kernel_busy_ms/count/bytes{category=}`` +
+  ``cc_kernel_hbm_utilization_measured`` + ``cc_shard_busy_ms{device=}``
+  / ``cc_shard_skew``, from :mod:`telemetry.kernel_budget`'s latest
+  PARSED capture — a scrape never parses a trace
+* Mesh      -> ``cc_collective_*`` / ``cc_transfer_*`` / ``cc_mesh_*``
+  from :mod:`telemetry.mesh_budget`'s latest parsed capture and audit
 * Locks     -> ``cc_lock_wait_ms`` / ``cc_lock_hold_ms`` /
   ``cc_lock_acquisitions_total`` from :mod:`utils.locks`' contention
-  counters (rendered whenever the span layer is — i.e. on the server path)
+  counters
 * Host      -> ``cc_host_*`` summary gauges of :mod:`telemetry.host_profile`'s
   sampling profiler (rendered beside the lock families while it is enabled)
-
-The reference's device families (compile counts, per-executable device
-cost, measured kernel and mesh budgets) are not ported yet (ROADMAP.md A10
-(device telemetry)).
 
 Registry names like ``proposal-computation-timer`` or ``http.GET.state``
 are sanitized to the ``[a-zA-Z_:][a-zA-Z0-9_:]*`` metric grammar and
@@ -36,7 +50,14 @@ from __future__ import annotations
 import re
 from typing import Dict, List, Optional, Sequence, Tuple
 
-from cruise_control_tpu_torch.telemetry import host_profile, profile
+from cruise_control_tpu_torch.telemetry import (
+    device_cost,
+    device_stats,
+    host_profile,
+    kernel_budget,
+    mesh_budget,
+    profile,
+)
 from cruise_control_tpu_torch.telemetry.tracing import Telemetry
 from cruise_control_tpu_torch.utils import locks
 from cruise_control_tpu_torch.utils.metrics import MetricRegistry
@@ -92,12 +113,58 @@ def _labels(labels: Dict[str, str]) -> str:
     return "{" + inner + "}"
 
 
+def _device_stats_lines(lines: List[str]) -> None:
+    mon = device_stats.MONITOR
+    per = mon.per_function()
+    for metric, field, help_ in (
+        ("cc_jit_compile_total", "compiles",
+         "Kernel library builds or loads (ops.kernels.<name>) and step "
+         "chunk captures (analyzer.scan_fn) per logical function"),
+        ("cc_jit_compile_seconds_total", "compileSec",
+         "Wall-clock spent building (nvcc) or loading a kernel library, "
+         "or running a chunk's eager first step and capture, per logical "
+         "function"),
+        ("cc_jit_retraces_total", "retraces",
+         "Captures beyond the distinct step-loop key threshold (shape "
+         "churn) per logical function"),
+    ):
+        lines.append(f"# HELP {metric} {help_}")
+        lines.append(f"# TYPE {metric} counter")
+        total = 0.0
+        for fn, st in per.items():
+            total += st[field]
+            lines.append(
+                f'{metric}{{fn="{_escape_label(fn)}"}} {_fmt(st[field])}'
+            )
+        lines.append(f'{metric}{{fn="all"}} {_fmt(total)}')
+    if per:
+        lines.append("# HELP cc_jit_distinct_shapes Distinct libraries or "
+                     "step-loop keys built per logical function")
+        lines.append("# TYPE cc_jit_distinct_shapes gauge")
+        for fn, st in per.items():
+            lines.append(
+                f'cc_jit_distinct_shapes{{fn="{_escape_label(fn)}"}} '
+                f"{_fmt(st['distinctShapes'])}"
+            )
+    for metric, value, help_ in (
+        ("cc_jit_persistent_cache_hits_total", mon.persistent_cache_hits,
+         "Kernel libraries found built on disk at first load"),
+        ("cc_jit_persistent_cache_misses_total", mon.persistent_cache_misses,
+         "Kernel libraries this process built before first load"),
+        ("cc_jit_persistent_cache_puts_total", mon.persistent_cache_puts,
+         "Kernel libraries built into the build cache"),
+    ):
+        lines.append(f"# HELP {metric} {help_}")
+        lines.append(f"# TYPE {metric} counter")
+        lines.append(f"{metric} {_fmt(value)}")
+
+
 def render_prometheus(
     registry: MetricRegistry,
     telemetry: Optional[Telemetry] = None,
     extra_families: Optional[Sequence[ExtraFamily]] = None,
 ) -> str:
-    """Render the registry (+ phase timers and lock contention when
+    """Render the registry (+ phase timers and device/compile stats when
     ``telemetry`` is given) as Prometheus text exposition format 0.0.4.
 
     Snapshot-then-render discipline (ISSUE 18): ONE locked table copy
@@ -177,18 +244,33 @@ def render_prometheus(
                         f'{metric}{{phase="{_escape_label(path)}"}} '
                         f"{_fmt(ent[field])}"
                     )
+        _device_stats_lines(lines)
+        # per-executable device-cost gauges (cc_device_*): rendered only
+        # from ALREADY-captured analyses — a scrape never compiles
+        device_families = device_cost.MONITOR.families() \
+            if device_cost.MONITOR.enabled else ()
+        # measured kernel-budget gauges (cc_kernel_* / cc_shard_*): the
+        # latest PARSED capture only — a scrape never parses a trace
+        kernel_families = kernel_budget.CAPTURE.families() \
+            if kernel_budget.CAPTURE.enabled else ()
+        # mesh-observatory gauges (cc_collective_* / cc_transfer_* /
+        # cc_mesh_*): latest parsed mesh capture + replication audit
+        mesh_families = mesh_budget.MESH.families() \
+            if mesh_budget.MESH.enabled else ()
         # host observatory: named-lock contention counters
         # (cc_lock_wait_ms / cc_lock_hold_ms / cc_lock_acquisitions_total)
         # + the sampling profiler's summary gauges (cc_host_*)
+        lock_families = locks.CONTENTION.families()
         host_families = host_profile.PROFILER.families() \
             if host_profile.PROFILER.enabled else ()
-        families = (tuple(locks.CONTENTION.families())
-                    + tuple(host_families))
+        device_families = (tuple(device_families) + tuple(kernel_families)
+                           + tuple(mesh_families) + tuple(lock_families)
+                           + tuple(host_families))
     else:
-        families = ()
+        device_families = ()
 
     for fam_name, fam_type, fam_help, rows in (
-            families + tuple(extra_families or ())):
+            tuple(device_families) + tuple(extra_families or ())):
         lines.append(f"# HELP {fam_name} {fam_help}")
         lines.append(f"# TYPE {fam_name} {fam_type}")
         for labels, value in rows:

@@ -5,9 +5,12 @@
 ``--incremental`` profiles the search with ``incremental_rescore=True``
 (the default path otherwise).  Builds the seeded 1 000-broker / 20 000-partition fixture (seed 12, 20 racks,
 mean utilization 0.35), runs one warm-up
-plan, then one plan under ``torch.profiler`` (CPU + CUDA activities) and
-prints one JSON line: the plan's wall-clock, steps, device-busy time (the
-union of kernel intervals on the card), the idle share, kernel launches
+plan, then one plan under a ``torch.profiler`` session (CPU + CUDA
+activities) opened through the kernel observatory's one entry point
+(``telemetry/kernel_budget.py: profiler_session``), whose Chrome trace
+that module's parser reads, and prints one JSON line: the plan's
+wall-clock, steps, device-busy time (the kernels' time on the card), the
+idle share, kernel launches
 per step, the device time and launches of each hand-written kernel
 (``csrc/*.cu``), the step loop's device-to-host reads and captured-chunk
 replays (CUDA graph launches) per plan, the kernels that take the most
@@ -21,8 +24,8 @@ from __future__ import annotations
 import argparse
 import collections
 import json
+import tempfile
 import time
-from pathlib import Path
 
 import torch
 
@@ -31,19 +34,6 @@ import torch
 FIXTURE = dict(seed=12, num_brokers=1000, num_racks=20, num_partitions=20000,
                mean_utilization=0.35)
 TOP = 15
-
-
-def _busy_us(intervals) -> float:
-    """Length of the union of [start, end) intervals (microseconds)."""
-    total, end = 0.0, float("-inf")
-    for s, e in sorted(intervals):
-        if s > end:
-            total += e - s
-            end = e
-        elif e > end:
-            total += e - end
-            end = e
-    return total
 
 
 def main(argv=None) -> int:
@@ -59,6 +49,7 @@ def main(argv=None) -> int:
         CudaSearchConfig,
     )
     from cruise_control_tpu_torch.models.generators import random_cluster
+    from cruise_control_tpu_torch.telemetry import kernel_budget as KB
 
     state = random_cluster(**FIXTURE)
     opt = CudaGoalOptimizer(config=CudaSearchConfig(
@@ -72,47 +63,33 @@ def main(argv=None) -> int:
 
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t = time.perf_counter()
-        res = opt.optimize(state)
-        torch.cuda.synchronize()
-        wall_s = time.perf_counter() - t
+    with tempfile.TemporaryDirectory() as tmp:
+        with KB.profiler_session(tmp, activities=acts) as prof:
+            t = time.perf_counter()
+            res = opt.optimize(state)
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t
+        parsed = KB.parse_trace(prof.trace_path)
     steps = res.goal_summaries[0]["steps"]
 
+    # the card's kernels from the trace's kernel records (self time; one
+    # stream, so their sum is the union of their intervals)
     kern = collections.defaultdict(lambda: [0.0, 0])
+    hand = collections.defaultdict(lambda: {"ms": 0.0, "count": 0})
+    for row in parsed.rows:
+        kern[row.name][0] += row.time_us
+        kern[row.name][1] += row.count
+        if row.category != "torch":
+            hand[row.category]["ms"] += row.time_us * 1e-3
+            hand[row.category]["count"] += row.count
+    hand = {n: dict(hand[n]) for n in sorted(KB.KERNEL_BUCKETS)}
+    busy_s = parsed.total_time_us * 1e-6
+    n_kernels = parsed.total_count
     cpu = collections.defaultdict(lambda: [0.0, 0])
-    intervals = []
     for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            s, d = e.time_range.start, e.time_range.elapsed_us()
-            intervals.append((s, s + d))
-            kern[e.name][0] += d
-            kern[e.name][1] += 1
-        else:
+        if e.device_type != torch.autograd.DeviceType.CUDA:
             cpu[e.name][0] += e.self_cpu_time_total
             cpu[e.name][1] += 1
-    if not intervals:
-        # a profiler build that attaches kernels to their host ops only:
-        # sum their durations (no overlap on the search's one stream)
-        for e in prof.events():
-            for k in getattr(e, "kernels", ()):
-                intervals.append((0.0, 0.0))
-                kern[k.name][0] += k.duration
-                kern[k.name][1] += 1
-        busy_s = sum(us for us, _ in kern.values()) * 1e-6
-    else:
-        busy_s = _busy_us(intervals) * 1e-6
-    n_kernels = sum(c for _, c in kern.values())
-
-    # the hand-written kernels, by their CUDA function names
-    # (csrc/<name>.cu defines <name>_kernel or <name>_<part>_kernel)
-    csrc = Path(__file__).resolve().parents[1] / "csrc"
-    hand = {}
-    for name in sorted(p.stem for p in csrc.glob("*.cu")):
-        rows = [v for k, v in kern.items()
-                if f"{name}_" in k and "_kernel" in k]
-        hand[name] = {"ms": sum(us for us, _ in rows) * 1e-3,
-                      "count": sum(c for _, c in rows)}
 
     def top(table):
         rows = sorted(table.items(), key=lambda kv: -kv[1][0])[:TOP]

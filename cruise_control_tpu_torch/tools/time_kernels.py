@@ -100,7 +100,6 @@ import copy
 import ctypes
 import functools
 import importlib.util
-import inspect
 import statistics
 import subprocess
 import sys
@@ -153,13 +152,6 @@ def own_smoke(here: Path):
     own = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(own)
     return own
-
-
-def helper(cs, here: Path, name: str):
-    """chip_smoke's function ``name``, from this script's own checkout
-    when ``cs`` (an older one) has none."""
-    return getattr(cs, name) if hasattr(cs, name) \
-        else getattr(own_smoke(here), name)
 
 
 def host_us(fn, reps: int = 50, rounds: int = 7):
@@ -275,16 +267,15 @@ def time_budget_accept(cs, summary, random_cluster, dev, here):
 
     calls, _ = cs.first_step_calls(random_cluster(**cs.MIDSCALE), {}, dev)
     cases = {"midscale": calls["budget_accept"],
-             **helper(cs, here, "cohort_cases")(calls, dev)}
-    check = helper(cs, here, "check_budget_accept")
-    phases = getattr(SK, "budget_accept_phases", lambda r: ())(2)
+             **cs.cohort_cases(calls, dev)}
+    check = cs.check_budget_accept
+    phases = SK.budget_accept_phases(2)
     for case, (args, kw) in cases.items():
         rec = check(case, args, kw, False, True)["budget_accept"]
         rec.update(phase_split(SK.kernels, "budget_accept", phases,
                                lambda: SK.budget_accept(*args, **kw)))
-        if hasattr(SK, "budget_accept_attrs"):
-            rec["attrs"] = SK.budget_accept_attrs(
-                args[0].capacity.shape[0], *args[4].shape)
+        rec["attrs"] = SK.budget_accept_attrs(
+            args[0].capacity.shape[0], *args[4].shape)
         summary("budget_accept", rec)
 
 
@@ -296,15 +287,14 @@ def time_compact_rows(cs, summary, random_cluster, dev, here):
     calls, _ = cs.first_step_calls(random_cluster(**cs.MIDSCALE), {}, dev)
     cases = {"midscale": calls["compact_rows"],
              **{c: (a, {}) for c, a in
-                helper(cs, here, "compaction_cases")(dev).items()}}
-    phases = getattr(K7, "COMPACT_ROWS_PHASES", ())
+                cs.compaction_cases(dev).items()}}
+    phases = K7.COMPACT_ROWS_PHASES
     for case, (args, kw) in cases.items():
         rec = cs.check_compact_rows(case, args, kw, False, True)[
             "compact_rows"]
         rec.update(phase_split(K7.kernels, "compact_rows", phases,
                                lambda: K7.compact_rows(*args, **kw)))
-        if hasattr(K7, "compact_rows_attrs"):
-            rec["attrs"] = K7.compact_rows_attrs(args[11], rec["NROW"])
+        rec["attrs"] = K7.compact_rows_attrs(args[11], rec["NROW"])
         summary("compact_rows", rec)
 
 
@@ -319,8 +309,8 @@ def time_per_src_top(cs, summary, random_cluster, dev, here):
     base = calls["per_src_top"]
     del calls
     cases = {"midscale": base,
-             **helper(cs, here, "src_top_cases")(*base, dev)}
-    phases = getattr(SK, "PER_SRC_TOP_PHASES", ())
+             **cs.src_top_cases(*base, dev)}
+    phases = SK.PER_SRC_TOP_PHASES
     for case, (args, kw) in cases.items():
         m, lp, lsl, ls, slot, src, vals, B, Q = args
 
@@ -345,9 +335,7 @@ def time_per_src_top(cs, summary, random_cluster, dev, here):
                "launch_ms_by_name": launch_ms(cs, step),
                "host_us": host_us(step)}
         rec.update(phase_split(SK.kernels, "per_src_top", phases, step))
-        if hasattr(SK, "per_src_top_attrs"):
-            rec["attrs"] = SK.per_src_top_attrs(slot.shape[0], lp.shape[0],
-                                                B)
+        rec["attrs"] = SK.per_src_top_attrs(slot.shape[0], lp.shape[0], B)
         summary("per_src_top", rec)
         del got, step
 
@@ -362,7 +350,7 @@ def time_commit_batch(cs, summary, random_cluster, dev, here):
                                          dev)
     cases = {"midscale": calls["commit_batch"],
              **own.commit_cases(calls, dev)}
-    phases = getattr(K89, "COMMIT_BATCH_PHASES", ())
+    phases = K89.COMMIT_BATCH_PHASES
     for case, (args, kw) in cases.items():
         try:
             rec = own.check_commit_batch(case, args, kw, has_cap, True)[
@@ -406,8 +394,7 @@ def time_match_batch(cs, summary, random_cluster, dev, here):
             continue
         rec["bit_equal"] = True
         rounds = kw.get("rounds") or args[0].shape[1]
-        phases = (SK.match_batch_phases(rounds)
-                  if hasattr(SK, "match_batch_phases") else ())
+        phases = SK.match_batch_phases(rounds)
         rec.update(phase_split(SK.kernels, "match_batch", phases,
                                lambda: SK.match_batch(*args, **kw)))
         summary("match_batch", rec)
@@ -470,10 +457,6 @@ def score_cases(cs, here, random_cluster, dev):
     {case: (K2 args or None, (K6 args, kw) or None)}."""
     from cruise_control_tpu_torch.ops import grid as G
 
-    if not hasattr(G, "broker_costs_plain"):
-        # a tree older than K2's cost table: its K6 takes none, and
-        # time_score_candidates drops the cases' table
-        G.broker_costs_plain = lambda *a: None
     cases = {}
     mid = random_cluster(**cs.MIDSCALE)
     for case, state in (("midscale_percentile", cs.with_percentile(mid)),
@@ -481,23 +464,17 @@ def score_cases(cs, here, random_cluster, dev):
         calls, _ = cs.first_step_calls(state, {}, dev)
         a2, _ = calls["grid_rescore"]
         cases[case] = (a2[:6] + a2[7:], calls["score_candidates"])
-    cases.update(helper(cs, here, "score_terms_cases")(calls, dev))
-    cases.update(helper(cs, here, "slot_cases")(dev))
+    cases.update(cs.score_terms_cases(calls, dev))
+    cases.update(cs.slot_cases(dev))
     return cases
 
 
 def _bit_equal(cs, here, label, got, want) -> bool:
     try:
-        helper(cs, here, "bitwise")(label, got, want)
+        cs.bitwise(label, got, want)
         return True
     except AssertionError:
         return False
-
-
-# A tree older than K2's brokers' cost table (its wrappers take no
-# ``bcost``) is timed without it: the one parent-only path of K2 and K6.
-def _takes_bcost(fn) -> bool:
-    return "bcost" in inspect.signature(fn).parameters
 
 
 def time_grid_terms(cs, summary, random_cluster, dev, here):
@@ -512,20 +489,19 @@ def time_grid_terms(cs, summary, random_cluster, dev, here):
             continue
         m = a2[0]
         B = m.capacity.shape[0]
-        kw = ({"bcost": torch.empty(B, device=dev)}
-              if _takes_bcost(G.grid_terms) else {})
+        kw = {"bcost": torch.empty(B, device=dev)}
 
         def own(fn, *a):
             packed = fn(*a)
             return [packed[k] for k in ("src_f", "src_i", "dst_f", "dst_i",
-                                        "bcost") if k in packed]
+                                        "bcost")]
         got = own(G.grid_terms, *a2)
         torch.cuda.synchronize()
         want = own(G.grid_terms_plain, *a2[:7])
         run = lambda: G.grid_terms(*a2, **kw)  # noqa: E731
         S, W = m.assignment.shape[1], m.pload.shape[1]
         rec = {"case": case, "K": a2[3].shape[0], "D": a2[5].shape[0],
-               "S": S, "W": W, "B": B, "bcost": bool(kw),
+               "S": S, "W": W, "B": B,
                "bit_equal": _bit_equal(cs, here, f"{case} grid_terms", got,
                                        want),
                "ms": cs.cuda_ms(run),
@@ -542,16 +518,13 @@ def time_score_candidates(cs, summary, random_cluster, dev, here):
     """K6 on every case of :func:`score_cases` that has K6 inputs."""
     from cruise_control_tpu_torch.analyzer import score_kernel as K6
 
-    outputs = helper(cs, here, "score_outputs")
-    table = _takes_bcost(K6.score_candidates)
+    outputs = cs.score_outputs
     first = True
     for case, (_, k6) in score_cases(cs, here, random_cluster,
                                      dev).items():
         if k6 is None:
             continue
         a6, kw6 = k6
-        if not table:
-            kw6 = {k: v for k, v in kw6.items() if k != "bcost"}
         m = a6[0]
         got = outputs(False, *a6, **kw6)
         torch.cuda.synchronize()
@@ -562,7 +535,7 @@ def time_score_candidates(cs, summary, random_cluster, dev, here):
         rows = kw6.get("rows")
         rec = {"case": case, "N": a6[4].shape[0] if rows is None
                else int(kw6["n_rows"][0]),
-               "S": S, "W": W, "B": m.capacity.shape[0], "bcost": table,
+               "S": S, "W": W, "B": m.capacity.shape[0],
                "bit_equal": _bit_equal(cs, here, f"{case} score_candidates",
                                        got, want),
                "ms": cs.cuda_ms(run),
@@ -656,7 +629,7 @@ def time_pool_tables(cs, summary, random_cluster, dev, here):
              "50b_1k": own.repool_args(random_cluster(seed=42, **cs.SMALL),
                                        dev),
              **own.pool_cases(full, dev)}
-    phases = getattr(PK, "POOL_TABLES_PHASES", ())
+    phases = PK.POOL_TABLES_PHASES
     first = True
     for case, args in cases.items():
         m, ca, pb, st0, budget = args
@@ -678,8 +651,7 @@ def time_pool_tables(cs, summary, random_cluster, dev, here):
                "bit_equal": True, "ms": cs.cuda_ms(run),
                "device_ms_runs": device_ms_runs(run, "pool_tables_"),
                "launch_ms_by_name": launch_ms(cs, run),
-               "attrs": (PK.pool_tables_attrs(S)
-                         if hasattr(PK, "pool_tables_attrs") else None)}
+               "attrs": PK.pool_tables_attrs(S)}
         if rec["repool"]:
             rec.update(phase_split(PK.kernels, "pool_tables", phases, run))
         if first:
@@ -707,7 +679,7 @@ def time_corrected_accept(cs, summary, random_cluster, dev, here):
             cases[f"{tag}_tol{tol}"] = calls["corrected_accept"]
     cases.update(own.corrected_cases(cs.with_percentile(mid),
                                      {"cohort_stack_tol": 0.25}, dev))
-    phases = getattr(K15, "CORRECTED_ACCEPT_PHASES", ())
+    phases = K15.CORRECTED_ACCEPT_PHASES
     first = True
     for case, (args, kw) in cases.items():
         if not _checked(own.check_corrected_case, summary,
@@ -723,9 +695,8 @@ def time_corrected_accept(cs, summary, random_cluster, dev, here):
                "ms": cs.cuda_ms(run),
                "device_ms_runs": device_ms_runs(run,
                                                 "corrected_accept_kernel"),
-               "attrs": (K15.corrected_accept_attrs(
-                   Cn, NB, args[0].capacity.shape[0])
-                   if hasattr(K15, "corrected_accept_attrs") else None)}
+               "attrs": K15.corrected_accept_attrs(
+                   Cn, NB, args[0].capacity.shape[0])}
         rec.update(phase_split(K15.kernels, "corrected_accept", phases, run))
         if first:
             rec["ptxas"] = ptxas_report(K15.kernels, "corrected_accept")
@@ -796,7 +767,7 @@ def time_top_select(cs, summary, PK, kernels, dev):
         a, kw = cs.synthetic_priority(dev, n=n, k=k)
         name = f"top_select[{n}->{k}]"
         summary(name, cs.check_top_select("time", name, a, kw, True)[name])
-        if (n, k) == TOP_SHAPES[0] and hasattr(PK, "top_select_grid"):
+        if (n, k) == TOP_SHAPES[0]:
             # the same call with the rank spread over the selecting
             # blocks alone (one per 4 096 keys)
             x, hi, lo, flat = a
@@ -850,8 +821,8 @@ def time_recompute_aggregates(cs, summary, random_cluster, dev, here):
     m_mid = cs.first_step_calls(mid, {}, dev)[0]["recompute_aggregates"][0][0]
     m_pct = cs.first_step_calls(cs.with_percentile(mid), {}, dev)[0][
         "recompute_aggregates"][0][0]
-    skew = helper(cs, here, "skew_placement")
-    slot_loads = helper(cs, here, "aggregate_slot_loads")
+    skew = cs.skew_placement
+    slot_loads = cs.aggregate_slot_loads
     m_skew = dataclasses.replace(m_mid, assignment=skew(m_mid.assignment))
     m_ns = cs.north_star_placement(dev)
     m_ns_skew = dataclasses.replace(m_ns, assignment=skew(m_ns.assignment))
@@ -874,21 +845,19 @@ def time_recompute_aggregates(cs, summary, random_cluster, dev, here):
         split = [lambda: K89.recompute_aggregates(m),
                  lambda: torch.zeros((B + 1, NR), device=dev).index_add_(
                      0, ids, rows)]
-        buf = None
-        if hasattr(K89, "_agg_layout"):
-            lib = kernels.load("recompute_aggregates")
-            buf = torch.empty(K89._agg_layout(P, S, B, cap, sms)[1],
-                              dtype=torch.uint8, device=dev)
-            ptrs = [x.data_ptr() if x is not None else None for x in (
-                m.assignment, m.leader_slot, m.leader_load, m.follower_load,
-                m.leader_cload, m.follower_cload)]
-            off = (ctypes.c_longlong * 8)()
-            split += [
-                lambda: kernels.launched(
-                    "recompute_aggregates", lib.recompute_aggregates_launch(
-                        *ptrs, P, S, B, sms, buf.data_ptr(), st)),
-                lambda: lib.recompute_aggregates_layout(P, S, B, int(cap),
-                                                        sms, off)]
+        lib = kernels.load("recompute_aggregates")
+        buf = torch.empty(K89._agg_layout(P, S, B, cap, sms)[1],
+                          dtype=torch.uint8, device=dev)
+        ptrs = [x.data_ptr() if x is not None else None for x in (
+            m.assignment, m.leader_slot, m.leader_load, m.follower_load,
+            m.leader_cload, m.follower_cload)]
+        off = (ctypes.c_longlong * 8)()
+        split += [
+            lambda: kernels.launched(
+                "recompute_aggregates", lib.recompute_aggregates_launch(
+                    *ptrs, P, S, B, sms, buf.data_ptr(), st)),
+            lambda: lib.recompute_aggregates_layout(P, S, B, int(cap),
+                                                    sms, off)]
         rec["host_us"] = host_split(*split)
         summary("recompute_aggregates", rec)
         del m, buf, rows, ids
@@ -909,7 +878,7 @@ def time_whatif_verdict(cs, summary, random_cluster, dev, here):
     small = random_cluster(seed=42, **cs.SMALL)
     mid = random_cluster(**cs.MIDSCALE)
     margs = inputs(mid, cs.WHATIF_FUTURES)
-    hot = helper(cs, here, "skew_placement")(margs[0])
+    hot = cs.skew_placement(margs[0])
     alive_hot = margs[7].clone()
     alive_hot[:, 0] = False
     dead_hot = alive_hot.clone()
@@ -940,18 +909,16 @@ def time_whatif_verdict(cs, summary, random_cluster, dev, here):
         split = [lambda: VK.whatif_verdict(*args),
                  lambda: torch.zeros((N * (B + 1), R), device=dev)
                  .index_add_(0, ids, rows)]
-        buf = None
-        if hasattr(VK, "_layout"):
-            lib = kernels.load("whatif_verdict")
-            buf = torch.empty(VK._layout(N, P, S, B, sms)[1],
-                              dtype=torch.uint8, device=dev)
-            ptrs = [x.data_ptr() for x in args]
-            off = (ctypes.c_longlong * 14)()
-            split += [
-                lambda: kernels.launched(
-                    "whatif_verdict", lib.whatif_verdict_launch(
-                        *ptrs, N, P, S, B, sms, buf.data_ptr(), st)),
-                lambda: lib.whatif_verdict_layout(N, P, S, B, sms, off)]
+        lib = kernels.load("whatif_verdict")
+        buf = torch.empty(VK._layout(N, P, S, B, sms)[1],
+                          dtype=torch.uint8, device=dev)
+        ptrs = [x.data_ptr() for x in args]
+        off = (ctypes.c_longlong * 14)()
+        split += [
+            lambda: kernels.launched(
+                "whatif_verdict", lib.whatif_verdict_launch(
+                    *ptrs, N, P, S, B, sms, buf.data_ptr(), st)),
+            lambda: lib.whatif_verdict_layout(N, P, S, B, sms, off)]
         rec["host_us"] = host_split(*split)
         summary("whatif_verdict", rec)
         del args, buf, rows, ids

@@ -16,17 +16,23 @@ in well under one plan search's wall time.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, List
 
 import numpy as np
 import torch
 
+from cruise_control_tpu_torch.ops import kernels
+from cruise_control_tpu_torch.telemetry import device_cost, mesh_budget
 from cruise_control_tpu_torch.utils.device import DEVICE_LOCK, resolve_device
 from cruise_control_tpu_torch.whatif.compiler import FutureBatch
 from cruise_control_tpu_torch.whatif.verdict_kernels import (
     TOP_ACTIONS,
     whatif_verdict,
 )
+
+#: the what-if call's name in the device-cost table
+VERDICT_FN = "whatif.verdict_fn"
 
 
 def verdict_inputs(state, batch: FutureBatch, capacity_scale=None,
@@ -68,9 +74,24 @@ def evaluate_batch(state, batch: FutureBatch, capacity_scale=None,
     :func:`verdicts` for the per-future JSON view).  Holds
     :data:`~cruise_control_tpu_torch.utils.device.DEVICE_LOCK` throughout."""
     with DEVICE_LOCK:
-        out = whatif_verdict(*verdict_inputs(state, batch, capacity_scale,
-                                             device))
-        return {k: v.cpu().numpy() for k, v in out.items()}
+        inputs = verdict_inputs(state, batch, capacity_scale, device)
+        # the call's cost, once a shape (telemetry/device_cost.py): the
+        # launches' work, recorded on the first call of the shape
+        sig = (str(inputs[0].device),) + tuple(tuple(t.shape)
+                                               for t in inputs)
+        cost = device_cost.MONITOR
+        fresh = cost.enabled and not cost.known(VERDICT_FN, sig)
+        with (kernels.WORK.recording() if fresh
+              else contextlib.nullcontext({})) as work:
+            out = whatif_verdict(*inputs)
+        cost.note_call(VERDICT_FN)
+        if fresh:
+            cost.note_compile(VERDICT_FN, sig, device_cost.work_source(
+                work, arg_bytes=sum(t.nbytes for t in inputs),
+                output_bytes=sum(v.nbytes for v in out.values())))
+        # the verdict reads through the transfer ledger
+        return {k: mesh_budget.fetch(v, fn="whatif.verdict_fetch")
+                for k, v in out.items()}
 
 
 def verdicts(batch: FutureBatch,

@@ -271,6 +271,18 @@ def _layout(N: int, P: int, S: int, B: int, sms: int):
     return tuple(plan), off[13]
 
 
+def whatif_verdict_work(N: int, P: int, S: int, B: int, R: int):
+    """K12's work → (bytes, operations): the placement, leader slots and
+    two load rows a partition; capacity, rack and liveness a broker; each
+    future's dead row and multipliers in; 82 bytes of verdict a future
+    out.  A future: ~20 operations a partition (its rated load rows) and
+    ~16 a slot (select and mask its row, add it to its broker's and the
+    total, compare)."""
+    return (P * S * 4 + P * 4 + 2 * P * R * 4 + B * (R * 4 + 5)
+            + N * B + N * P * 4 + N * 82,
+            N * (P * 5 * R + P * S * 4 * R))
+
+
 def whatif_verdict(assignment, leader_slot, leader_load, follower_load,
                    capacity, rack, alive0, dead, scale) -> Dict[str, torch.Tensor]:
     """The verdicts of the plain twin :func:`verdict_plain` (same
@@ -330,6 +342,8 @@ def whatif_verdict(assignment, leader_slot, leader_load, follower_load,
     )
     kernels.launched("whatif_verdict", err)
     whatif_verdict.launches += 1
+    kernels.note_work("whatif_verdict", lambda: whatif_verdict_work(
+        N, P, S, B, NR))
     return out
 
 

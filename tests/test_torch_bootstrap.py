@@ -94,6 +94,7 @@ def test_bootstrap_reads_capacity_and_cluster_configs_files(tmp_path):
 
 
 @pytest.mark.parametrize("item,refused", [
+    # A10 is ported: its keys now build the app and wire the observatories
     ("A10", {"telemetry.device.stats.enabled": "true",
              "telemetry.device.cost.enabled": "true",
              "telemetry.kernel.enabled": "true",
@@ -112,6 +113,28 @@ def test_unported_keys_are_refused_before_anything_starts(item, refused):
     )
     from cruise_control_tpu_torch.whatif.proactive import ProactiveScheduler
 
+    if item == "A10":
+        # ported: the keys build the app and wire the observatories
+        from cruise_control_tpu_torch.telemetry import (
+            device_cost,
+            kernel_budget,
+            mesh_budget,
+        )
+
+        with booted(PORT, {**SMALL, **refused}) as app:
+            gauges = app.cruise_control.registry.snapshot()["gauges"]
+            assert {"jax.live.buffers", "jax.live.buffer.bytes",
+                    "device.cost.hbm.utilization",
+                    "kernel.capture.count",
+                    "mesh.capture.parses"} <= set(gauges)
+            assert mesh_budget.MESH in kernel_budget.CAPTURE._observers
+            hooks = app.slo_engine.maintenance_hooks
+            assert device_cost.MONITOR.capture_pending in hooks
+            assert kernel_budget.CAPTURE.parse_pending in hooks
+            assert app.cruise_control.cuda_config.profiler_trace_dir \
+                == "trace"
+            assert app.flight_recorder.kernel_budget_source is not None
+        return
     if item == "A9":
         with booted(PORT, {**SMALL, **refused}) as app:
             sched = app.proactive_scheduler

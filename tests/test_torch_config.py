@@ -35,12 +35,10 @@ from cruise_control_tpu.config.cruise_control_config import (
 from torch_bootstrap_cases import DROPPED, PORT, REF, booted, port_key
 
 #: the port's keys whose default differs from the reference's: the device
-#: observatories wait for ROADMAP A10, and the soak replans on cuda
+#: cost estimate assumes the card's HBM3 bandwidth (an H100 SXM's
+#: 3 350 GB/s), and the soak replans on cuda
 OTHER_DEFAULTS = {
-    "telemetry.device.stats.enabled": False,
-    "telemetry.device.cost.enabled": False,
-    "telemetry.kernel.enabled": False,
-    "telemetry.mesh.enabled": False,
+    "telemetry.device.cost.hbm.gbps": 3350.0,
     "sim.soak.engine": "cuda",
 }
 #: the CudaSearchConfig fields no key reaches: six have none in the
@@ -50,8 +48,11 @@ UNKEYED = {"auction_dest_cap", "auction_src_cap", "auction_stack_ratio",
            "topk_mode"}
 #: the engine keys whose docs say that only their default is accepted
 #: until the ROADMAP item that gives them an effect
-REWORDED = {"cuda.search.pipeline.depth", "cuda.search.profiler.trace.dir",
-            "cuda.search.shard.tables", "cuda.search.shard.donate"}
+REWORDED = {"cuda.search.pipeline.depth", "cuda.search.shard.tables",
+            "cuda.search.shard.donate"}
+#: the engine keys whose docs name the port's own mechanism in place of
+#: the reference's
+PORT_DOCS = {"cuda.search.profiler.trace.dir": "torch.profiler"}
 #: values every validator is probed on
 PROBES = (-1, 0, 0.5, 1, 2, 100, 1e9, "auto", "grid", "exact", "corrected",
           "zzz")
@@ -88,6 +89,8 @@ def test_every_reference_key_has_its_counterpart():
             assert pk.group == "cuda.engine"
             if pk.name in REWORDED:
                 assert "ROADMAP A" in pk.doc, name
+            elif pk.name in PORT_DOCS:
+                assert PORT_DOCS[pk.name] in pk.doc, name
             else:
                 assert pk.doc == rk.doc.replace("tpu.search.",
                                                 "cuda.search."), name

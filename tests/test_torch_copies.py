@@ -36,7 +36,8 @@ COPIES = (
     "monitor/metric_defs.py", "monitor/prometheus.py",
     "monitor/sample_store.py", "monitor/sampling.py",
     "replan/__init__.py", "replan/delta.py", "replan/planner.py",
-    "server/__init__.py", "server/admission.py", "server/progress.py",
+    "server/__init__.py", "server/admission.py", "server/http_server.py",
+    "server/progress.py",
     "server/purgatory.py", "server/security.py", "server/user_tasks.py",
     "sim/__init__.py", "sim/artifact.py", "sim/backend.py",
     "sim/fault_schedule.py", "sim/timeline.py", "sim/workload.py",
@@ -54,14 +55,33 @@ ADAPTED = {
                  "and the default, cuda_config and a device argument, no "
                  "degradation to the CPU on the card, torch broker states, "
                  "a cold replan hands the engine the carry",
-    "server/http_server.py": "profile/kernels and profile/mesh answer 503 "
-                             "until their observatories are ported "
-                             "(ROADMAP A10)",
     "telemetry/tracing.py": "device_span.block synchronizes the card of "
                             "CUDA tensors instead of jax.block_until_ready",
-    "telemetry/exposition.py": "renders the registry, span, lock and "
-                               "host-profiler families; the device "
-                               "families are not ported yet (ROADMAP A10)",
+    "telemetry/exposition.py": "the cc_jit_* families' help texts say what "
+                               "the port counts (kernel builds and loads, "
+                               "step-chunk captures) and its docstring "
+                               "lists the mesh, lock and host families",
+    "telemetry/kernel_budget.py": "torch.profiler (Kineto) in place of "
+                                  "jax.profiler: CUPTI's kernel records "
+                                  "and the CPU's host ops as the two "
+                                  "dialects, buckets by csrc stem, bytes "
+                                  "and operations from the kernels' work "
+                                  "models, the trace started at a scan "
+                                  "call's first replay, one session a "
+                                  "process, the card's roofline",
+    "telemetry/mesh_budget.py": "Kineto's memcpy and memset records and "
+                                "NCCL's kernel names, torch transfers in "
+                                "the ledger, the audit over live CUDA "
+                                "tensors, the ledger window closed at the "
+                                "trace's end",
+    "telemetry/device_stats.py": "counts kernel builds and loads and "
+                                 "step-chunk captures in place of XLA "
+                                 "compiles; live buffers from the card's "
+                                 "allocator",
+    "telemetry/device_cost.py": "an executable's cost from its launches' "
+                                "work models and its buffers in place of "
+                                "XLA's cost and memory analyses; the "
+                                "card's bandwidth",
     "client/cccli.py": "--engine offers 'cuda' in place of 'tpu'",
     "config/cruise_control_config.py": "the engine key group is cuda.* "
                                        "(use.cuda.optimizer, "
@@ -72,19 +92,19 @@ ADAPTED = {
                                        "four engine keys name the ROADMAP "
                                        "item that gives them an effect, "
                                        "sim.soak.engine defaults to cuda, "
-                                       "the four device-telemetry toggles "
-                                       "default to false, and a class path "
-                                       "into the JAX package is refused",
+                                       "the device-telemetry keys' docs say "
+                                       "what the port measures (and the "
+                                       "card's 3 350 GB/s), and a class "
+                                       "path into the JAX package is "
+                                       "refused",
     "bootstrap.py": "engine 'cuda' with CudaSearchConfig from "
                     "cuda.search.* on a device argument that must exist; "
-                    "no XLA cache and no device observatories (A10); "
-                    "refuses non-default A4, A10 and A11 keys",
+                    "no XLA cache; "
+                    "refuses non-default A4 and A11 keys",
     "server/ui.html": "the engine select offers 'cuda' in place of 'tpu'",
     "sim/simulator.py": "run_scenario takes a device (resolved first, "
                         "handed to the facade); the scripted engine "
-                        "failure hits 'cuda'; kernel_capture_scans > 0 "
-                        "raises until the kernel observatory is ported "
-                        "(ROADMAP A10)",
+                        "failure hits 'cuda'",
     "sim/scenarios.py": "engine_failure_degrades_to_greedy runs engine "
                         "'cuda'",
     "sim/soak.py": "run_soak and the CLI take a device; the leak gate "

@@ -68,9 +68,25 @@ def test_config_fields_and_defaults_match_reference():
 @pytest.mark.parametrize("knob", [
     {"profiler_trace_dir": "trace"},
 ])
-def test_out_of_slice_knobs_raise(knob):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A10"):
-        CudaGoalOptimizer(config=CudaSearchConfig(**knob), device="cpu")
+def test_out_of_slice_knobs_raise(knob, tmp_path):
+    """The trace directory is ported (ROADMAP A10): a search with it set
+    writes a trace there through the kernel observatory's one session,
+    which parses as a legacy-trace-dir capture, and the plan is the one a
+    search without it makes."""
+    from cruise_control_tpu_torch.telemetry import kernel_budget as kb
+
+    kb.CAPTURE.reset()
+    trace_dir = str(tmp_path / knob["profiler_trace_dir"])
+    state = gen.random_cluster(seed=1, num_brokers=6, num_partitions=20)
+    traced = CudaGoalOptimizer(config=CudaSearchConfig(
+        profiler_trace_dir=trace_dir), device="cpu").optimize(state)
+    plain = CudaGoalOptimizer(device="cpu").optimize(state)
+    assert [a.__dict__ for a in traced.actions] == \
+        [a.__dict__ for a in plain.actions]
+    assert kb.parse_pending(max_parses=4) == 1
+    assert kb.latest()["source"] == "legacy-trace-dir"
+    assert kb.newest_trace(trace_dir).startswith(trace_dir)
+    kb.CAPTURE.reset()
 
 
 def test_warm_start_and_mesh_raise():

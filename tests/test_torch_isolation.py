@@ -52,7 +52,8 @@ def test_import_pulls_in_no_jax_and_no_reference():
     # the probe really walked the package, the repool, step-loop,
     # what-if, score-only round, corrected-cohort and incremental-rescore
     # modules, the served path's, the replanner's, the detector's, the
-    # simulator's and the proactive scheduler's included
+    # simulator's, the proactive scheduler's and the device observatories'
+    # included
     for mod in ("analyzer.cuda_optimizer", "ops.grid", "analyzer.pool_kernels",
                 "analyzer.step_graph", "analyzer.step_state", "whatif.engine",
                 "whatif.verdict_kernels", "analyzer.round_kernels",
@@ -65,7 +66,9 @@ def test_import_pulls_in_no_jax_and_no_reference():
                 "monitor.fetcher", "telemetry.recorder", "telemetry.slo",
                 "telemetry.host_profile", "sim", "sim.simulator",
                 "sim.scenarios", "sim.soak", "sim.__main__",
-                "whatif.proactive"):
+                "whatif.proactive", "telemetry.kernel_budget",
+                "telemetry.mesh_budget", "telemetry.device_stats",
+                "telemetry.device_cost", "telemetry.exposition"):
         assert f"cruise_control_tpu_torch.{mod}" in res["modules"], mod
     # every class path the registry defaults to resolved into the port
     assert len(res["classes"]) >= 6, res["classes"]

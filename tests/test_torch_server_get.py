@@ -90,16 +90,31 @@ class TestGetEndpoints:
         assert e.value.code == 404
 
     def test_unported_observatories_answer_503(self, server):
-        """The kernel and mesh observatories are not ported yet: 503, as
-        the reference answers for a disabled observatory.  The host
-        observatory is ported: before its first capture it answers 404
-        and names the arming request, as the reference's does."""
+        """The kernel and mesh observatories are ported (ROADMAP A10):
+        before their first capture they answer 404 naming the arming
+        request, and 503 while disabled, as the reference's do; so does
+        the host observatory."""
+        from cruise_control_tpu_torch.telemetry import kernel_budget as kb
+        from cruise_control_tpu_torch.telemetry import mesh_budget as mb
+
         srv, _, _ = server
+        # the observatories are process-wide: none of another test's
+        kb.CAPTURE.reset()
+        mb.MESH.reset()
         for endpoint in ("profile/kernels", "profile/mesh"):
             with pytest.raises(CruiseControlError) as e:
                 client_for(srv).get(endpoint)
-            assert e.value.code == 503
-            assert "not ported yet (ROADMAP A10)" in str(e.value)
+            assert e.value.code == 404
+            assert f"GET /{endpoint}?arm=true" in str(e.value)
+        kb.configure(enabled=False)
+        try:
+            for endpoint in ("profile/kernels", "profile/mesh"):
+                with pytest.raises(CruiseControlError) as e:
+                    client_for(srv).get(endpoint)
+                assert e.value.code == 503
+                assert "telemetry.kernel.enabled" in str(e.value)
+        finally:
+            kb.configure(enabled=True)
         with pytest.raises(CruiseControlError) as e:
             client_for(srv).get("profile/host")
         assert e.value.code == 404

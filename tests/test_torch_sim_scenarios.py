@@ -2,7 +2,10 @@
 smoke scenario reaches the reference's outcome, passes the reference's
 journal checks and reproduces the committed ``SCENARIOS_r16.json``
 fingerprint bit for bit; the engine-failure ladder heals off the card as
-the reference's does; the kernel observatory is refused until ported."""
+the reference's does; an armed kernel capture leaves a greedy
+scenario's journal as it was."""
+
+import dataclasses
 
 import pytest
 
@@ -56,13 +59,15 @@ def test_kernel_capture_is_refused_naming_a10():
         num_brokers=4, num_racks=2, num_partitions=12,
         duration_ms=4 * MIN, kernel_capture_scans=1,
     )
+    # the kernel observatory is ported (ROADMAP A10): the capture is
+    # armed on the virtual clock; the greedy engine runs no scan call, so
+    # nothing is traced and the journal is the one without a capture
     journal = events.JOURNAL
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        run_scenario(spec, device="cpu")
-    # refused before anything started: no scenario journal was swapped in
-    # and the timeline's event is still due
+    captured = run_scenario(spec, device="cpu")
+    plain = run_scenario(dataclasses.replace(spec, kernel_capture_scans=0),
+                         device="cpu")
     assert events.JOURNAL is journal
-    assert [e.kind for e in spec.timeline.pop_due(spec.duration_ms)] == \
-        ["disk_failure"]
+    assert captured.fingerprint() == plain.fingerprint()
+    assert not captured.events_of("profiler.capture.start")
     assert all(make_scenario(n).kernel_capture_scans == 0
                for n in SMOKE_SCENARIOS)

@@ -73,12 +73,18 @@ def test_diagnostics_and_slo_on_a_booted_app(app):
     status, art = http(f"{app.server.url}/diagnostics")
     assert status == 200 and art["schema"] == "cc-tpu-flight-recorder/1"
     assert "hostProfile" in art and "lockContention" in art
-    assert "deviceStats" not in art and "kernelBudget" not in art
+    # the device observatories (ROADMAP A10) ride the dump
+    assert {"deviceStats", "kernelBudget", "meshBudget"} <= set(art)
+    assert "deviceCost" in art["deviceStats"]
     status, slo = http(f"{app.server.url}/slo")
     assert status == 200 and slo["schema"] == "cc-tpu-slo/1"
     assert slo["slos"] and app.slo_engine is not None
+    # the observatory is process-wide: none of another test's captures
+    from cruise_control_tpu_torch.telemetry import kernel_budget
+
+    kernel_budget.CAPTURE.reset()
     status, body = http(f"{app.server.url}/profile/kernels")
-    assert status == 503 and "A10" in body["errorMessage"]
+    assert status == 404 and "arm=true" in body["errorMessage"]
 
 
 def test_profile_host_arms_then_serves_an_artifact(app):
@@ -113,7 +119,8 @@ def test_metrics_renders_the_host_profiler_families(app):
         time.sleep(0.05)
     assert "# TYPE cc_host_samples_total counter" in text
     assert "# TYPE cc_host_stacks gauge" in text
-    assert "cc_lock_" in text and "cc_jit_" not in text
+    # the device families (ROADMAP A10) render beside them
+    assert "cc_lock_" in text and 'cc_jit_compile_total{fn="all"}' in text
 
 
 def test_assignor_round_robin_as_the_reference():
