@@ -4871,40 +4871,226 @@ def observatory_phase():
     return launches, model, cfg
 
 
-def observatory_late(model, cfg):
+class RecordOrder:
+    """A capture observer that keeps, from the parsed trace, the hand
+    kernels' records (start µs, end µs, csrc stem) in the order they ran
+    on the card and the starts of its device→host copies (the host's read
+    of the carry after each replay)."""
+
+    def __init__(self):
+        self.records, self.reads = [], []
+
+    def on_parse(self, trace_path, meta):
+        from cruise_control_tpu_torch.telemetry import kernel_budget as KB
+
+        events = KB._load_events(trace_path)
+        for e in sorted(KB._xevents(events, "kernel"),
+                        key=lambda e: float(e["ts"])):
+            stem = KB.kernel_stem(str(e.get("name", "")))
+            if stem is not None:
+                t0 = float(e["ts"])
+                self.records.append((t0, t0 + float(e.get("dur", 0.0)),
+                                     stem))
+        self.reads = sorted(float(e["ts"]) for e in
+                            KB._xevents(events, "gpu_memcpy")
+                            if "DtoH" in str(e.get("name", "")))
+
+
+def capture_order(run):
+    """Run ``run()`` and return the stems the kernel wrappers note while a
+    CUDA graph captures (the step chunk's launches, in launch order)."""
+    from cruise_control_tpu_torch.ops import kernels
+
+    order, note = [], kernels.note_work
+
+    def noted(stem, work):
+        if torch.cuda.is_available() \
+                and torch.cuda.is_current_stream_capturing():
+            order.append(stem)
+        note(stem, work)
+
+    kernels.note_work = noted
+    try:
+        run()
+    finally:
+        kernels.note_work = note
+    return order
+
+
+def lost_record_steps(chunk, replays, records, reads, per_launch):
+    """Where a trace's missing kernel records sit in a scan call.  The
+    captured chunk's launch order (``chunk``, ``per_launch`` records a
+    launch) says how many records each of the ``replays`` replays makes;
+    the host's carry reads (``reads``, one after each replay) split the
+    trace's records into replays.  A replay short of records lost them
+    where its records leave the widest hole in time (the kernels ran, no
+    record says so): that hole's step is reported, with the third of the
+    call it falls in."""
+    from bisect import bisect_left
+
+    from cruise_control_tpu_torch.analyzer.step_graph import STEP_CHUNK
+
+    stems = set(chunk)
+    want = sum(per_launch.get(s, 1) for s in chunk)
+    per_step = max(1, want // STEP_CHUNK)
+    by_replay = [[] for _ in range(replays)]
+    for rec in records:
+        r = bisect_left(reads, rec[0])
+        if rec[2] in stems and r < replays:
+            by_replay[r].append(rec)
+
+    def ends(r, recs):
+        """(lead, tail): the µs from the previous read to the replay's
+        first record and from its last record to its own read (None
+        where there is no such read)."""
+        lead = (recs[0][0] - reads[r - 1]
+                if recs and 0 < r <= len(reads) else None)
+        tail = reads[r] - recs[-1][1] if recs and r < len(reads) else None
+        return lead, tail
+
+    whole = [ends(r, recs) for r, recs in enumerate(by_replay)
+             if len(recs) >= want]
+
+    def typical(i):
+        vals = sorted(v[i] for v in whole if v[i] is not None)
+        return vals[len(vals) // 2] if vals else 0.0
+
+    steps, at, short, unplaced = replays * STEP_CHUNK, [], {}, 0
+    for r, recs in enumerate(by_replay):
+        if len(recs) >= want:
+            continue
+        short[r] = want - len(recs)
+        if not recs:  # the whole replay
+            at.append(r * STEP_CHUNK)
+            continue
+        # the hole: the gap (inside the replay, or before its first or
+        # after its last record) widest over what a whole replay shows
+        lead, tail = ends(r, recs)
+        gaps = sorted(b[0] - a[1] for a, b in zip(recs, recs[1:]))
+        inner = gaps[len(gaps) // 2] if gaps else 0.0
+        holes = [((lead or 0.0) - typical(0), 0)]
+        holes += [(b[0] - a[1] - inner, k + 1)
+                  for k, (a, b) in enumerate(zip(recs, recs[1:]))]
+        holes.append(((tail or 0.0) - typical(1), len(recs)))
+        excess, before = max(holes)
+        if excess <= 4 * max(inner, 1.0):
+            if r == 0 and lead is None:
+                # no hole inside the call and a whole tail: the records
+                # ran before the first one the trace holds, where no read
+                # bounds the first replay
+                at += range(-(-short[r] // per_step))
+            else:
+                unplaced += short[r]
+            continue
+        at.append(r * STEP_CHUNK + min(STEP_CHUNK - 1, before // per_step))
+    thirds = sorted({("first", "middle", "last")[min(2, 3 * s // steps)]
+                     for s in at}) if steps else []
+    return {"records_per_replay": want, "replays": replays,
+            "reads": len(reads), "seen": sum(map(len, by_replay)),
+            "short_replays": short, "steps": steps, "lost_steps": at,
+            "unplaced": unplaced,
+            "where": ("none" if not short else "unplaced" if not at
+                      else thirds[0] if len(thirds) == 1 else "spread")}
+
+
+#: what runs right after a late capture's session starts, before the
+#: traced call's first replay (``--late-records`` compares them): the
+#: kernel observatory's primer launches (``PRIMER_LAUNCHES``, 64 by
+#: default) and whether a synchronize and a 50 ms sleep follow
+PRIMERS = {"none": (0, False), "sleep": (0, True), "kernels": (64, False)}
+
+
+def profiler_sessions(n: int) -> None:
+    """``n`` short ``torch.profiler`` sessions, as phases 3-12's kernel
+    timings open (hundreds of them)."""
+    x = torch.zeros(1024, device="cuda")
+    for _ in range(n):
+        device_ms(lambda: x.add_(1), "add", reps=2)
+
+
+def late_records(model, cfg, sessions: int = 300):
+    """Phase 13 (g)'s capture under each primer twice, in turns: where the
+    lost records sit, and whether a primer between the session's start
+    and the first replay keeps them.  ``--late-records`` runs it after
+    the build, phase 13 (a)-(f) and ``sessions`` short profiler
+    sessions; ``--late-records-full`` in place of (g) after the whole
+    script (no other session first)."""
+    profiler_sessions(sessions)
+    out = {}
+    for primer in ("none", "sleep", "kernels", "none", "kernels", "sleep"):
+        rec = observatory_late(model, cfg, primer=primer)
+        out.setdefault(primer, []).append(
+            {"dropped": sum(rec["dropped_records"].values()),
+             "where": rec["lost_at"]["where"],
+             "lost_steps": rec["lost_at"]["lost_steps"]})
+    emit({"phase": "late_records", "sessions": sessions,
+          "nvidia_smi": nvidia_smi(), "by_primer": out})
+    return out
+
+
+def observatory_late(model, cfg, primer=None):
     """Phase 13 (g), after phases 3-12: a capture of a 1000b/20k plan's
     scan call in a process that has run hundreds of profiler sessions,
     where CUPTI dropped kernel records before (ROADMAP §C).  Every path
     kernel's records and the records the artifact reports dropped must
     add up to its launches' records: the counts are exact or the
-    shortfall is reported."""
+    shortfall is reported.  The record prints where in the call the lost
+    records sit (``lost_at``: the chunk's launch order against the
+    trace's record order).  ``primer`` names a :data:`PRIMERS` entry
+    (None: the kernel observatory's default primer)."""
     from cruise_control_tpu_torch.analyzer import cuda_optimizer as C
+    from cruise_control_tpu_torch.analyzer.step_graph import STEP_CHUNK
     from cruise_control_tpu_torch.bootstrap import _cuda_search_config
     from cruise_control_tpu_torch.telemetry import kernel_budget as KB
 
     t = time.perf_counter()
     KB.configure(enabled=True)
     opt = C.CudaGoalOptimizer(config=_cuda_search_config(cfg))
-    # the step loop kept: the traced call replays it, as a served one does
-    run_plan(opt, model)
-    window = LaunchWindow()
+    # a fresh step loop, captured here and kept: the traced call replays
+    # it, as a served one does
+    C._LOOPS.clear()
+    chunk = capture_order(lambda: run_plan(opt, model))
+    window, order = LaunchWindow(), RecordOrder()
     KB.CAPTURE.add_observer(window)
+    KB.CAPTURE.add_observer(order)
+    launches, sleep = PRIMERS.get(primer, (KB.PRIMER_LAUNCHES, False))
+    default, KB.PRIMER_LAUNCHES = KB.PRIMER_LAUNCHES, launches
+    if sleep:
+        start = KB.CAPTURE._start_trace
+
+        def slept(*args):
+            start(*args)
+            torch.cuda.synchronize()
+            time.sleep(0.05)
+
+        KB.CAPTURE._start_trace = slept
     try:
         KB.arm(scans=1, reason="chip_smoke")
         _, plan_s = run_plan(opt, model)
         parsed = KB.parse_pending(max_parses=4)
     finally:
+        KB.PRIMER_LAUNCHES = default
+        KB.CAPTURE.__dict__.pop("_start_trace", None)
         KB.CAPTURE.remove_observer(window)
+        KB.CAPTURE.remove_observer(order)
     C._LOOPS.clear()
     art = KB.latest()
     records = kernel_records(art, window.launches())
+    # one capture's launches (a step commits once: K8)
+    captures = max(1, chunk.count("commit_batch") // STEP_CHUNK)
+    replays = window.launches().get("commit_batch", 0) // STEP_CHUNK
+    lost_at = lost_record_steps(chunk[:len(chunk) // captures], replays,
+                                order.records, order.reads,
+                                KB.RECORDS_PER_LAUNCH)
     rec = {"phase": "observatory_late", "nvidia_smi": nvidia_smi(),
            "plan_wallclock_s": plan_s, "parsed": parsed,
            "dialect": art["dialect"],
            "sessions": KB.SESSION_STARTS["count"],
            "dropped_records": art["dropped_records"],
            "dropped_total": KB.CAPTURE.state()["droppedRecords"],
-           "records": records, "seconds": time.perf_counter() - t}
+           "records": records, "lost_at": lost_at,
+           "primer": primer or "default", "primer_launches": launches,
+           "seconds": time.perf_counter() - t}
     emit(rec)
     if (parsed, art["dialect"]) != (1, "device"):
         raise AssertionError(f"the late capture: {parsed} parsed, dialect "
@@ -4960,12 +5146,17 @@ def main() -> int:
     emit({"phase": "build", "seconds": build_s, "ptxas": ptxas})
 
     # ---- the device observatories (phase 13), first ------------------------
-    # CUPTI dropped ~34 of a scan call's 1 540 kernel records in a process
-    # that had run phases 3-12's hundreds of profiler sessions, never in a
-    # fresh one (ROADMAP §C): (a)-(f) run before them and require every
-    # record; (g) captures again after them and requires the artifact to
-    # report any record it lacks
+    # a session in a process that had run phases 3-12 lost the first ~31-39
+    # kernel records of its scan call, never in a fresh one; a capture now
+    # launches primer kernels that take the loss (kernel_budget.
+    # PRIMER_LAUNCHES, ROADMAP §C): (a)-(f) run before phases 3-12 and
+    # require every record; (g) captures again after them, requires the
+    # artifact to report any record it lacks and prints where they sat
     observatory_launches, obs_model, obs_cfg = observatory_phase()
+    if sys.argv[1:] == ["--late-records"]:
+        late_records(obs_model, obs_cfg)
+        print(nvidia_smi(), flush=True)
+        return 0
     if sys.argv[1:] == ["--observatory"]:
         # phase 13 alone, after the build; no verdict line
         print(nvidia_smi(), flush=True)
@@ -5228,7 +5419,10 @@ def main() -> int:
     sim_launches = sim_phase()
 
     # ---- phase 13 (g): a capture in the long-lived process ----------------
-    observatory_late(obs_model, obs_cfg)
+    if sys.argv[1:] == ["--late-records-full"]:
+        late_records(obs_model, obs_cfg, sessions=0)
+    else:
+        observatory_late(obs_model, obs_cfg)
 
     # the kernels line: main-path shapes (mid-scale); errors over every case
     cases = [steps[c] for c in steps] + [

@@ -63,7 +63,6 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
-import threading
 import time
 from typing import Dict, List, Optional, Tuple
 
@@ -158,6 +157,7 @@ from cruise_control_tpu_torch.telemetry import (
     mesh_budget,
 )
 from cruise_control_tpu_torch.utils.device import DEVICE_LOCK, resolve_device
+from cruise_control_tpu_torch.utils.locks import InstrumentedLock
 from cruise_control_tpu_torch.utils.logging import get_logger
 
 LOG = get_logger("engine")
@@ -501,7 +501,7 @@ class _StepLoop:
 #: a time; a search of another shape drops the kept loop before it builds
 #: its own
 _LOOPS: Dict[str, Tuple[tuple, "_StepLoop"]] = {}
-_LOOPS_LOCK = threading.Lock()
+_LOOPS_LOCK = InstrumentedLock("device.step_loops")
 
 
 def _take_loop(key: tuple) -> Optional[_StepLoop]:
@@ -524,6 +524,12 @@ def _copy_in(src, dst) -> None:
                          "those the loop was built for")
     if src is not None and src is not dst:
         dst.copy_(src)
+
+
+#: the functions a captured step chunk (analyzer/step_graph.py) records:
+#: StepChunk holds the step as a callable, so cclint's jax-hot-path and
+#: jax-transitive rules read their roots from this tuple
+CAPTURED_ROOTS = ("_step",)
 
 
 def _step(lp: _StepLoop, checked: bool) -> None:
@@ -1382,9 +1388,20 @@ class CudaGoalOptimizer:
             ),
         }
 
-    def _constraint_arrays(self, ctx: AnalyzerContext) -> Dict[str, torch.Tensor]:
-        return {k: torch.as_tensor(v, device=self.device)
-                for k, v in self._constraint_arrays_np(ctx).items()}
+    def _constraint_arrays(self, ctx: AnalyzerContext, can=None
+                           ) -> Dict[str, torch.Tensor]:
+        """The constraint arrays (``can``, else built from ``ctx``) on the
+        device, charged to the transfer ledger as one upload."""
+        if can is None:
+            can = self._constraint_arrays_np(ctx)
+        t0 = time.perf_counter()
+        ca = {k: torch.as_tensor(v, device=self.device)
+              for k, v in can.items()}
+        mesh_budget.note_transfer(
+            "h2d", "analyzer.constraints_upload",
+            sum(int(v.nbytes) for v in can.values()),
+            time.perf_counter() - t0)
+        return ca
 
     def _device_model(self, ctx: AnalyzerContext) -> DeviceModel:
         """Upload the host context as a DeviceModel and rebuild its
@@ -1472,7 +1489,8 @@ class CudaGoalOptimizer:
         tpp0 |= np.any(ctx.replica_offline, axis=1)
         warm["marked_rows"] = int(tpp0.sum())
         tab = (carry.tables[0], carry.tables[1],
-               torch.as_tensor(tpp0, device=self.device), True)
+               mesh_budget.device_put(tpp0, self.device,
+                                      fn="analyzer.warm_marks"), True)
         return m, tab, warm
 
     def _export_carry(self, carry, ctx: AnalyzerContext, tab,
@@ -1582,12 +1600,7 @@ class CudaGoalOptimizer:
         t_up = time.perf_counter()
         m, tab, warm = self._warm_device_model(ctx, warm_start, carry)
         can = self._constraint_arrays_np(ctx)
-        t_ca = time.perf_counter()
-        ca = {k: torch.as_tensor(v, device=self.device) for k, v in can.items()}
-        mesh_budget.note_transfer(
-            "h2d", "analyzer.constraints_upload",
-            sum(int(v.nbytes) for v in can.values()),
-            time.perf_counter() - t_ca)
+        ca = self._constraint_arrays(ctx, can)
         P, S, B = ctx.num_partitions, ctx.max_rf, ctx.num_brokers
         K, D = self._pool_sizes(P, S, B)
         evaluator = _HostEvaluator(ctx, cfg, can)

@@ -108,7 +108,8 @@ def stale_sets_plain(m, kp, dest_pool, lp, lsl, tb, tpm, state, ridx, cidx,
                  (SS.FRESH, int(fresh)),
                  (SS.N_PATCH, int(state[SS.N_PATCH]) + int(not fresh))):
         state[i] = v
-    nstale.copy_(torch.tensor(counts, dtype=torch.int32))
+    nstale.copy_(torch.tensor(counts, dtype=torch.int32,
+                              device=nstale.device))
     row_stale, col_stale, l_stale = stale
     ridx.copy_(_stale_order(row_stale, budgets[0]))
     order = _stale_order(col_stale, budgets[1])

@@ -128,7 +128,7 @@ def _topq_rows_per_src(sb, row_best, B: int, Q: int):
     sbl = sb.long()
     cur = row_best
     idx = torch.arange(K, device=sb.device)
-    inf_key = int(_total_key(torch.tensor([_INF]))[0])
+    inf_key = int(_total_key(torch.tensor([_INF], device="cpu"))[0])
     outs, out_scores = [], []
     for _ in range(Q):
         seg = _from_total_key(_scatter_min(B, sbl, _total_key(cur), inf_key))

@@ -499,17 +499,23 @@ class CruiseControl:
             brokers=state.num_brokers, partitions=state.num_partitions,
             **start_extra,
         )
+        def _cuda_optimize(o: CudaGoalOptimizer, **kw):
+            """The cuda engine's call, typed, so that the static lock
+            graph (``PORT_LOCK_GRAPH_r21.json``) sees the engine's device
+            lock taken under the facade's locks."""
+            return o.optimize(state, options, **kw)
+
         def _optimize_with(o):
             """One engine attempt, gated: a result with non-finite scores
             or a score worse than the pre-plan state never leaves the
             facade (the plan sanity gate — last line of defense when
             garbage slipped past the monitor's quarantine)."""
-            if warm_start is not None or carry is not None:
-                r = o.optimize(
-                    state, options, warm_start=warm_start, carry=carry,
-                )
+            kw = ({"warm_start": warm_start, "carry": carry}
+                  if warm_start is not None or carry is not None else {})
+            if isinstance(o, CudaGoalOptimizer):
+                r = _cuda_optimize(o, **kw)
             else:
-                r = o.optimize(state, options)
+                r = o.optimize(state, options, **kw)
             reason = plan_sanity_reason(
                 r, hard_goals=self.hard_goal_names
             )

@@ -668,7 +668,9 @@ class MeshObservatory:
     def _audit(self) -> dict:
         t0 = time.perf_counter()
         art = audit_replication(self.audit_max_arrays)
-        self.last_audit_s = time.perf_counter() - t0
+        dt = time.perf_counter() - t0
+        with self._lock:
+            self.last_audit_s = dt
         return art
 
     # ---- CaptureManager observer hooks ------------------------------------------

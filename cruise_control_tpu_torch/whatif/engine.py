@@ -42,20 +42,25 @@ def verdict_inputs(state, batch: FutureBatch, capacity_scale=None,
     ``dead`` and ``scale``."""
     dev = resolve_device(device)
     f32 = torch.float32
-    capacity = state.broker_capacity.to(dev, f32)
+
+    def put(x):
+        # the upload goes through the transfer ledger
+        return mesh_budget.device_put(x, dev, fn="whatif.upload").contiguous()
+
+    capacity = put(state.broker_capacity.to(f32))
     if capacity_scale is not None:
-        capacity = capacity * torch.as_tensor(
-            np.asarray(capacity_scale, np.float32), device=dev)[None, :]
+        capacity = capacity * put(
+            np.asarray(capacity_scale, np.float32))[None, :]
     return (
-        state.assignment.to(dev).contiguous(),
-        state.leader_slot.to(dev).contiguous(),
-        state.leader_load.to(dev, f32).contiguous(),
-        state.follower_load.to(dev, f32).contiguous(),
+        put(state.assignment),
+        put(state.leader_slot),
+        put(state.leader_load.to(f32)),
+        put(state.follower_load.to(f32)),
         capacity.contiguous(),
-        state.broker_rack.to(dev).contiguous(),
-        state.broker_alive().to(dev).contiguous(),
-        torch.from_numpy(batch.dead).to(dev),
-        torch.from_numpy(batch.scale).to(dev),
+        put(state.broker_rack),
+        put(state.broker_alive()),
+        put(torch.from_numpy(batch.dead)),
+        put(torch.from_numpy(batch.scale)),
     )
 
 

@@ -47,6 +47,17 @@ COPIES = (
     "telemetry/trace.py",
     "utils/checksum.py", "utils/locks.py", "utils/metrics.py",
     "whatif/proactive.py",
+    "devtools/__init__.py", "devtools/lint/cache.py",
+    "devtools/lint/cfg.py", "devtools/lint/context.py",
+    "devtools/lint/dataflow.py", "devtools/lint/findings.py",
+    "devtools/lint/project.py", "devtools/lint/sarif.py",
+    "devtools/lint/rules_bounded.py", "devtools/lint/rules_cache.py",
+    "devtools/lint/rules_deadline.py", "devtools/lint/rules_except.py",
+    "devtools/lint/rules_fenced.py", "devtools/lint/rules_lock.py",
+    "devtools/lint/rules_lockinst.py", "devtools/lint/rules_lockorder.py",
+    "devtools/lint/rules_obs.py", "devtools/lint/rules_release.py",
+    "devtools/lint/rules_retry.py", "devtools/lint/rules_schema.py",
+    "devtools/lint/rules_wallclock.py", "devtools/lint/rules_xlock.py",
 )
 
 #: served-path modules the port adapts, and why each differs
@@ -117,15 +128,53 @@ ADAPTED = {
     "whatif/artifact.py": "the batch leg times CudaGoalOptimizer; both "
                           "legs take a device",
     "whatif/__main__.py": "--device for both legs",
+    "devtools/lint/__init__.py": "its docstring describes the port's pass "
+                                 "and usage",
+    "devtools/lint/__main__.py": "its usage text: the port's package, "
+                                 "docs/STATIC_ANALYSIS_TORCH.md and "
+                                 "PORT_LOCK_GRAPH_r*.json",
+    "devtools/lint/driver.py": "its own cache directory, "
+                               ".cclint_torch_cache/: the reference's pass "
+                               "and this one run side by side in the test "
+                               "workers",
+    "devtools/lint/graph.py": "the torch sync vocabulary it records (.item, "
+                              ".tolist, .cpu, .numpy, .synchronize, "
+                              "mesh_budget.fetch, also on a computed "
+                              "receiver), the captured torch.cuda.graph "
+                              "blocks, and the step loop's key tuple as a "
+                              "normalization site",
+    "devtools/lint/callgraph.py": "a call into the caller's own nested def "
+                                  "resolves (the facade's engine call runs "
+                                  "in one)",
+    "devtools/lint/lockflow.py": "a module-level named lock imported from "
+                                 "another module resolves (DEVICE_LOCK), "
+                                 "and witness chains reach 16 hops (the "
+                                 "step-loop lock sits 13 below the "
+                                 "facade's single flight)",
+    "devtools/lint/rules_jax.py": "jax-hot-path checks the captured step: "
+                                  "torch.cuda.graph blocks and the "
+                                  "CAPTURED_ROOTS functions",
+    "devtools/lint/rules_xjax.py": "jax-transitive walks from the captured "
+                                   "step and keys on the step loop's key",
+    "devtools/lint/rules_transfer.py": "torch copies outside ops/, "
+                                       "telemetry/ and the two upload sites",
+    "devtools/lint/rules_profiler.py": "torch.profiler, autograd and cuda "
+                                       "profiler sessions",
+    "devtools/lint/rules_sharding.py": "tensor factories without device= in "
+                                       "the device modules",
+    "devtools/lint/rules_blocking.py": "the device lock is held across "
+                                       "syncs by design (HELD_ACROSS_SYNCS)",
+    "devtools/lint/rules_config.py": "the port's registry and "
+                                     "docs/CONFIGURATION_TORCH.md",
 }
 
-#: the sub-packages and modules of the served path
+#: the sub-packages and modules of the served path, and the lint
 SERVED = ("analyzer/degradation.py", "analyzer/precompute.py",
           "analyzer/goal_optimizer.py", "bootstrap.py", "__main__.py",
           "client", "config", "detector", "executor", "facade.py", "kafka",
           "monitor", "replan", "server", "sim", "telemetry",
           "utils/checksum.py", "utils/locks.py", "utils/metrics.py",
-          "whatif/proactive.py")
+          "whatif/proactive.py", "devtools")
 
 
 def _as_port(text: str) -> str:

@@ -52,8 +52,8 @@ def test_import_pulls_in_no_jax_and_no_reference():
     # the probe really walked the package, the repool, step-loop,
     # what-if, score-only round, corrected-cohort and incremental-rescore
     # modules, the served path's, the replanner's, the detector's, the
-    # simulator's, the proactive scheduler's and the device observatories'
-    # included
+    # simulator's, the proactive scheduler's, the device observatories'
+    # and the lint's included
     for mod in ("analyzer.cuda_optimizer", "ops.grid", "analyzer.pool_kernels",
                 "analyzer.step_graph", "analyzer.step_state", "whatif.engine",
                 "whatif.verdict_kernels", "analyzer.round_kernels",
@@ -68,7 +68,14 @@ def test_import_pulls_in_no_jax_and_no_reference():
                 "sim.scenarios", "sim.soak", "sim.__main__",
                 "whatif.proactive", "telemetry.kernel_budget",
                 "telemetry.mesh_budget", "telemetry.device_stats",
-                "telemetry.device_cost", "telemetry.exposition"):
+                "telemetry.device_cost", "telemetry.exposition",
+                "devtools.lint", "devtools.lint.__main__",
+                "devtools.lint.driver", "devtools.lint.graph",
+                "devtools.lint.rules_jax", "devtools.lint.rules_xjax",
+                "devtools.lint.rules_transfer",
+                "devtools.lint.rules_profiler",
+                "devtools.lint.rules_sharding",
+                "devtools.lint.rules_config", "devtools.lint.lockflow"):
         assert f"cruise_control_tpu_torch.{mod}" in res["modules"], mod
     # every class path the registry defaults to resolved into the port
     assert len(res["classes"]) >= 6, res["classes"]
