@@ -92,7 +92,15 @@ Phases, each printing one JSON line; any failure exits non-zero:
    for bit, on the first patching step's inputs at 1 000 / 20 000, with
    percentile loads and on the ragged case, with the same times and
    bounds as phase 3, and K1 / K6 on that step's row lists and in their
-   full carry-writing form; one incremental scan call eager against
+   full carry-writing form; K16 and K17 bit for bit on their hard cases
+   (``rescore_cases``: nothing stale, each list at its budget and one
+   over, every row stale with RB = K, a repool, a refresh due, an
+   inactive step, lists long enough that each block takes 8 tiles, and
+   one tile past the ceiling, which must raise; for K17, on K16's own list, n = 0 with stored entries
+   touched, n = CB, every stored entry touched, ±0.0 and ties, every cell
+   infeasible, two gated launches that change nothing; both at
+   replication factors 1 and 8 and at 10 000 brokers); one incremental
+   scan call eager against
    captured; calls capped at 1, 7 and ``steps_per_call`` on one captured
    chunk (default and incremental); the incremental 1 000 / 20 000 plan
    twice (identical, verified, under the bar, with patching steps) beside
@@ -265,6 +273,14 @@ SMALL = dict(num_brokers=50, num_racks=10, num_partitions=1000)
 #: the score-only round's (K, D, L) on MIDSCALE at the engine's widths:
 #: K·R + L = 73 728 flat grid-form scores, K·D + P·S = 8 252 000 columnar
 MIDSCALE_ROUND = (8192, 1000, 8192)
+#: the incremental rescore at the north star's broker count and pool sizes
+#: (K = L = 8 192, D = 1 024) over a smaller placement, and the commit
+#: batch both it and the north star run at: the default batch there (half
+#: the brokers, up to 2 048 a step) can make more than CB columns stale a
+#: step, and a step that overflows does not patch
+RESCORE_B10K = dict(seed=17, num_brokers=10_000, num_racks=100,
+                    num_partitions=40_000)
+RESCORE_WIDE_KW = {"device_batch_per_step": 64}
 #: kernel-vs-plain tolerance on finite scores: both paths run the same f32
 #: operations in the same order (the kernel is built without FMA
 #: contraction), so they should agree to the bit; the bound leaves room
@@ -571,12 +587,15 @@ def check_slot_instances(dev):
         cols = torch.full((32,), -1, dtype=torch.int32, device=dev)
         cols[:20] = torch.randperm(D, generator=g, device=dev)[:20].to(
             torch.int32)
+        n_cols = torch.tensor([20], dtype=torch.int32, device=dev)
+        cidx_form(cols, n_cols)
         tb = torch.rand(m.capacity.shape[0], generator=g, device=dev) < 0.1
         got = [t.clone() for t in carry]
         want = [t.clone() for t in carry]
-        RK.grid_patch(m, cfg, ca, kp, ks, dp, packed, cols, tb, *got, patch)
-        RK.grid_patch_plain(m, cfg, ca, kp, ks, dp, packed, cols, tb, *want,
-                            patch)
+        RK.grid_patch(m, cfg, ca, kp, ks, dp, packed, cols, n_cols, tb, *got,
+                      patch)
+        RK.grid_patch_plain(m, cfg, ca, kp, ks, dp, packed, cols, n_cols, tb,
+                            *want, patch)
         bitwise(f"rf{S} grid_patch", got, want)
         rec = {"phase": "slot_instance", "S": S,
                "instance": G.slot_instance(S), "K": K, "D": D,
@@ -585,7 +604,7 @@ def check_slot_instances(dev):
                "stale_rows": 37, "stale_columns": 20,
                "attrs": G.grid_top_r_attrs(S, packed["has_cap"], D),
                "attrs_grid_patch": RK.grid_patch_attrs(S, packed["has_cap"],
-                                                       32)}
+                                                       32, D)}
         emit(rec)
         recs.append(rec)
     return recs
@@ -2604,9 +2623,11 @@ def patch_step_calls(state, cfg_kw, dev, steps=16):
     return rec["calls"], m.broker_cload is not None, rec["step"]
 
 
-def check_incremental_kernels(label, state, cfg_kw, dev, timed):
+def check_incremental_kernels(label, state, cfg_kw, dev, timed,
+                              patch_calls=None):
     """K16, K17 and K1 / K6 in their gated, carry-writing forms against
-    their plain twins, bit for bit, on the first patching step's inputs →
+    their plain twins, bit for bit, on the first patching step's inputs
+    (``patch_calls``, :func:`patch_step_calls`' output, or made here) →
     {name: record}.  The full-rescore forms run on the same step's inputs
     with the carry's FRESH flag set."""
     from cruise_control_tpu_torch.analyzer import commit_kernels as K89
@@ -2615,7 +2636,8 @@ def check_incremental_kernels(label, state, cfg_kw, dev, timed):
     from cruise_control_tpu_torch.analyzer import step_state as SS
     from cruise_control_tpu_torch.ops import grid as G
 
-    calls, has_cap, step = patch_step_calls(state, cfg_kw, dev)
+    calls, has_cap, step = patch_calls or patch_step_calls(state, cfg_kw,
+                                                           dev)
     recs = {}
     (a16, kw16), = calls["stale_sets"]
     m, kp, dp, lp, lsl, tb, tpm, st, ridx, cidx, lidx, nstale, _ = a16
@@ -2644,17 +2666,18 @@ def check_incremental_kernels(label, state, cfg_kw, dev, timed):
         timed=timed, exact=True)
 
     (a17, kw17), = calls["grid_patch"]
-    m17, cfg, ca, kp17, ks17, dp17, packed, cidx17, tb17, dt, bd, st17 = a17
+    (m17, cfg, ca, kp17, ks17, dp17, packed, cidx17, _, tb17, dt, bd,
+     st17) = a17
     R = dt.shape[1]
     dp_c = torch.where(cidx17 >= 0, dp17[cidx17.clamp_min(0).long()], -1)
     g_c = G.move_grid_scores(m17, cfg, ca, kp17, ks17, dp_c.to(torch.int32))
     feas = int(torch.isfinite(g_c).sum())
     n_stale = int((cidx17 >= 0).sum())
     recs["grid_patch"] = record_kernel(
-        label, "grid_patch", after(RK.grid_patch, (9, 10)),
-        after(RK.grid_patch_plain, (9, 10)), a17, kw17,
+        label, "grid_patch", after(RK.grid_patch, (10, 11)),
+        after(RK.grid_patch_plain, (10, 11)), a17, kw17,
         dict(base, R=R, feasible_cells=feas, stale_columns=n_stale,
-             attrs=RK.grid_patch_attrs(S, has_cap, CB)),
+             attrs=RK.grid_patch_attrs(S, has_cap, CB, D)),
         *RK.grid_patch_work(K, D, B, S, R, CB, n_stale, feas),
         plain_kw={}, timed=timed, exact=True)
 
@@ -2736,6 +2759,292 @@ def check_incremental_kernels(label, state, cfg_kw, dev, timed):
         *commit_work(a8, has_cap, n_commit, touched, prev_marks=prev),
         plain_kw={}, timed=timed, exact=True)
     return recs
+
+
+def cidx_form(cidx, n_cols) -> int:
+    """Raise unless ``cidx`` is as K16 writes it, the form K17 takes: its
+    first n = min(n_cols[0], CB) entries stale columns (pool indices), the
+    rest -1 → n."""
+    c = cidx.cpu()
+    n = min(int(n_cols.reshape(-1)[0]), c.shape[0])
+    if not (bool((c[:n] >= 0).all()) and bool((c[n:] == -1).all())):
+        raise AssertionError(f"cidx is not K16's list of {n} stale columns "
+                             f"then -1: {c.tolist()}")
+    return n
+
+
+def forced_stale(a16, counts, seed):
+    """K16's arguments ``a16`` with pools rewritten so that exactly
+    ``counts`` = (rows, columns, leadership entries) are stale, at seeded
+    places: one marked partition and one marked broker, every other entry
+    on a partition and a broker the marks miss."""
+    a = list(copy.deepcopy(a16))
+    m, kp, dp, lp, lsl, tb, tpm = a[:7]
+    dev = kp.device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    b1 = int(dp[dp >= 0][0])
+    clean = ~(m.assignment == b1).any(dim=1)
+    clean[0] = False
+    p0 = int(torch.nonzero(clean)[0])
+    tb.zero_()
+    tpm.zero_()
+    tb[b1] = True
+    tpm[0] = True
+    b0 = int(m.assignment[p0, 0])
+    for x, (hot, cold), n in zip((kp, dp, lp), ((0, p0), (b1, b0), (0, p0)),
+                                 counts):
+        at = torch.randperm(x.shape[0], generator=g, device=dev)[:n]
+        x.fill_(cold)
+        x[at] = hot
+    lsl.zero_()
+    return a
+
+
+def k16_tiles(a16) -> int:
+    """The 256-entry tiles K16's lists take (csrc/stale_sets.cu)."""
+    return sum(-(-a16[i].shape[0] // 256) for i in (1, 2, 3))
+
+
+def long_lists(a16, tiles, seed):
+    """K16's arguments ``a16`` with pools long enough to take ``tiles``
+    tiles in all, each list ending inside a tile: seeded pool entries, 1 %
+    of the partitions and 2 % of the brokers marked, budgets of a third of
+    the rows, every column and a third of the leadership entries."""
+    from cruise_control_tpu_torch.analyzer import step_state as SS
+
+    a = list(copy.deepcopy(a16))
+    m, tb = a[0], a[5]
+    dev = tb.device
+    P, S = m.assignment.shape
+    B = tb.shape[0]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    tk, td = tiles // 2, tiles // 10
+    K, D, L = tk * 256 - 77, td * 256 - 5, (tiles - tk - td) * 256 - 200
+
+    def ints(lo, hi, n):
+        return torch.randint(lo, hi, (n,), generator=g, device=dev,
+                             dtype=torch.int32)
+    a[1:5] = ints(0, P, K), ints(-1, B, D), ints(0, P, L), ints(0, S, L)
+    a[5] = torch.rand(B, generator=g, device=dev) < 0.02
+    a[6] = torch.rand(P, generator=g, device=dev) < 0.01
+    a[7][SS.ACTIVE] = 1
+    for i, n in ((8, K // 3), (9, D), (10, L // 3)):
+        a[i] = torch.empty(n, dtype=torch.int32, device=dev)
+    if k16_tiles(a) != tiles:
+        raise AssertionError(f"long_lists: {k16_tiles(a)} tiles, not {tiles}")
+    return a
+
+
+def rescore_cases(calls, dev, seed=47):
+    """K16's and K17's hard cases beside the 1 000 / 20 000 first patching
+    step (``calls``, :func:`patch_step_calls`' output) → {case: (name,
+    args, kw, expect)}; every K17 case's ``cidx`` is K16's list (made by
+    K16 here, or by the step's own K16), and ``expect`` names what the
+    case must show.  K16: nothing stale; every list at its budget, then
+    one over (all three, or the columns alone: the lists still written,
+    FRESH = 1); every row stale with RB = K; REPOOL set; the refresh due;
+    an inactive step; lists long enough that each block takes 8 tiles
+    (bit for bit), and one tile past the most one launch holds (it must
+    raise).  K17: n = 0 with stored entries touched, n = CB,
+    every stored entry touched, ±0.0 and tied stored values, every cell
+    infeasible, and two
+    gated launches (FRESH = 1, inactive) that must change nothing.
+    Replication factors 1 and 8 and 10 000 brokers come from their own
+    searches (:func:`rescore_fixture_cases`)."""
+    import dataclasses
+
+    from cruise_control_tpu_torch.analyzer import rescore_kernels as RK
+    from cruise_control_tpu_torch.analyzer import step_state as SS
+    from cruise_control_tpu_torch.ops import grid as G
+
+    (a16, kw16), = calls["stale_sets"]
+    (a17, kw17), = calls["grid_patch"]
+    m, kp, dp, lp = a16[:4]
+    RB, CB, LB = (a16[i].shape[0] for i in (8, 9, 10))
+    refresh = a16[12]
+    K = kp.shape[0]
+    cases = {}
+
+    def k16(case, a, **expect):
+        cases[case] = ("stale_sets", a, kw16, expect)
+
+    def carry(a, **kv):
+        a = list(copy.deepcopy(a))
+        for k, v in kv.items():
+            a[7][getattr(SS, k)] = v
+        return a
+
+    none = carry(a16)
+    none[5].zero_()
+    none[6].zero_()
+    k16("k16_none_stale", none, counts=[0, 0, 0])
+    k16("k16_at_budget", forced_stale(a16, (RB, CB, LB), seed),
+        counts=[RB, CB, LB], fresh=0)
+    over = [RB + 1, CB + 1, LB + 1]
+    if over[1] > dp.shape[0]:
+        raise AssertionError("the columns' budget is the pool: no overflow")
+    k16("k16_over_budget", forced_stale(a16, over, seed), counts=over,
+        fresh=1, overflow=1)
+    k16("k16_cols_over", forced_stale(a16, (RB, CB + 1, LB), seed + 1),
+        counts=[RB, CB + 1, LB], fresh=1, overflow=1)
+    rows = carry(a16)
+    rows[6].fill_(True)
+    rows[8] = torch.empty(K, dtype=torch.int32, device=dev)
+    k16("k16_all_rows_rb_k", rows, counts_rows=K)
+    k16("k16_repool", carry(a16, REPOOL=1), fresh=1, overflow=0)
+    k16("k16_refresh_due", carry(a16, SINCE_FULL=refresh), fresh=1)
+    k16("k16_inactive", carry(a16, ACTIVE=0), unchanged=True)
+    most = RK.stale_sets_max_tiles()
+    k16("k16_eight_tiles_a_block", long_lists(a16, most - 3, seed),
+        tiles=most - 3)
+    k16("k16_past_the_ceiling", long_lists(a16, most + 1, seed),
+        raises=True)
+
+    def k17(case, tb16=None, tb17=None, a=None, **expect):
+        """K17 on ``a`` (the step's, by default) with the list and count
+        K16 makes from ``tb16``, and ``tb17`` as its marks."""
+        s16 = list(copy.deepcopy(a16))
+        if tb16 is not None:
+            s16[5] = tb16
+        s16[7][SS.ACTIVE] = 1
+        RK.stale_sets(*s16, **kw16)
+        b = list(copy.deepcopy(a17 if a is None else a))
+        b[7], b[8] = s16[9], s16[11][1:2]
+        if tb17 is not None:
+            b[9] = tb17
+        b[12][SS.ACTIVE] = 1
+        b[12][SS.FRESH] = 0
+        cases[case] = ("grid_patch", b, kw17, expect)
+
+    tb = a17[9]
+    bd = a17[11]
+    stored_b = dp[bd.clamp_min(0).long()].clamp_min(0).long()
+    none_b = torch.zeros_like(tb)
+    k17("k17_n0", tb16=none_b, tb17=tb, n=0, stored_touched=True)
+    cb = torch.zeros_like(tb)
+    cb[dp[dp >= 0][:CB].long()] = True
+    k17("k17_n_cb", tb16=cb, tb17=cb, n=CB)
+    allb = torch.zeros_like(tb)
+    allb[stored_b] = True
+    k17("k17_all_stored_touched", tb16=allb, tb17=allb,
+        all_stored_touched=True)
+    ties = list(copy.deepcopy(a17))
+    m17, cfg, ca, kp17, ks17, dp17, packed, cidx17 = ties[:8]
+    dp_c = torch.where(cidx17 >= 0, dp17[cidx17.clamp_min(0).long()], -1)
+    dt_c = (G.move_grid_scores(m17, cfg, ca, kp17, ks17,
+                               dp_c.to(torch.int32))
+            - packed["src_f"][:, G.SRC_TERM_COL][:, None])
+    dt = ties[10]
+    dt[:, 0] = 0.0
+    dt[:, 1] = -0.0
+    dt[:, 2] = dt_c[:, 0]
+    dt[:, 3] = dt[:, 4]
+    dt[::2, 5] = -0.0
+    k17("k17_signed_zero_ties", a=ties)
+    blocked = list(copy.deepcopy(a17))
+    m0 = dataclasses.replace(blocked[0],
+                             dest_ok=torch.zeros_like(blocked[0].dest_ok))
+    blocked[0] = m0
+    blocked[6] = G.grid_terms(m0, cfg, ca, kp17, ks17, dp17)
+    if torch.isfinite(G.move_grid_scores(m0, cfg, ca, kp17, ks17,
+                                         dp_c.to(torch.int32))).any():
+        raise AssertionError("k17_all_infeasible has a feasible cell")
+    k17("k17_all_infeasible", a=blocked)
+    for case, kv in (("k17_gated_full", {"FRESH": 1}),
+                     ("k17_gated_inactive", {"ACTIVE": 0})):
+        b = list(copy.deepcopy(a17))
+        for k, v in kv.items():
+            b[12][getattr(SS, k)] = v
+        cases[case] = ("grid_patch", b, kw17, {"unchanged": True})
+    return cases
+
+
+def rescore_fixture_cases(dev):
+    """K16 and K17 on the first patching step of searches at replication
+    factors 1 and 8 (200 brokers, 8 commits a step: at the default batch
+    of 100 every pool column is stale every step) and at 10 000 brokers
+    (RESCORE_B10K at RESCORE_WIDE_KW) → {case: (name, args, kw,
+    expect)}."""
+    from cruise_control_tpu_torch.models.generators import random_cluster
+
+    cases = {}
+    few = {"device_batch_per_step": 8}
+    for case, state, kw, expect in (
+            ("rf1", random_cluster(seed=5, num_brokers=200, num_racks=20,
+                                   num_partitions=4000,
+                                   replication_factor=1), few, {"S": 1}),
+            ("rf8", random_cluster(seed=5, num_brokers=200, num_racks=20,
+                                   num_partitions=4000,
+                                   replication_factor=8), few, {"S": 8}),
+            ("b10k", random_cluster(**RESCORE_B10K), RESCORE_WIDE_KW,
+             {"B": 10_000})):
+        calls, _, _ = patch_step_calls(state, kw, dev)
+        for tag, name in (("k16", "stale_sets"), ("k17", "grid_patch")):
+            (a, k), = calls[name]
+            cases[f"{tag}_{case}"] = (name, list(a), k, {
+                x: v for x, v in expect.items()
+                if name == "grid_patch" or x == "B"})
+    return cases
+
+
+def check_rescore_case(case, name, args, kw, expect):
+    """K16 or K17 on one of :func:`rescore_cases` against its twin, bit for
+    bit on every output and the carry, and what the case must show →
+    {name: record} ({} for a case that must raise)."""
+    from cruise_control_tpu_torch.analyzer import rescore_kernels as RK
+    from cruise_control_tpu_torch.analyzer import step_state as SS
+
+    out = (7, 8, 9, 10, 11) if name == "stale_sets" else (10, 11)
+    fn = getattr(RK, name)
+    plain = getattr(RK, f"{name}_plain")
+    pkw = {k: v for k, v in kw.items() if k != "checked"}
+
+    def run(f, **k):
+        a = copy.deepcopy(args)
+        f(*a, **k)
+        return [a[i] for i in out]
+    label = f"{name}[{case}]"
+    if expect.get("raises"):
+        # past the ceiling: the wrapper refuses before it launches, so the
+        # case has no error to join the kernels line
+        try:
+            run(fn, **kw)
+        except ValueError as e:
+            emit({"phase": "kernel_case", "case": case, "name": label,
+                  "tiles": k16_tiles(args), "raised": str(e)})
+            return {}
+        raise AssertionError(f"{label}: {k16_tiles(args)} tiles launched")
+    got = run(fn, **kw)
+    torch.cuda.synchronize()
+    want = run(plain, **pkw)
+    bitwise(label, got, want)
+    if expect.get("unchanged"):
+        bitwise(f"{label} unchanged", got, [args[i] for i in out])
+    rec = {"phase": "kernel_case", "case": case, "name": label,
+           "max_abs_err": 0.0, "bit_equal": True}
+    if name == "stale_sets":
+        st, nstale = got[0].cpu(), got[4].cpu()
+        rec.update(counts=nstale.tolist(), fresh=int(st[SS.FRESH]),
+                   overflow=int(st[SS.N_OVF]) - int(args[7][SS.N_OVF]),
+                   budgets=[args[i].shape[0] for i in (8, 9, 10)],
+                   B=args[5].shape[0], tiles=k16_tiles(args))
+        shows = {"counts": rec["counts"], "fresh": rec["fresh"],
+                 "overflow": rec["overflow"], "counts_rows":
+                 rec["counts"][0], "B": rec["B"], "tiles": rec["tiles"]}
+    else:
+        dp, tb, bd = args[5], args[9], args[11]
+        n = cidx_form(args[7], args[8])
+        touched = tb[dp[bd.clamp_min(0).long()].clamp_min(0).long()]
+        rec.update(n=n, CB=args[7].shape[0], S=args[0].assignment.shape[1],
+                   B=tb.shape[0], stored_touched=int(touched.sum()))
+        shows = {"n": n, "S": rec["S"], "B": rec["B"],
+                 "stored_touched": rec["stored_touched"] > 0,
+                 "all_stored_touched": bool(touched.all())}
+    for k, v in expect.items():
+        if k != "unchanged" and shows[k] != v:
+            raise AssertionError(f"{label}: {k} is {shows[k]}, not {v}")
+    emit(rec)
+    return {label: rec}
 
 
 def capped_calls(state, dev, cfg_kw):
@@ -2895,15 +3204,22 @@ def incremental_leg(dev, mid, ragged, main_plan):
     )
 
     recs = {}
+    mid_calls = patch_step_calls(mid, {}, dev)
     for lbl, state, kw in (
             ("midscale", mid, {}),
             ("midscale_percentile", with_percentile(mid), {}),
             ("ragged", ragged, {"max_source_replicas": 1999,
                                 "device_batch_per_step": 8})):
-        out = check_incremental_kernels(lbl, state, kw, dev,
-                                        timed=lbl == "midscale")
+        out = check_incremental_kernels(
+            lbl, state, kw, dev, timed=lbl == "midscale",
+            patch_calls=mid_calls if lbl == "midscale" else None)
         recs.update({(n if lbl == "midscale" else f"{n}@{lbl}"): v
                      for n, v in out.items()})
+    # K16 and K17 bit for bit on their hard cases
+    for case, args in {**rescore_cases(mid_calls[0], dev),
+                       **rescore_fixture_cases(dev)}.items():
+        recs.update(check_rescore_case(case, *args))
+    del mid_calls
     torch.cuda.empty_cache()
     compare_scan_paths(mid, dev, {"incremental_rescore": True},
                        phase="scan_paths_incremental")

@@ -623,8 +623,8 @@ def _incremental_rescore(lp: _StepLoop, checked: bool) -> torch.Tensor:
     grid(1)
     lead(want=1)
     # the patch (:1096-1150): (a) before (b), which overwrites stale rows
-    grid_patch(m, cfg, ca, pb.kp, pb.ks, pb.dest_pool, packed, sc.cidx, sc.tb,
-               sc.dt, sc.bd, state, checked=checked)
+    grid_patch(m, cfg, ca, pb.kp, pb.ks, pb.dest_pool, packed, sc.cidx,
+               sc.nstale[1:2], sc.tb, sc.dt, sc.bd, state, checked=checked)
     grid(0, rows=sc.ridx, n_rows=sc.nstale[0:1])
     lead(want=0, rows=sc.lidx, n_rows=sc.nstale[2:3])
     return packed["src_f"][:, SRC_TERM_COL]

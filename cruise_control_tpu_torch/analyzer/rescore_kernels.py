@@ -52,8 +52,7 @@ from cruise_control_tpu_torch.ops.grid import (
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _INF = float("inf")
-#: K17's warps (rows in flight) a block (csrc/grid_patch.cu: WARPS, which
-#: says why 8)
+#: K17's warps a block, two rows a warp (csrc/grid_patch.cu: WARPS)
 _K17_WARPS = 8
 
 
@@ -122,18 +121,46 @@ def stale_sets_work(K: int, D: int, L: int, B: int, P: int, RB: int,
     """K16's work → (bytes, operations): the pools (kp, dest_pool, lp,
     lsl), a leadership entry's leader slot and two assignment words, the
     marks, the carry; the three lists, counts and carry out.  A test and
-    a scan step an entry, twice (count, then compact)."""
+    a position an entry, once each (the tiles' counts are scratch)."""
     return (K * 4 + D * 4 + L * 8 + L * 12 + B + P + 2 * 4 * SS.NSTATE
             + (RB + CB + LB + 3) * 4,
-            4 * (K + D + L))
+            2 * (K + D + L))
+
+
+@functools.lru_cache(maxsize=None)
+def _k16_scratch_ints(K: int, D: int, L: int) -> int:
+    """Ints of device scratch K16 takes over lists of K, D and L entries
+    (a stale count a tile, csrc/stale_sets.cu: stale_sets_scratch)."""
+    lib = kernels.load("stale_sets")
+    lib.stale_sets_scratch.argtypes = [_I, _I, _I]
+    lib.stale_sets_scratch.restype = ctypes.c_int
+    return lib.stale_sets_scratch(K, D, L)
+
+
+@functools.lru_cache(maxsize=None)
+def stale_sets_max_tiles() -> int:
+    """The most 256-entry tiles one K16 launch takes on the card: 8 a
+    resident block (csrc/stale_sets.cu: stale_sets_max_tiles).  Needs the
+    card."""
+    lib = kernels.load("stale_sets")
+    lib.stale_sets_max_tiles.argtypes = []
+    lib.stale_sets_max_tiles.restype = ctypes.c_int
+    n = lib.stale_sets_max_tiles()
+    if n < 1:
+        raise RuntimeError("stale_sets: resident blocks query failed")
+    return n
 
 
 def stale_sets(m, kp, dest_pool, lp, lsl, tb, tpm, state, ridx, cidx, lidx,
                nstale, refresh_steps: int, checked: bool = False) -> None:
     """K16: the step's stale sets, decision and index lists of the plain
     twin :func:`stale_sets_plain` (same arguments), written in place on the
-    card with no host read; one launch of one block.  ``checked=True``
-    skips the input checks (the step loop checks once per call)."""
+    card with no host read; one cooperative launch of a block a tile of
+    256 entries, with a stale count a tile in a device scratch.  The lists
+    may take at most :func:`stale_sets_max_tiles` tiles in all (8 448, ~2.16
+    M entries of K + D + L, on an H100 80GB HBM3); past that it raises
+    ``ValueError``.  ``checked=True`` skips the input checks (the step loop
+    checks once per call)."""
     if kernels.on_cpu(kp):
         return stale_sets_plain(m, kp, dest_pool, lp, lsl, tb, tpm, state,
                                 ridx, cidx, lidx, nstale, refresh_steps)
@@ -145,6 +172,11 @@ def stale_sets(m, kp, dest_pool, lp, lsl, tb, tpm, state, ridx, cidx, lidx,
     if not (1 <= RB <= K and 1 <= CB <= D and 1 <= LB <= L):
         raise ValueError(f"stale_sets: budgets ({RB}, {CB}, {LB}) outside "
                          f"[1, ({K}, {D}, {L})]")
+    T = _k16_scratch_ints(K, D, L)
+    if T > stale_sets_max_tiles():
+        raise ValueError(f"stale_sets: lists of ({K}, {D}, {L}) entries take "
+                         f"{T} tiles, past the {stale_sets_max_tiles()} one "
+                         "launch holds on this card")
     if not checked:
         i32, b8 = torch.int32, torch.bool
         chk = functools.partial(kernels.check, "stale_sets", device=dev)
@@ -160,13 +192,15 @@ def stale_sets(m, kp, dest_pool, lp, lsl, tb, tpm, state, ridx, cidx, lidx,
         ):
             chk(name, x, dt, shape)
     lib = kernels.bind("stale_sets", "stale_sets_launch",
-                       [_P] * 9 + [_I] * 8 + [_P] * 5)
+                       [_P] * 9 + [_I] * 8 + [_P] * 6)
+    scratch = torch.empty(T, dtype=torch.int32, device=dev)
     err = lib.stale_sets_launch(
         m.assignment.data_ptr(), m.leader_slot.data_ptr(), kp.data_ptr(),
         dest_pool.data_ptr(), lp.data_ptr(), lsl.data_ptr(), tb.data_ptr(),
         tpm.data_ptr(), state.data_ptr(), K, D, L, S, RB, CB, LB,
         int(refresh_steps), ridx.data_ptr(), cidx.data_ptr(),
-        lidx.data_ptr(), nstale.data_ptr(), kernels.stream(dev))
+        lidx.data_ptr(), nstale.data_ptr(), scratch.data_ptr(),
+        kernels.stream(dev))
     kernels.launched("stale_sets", err)
     stale_sets.launches += 1
     kernels.note_work("stale_sets", lambda: stale_sets_work(
@@ -174,6 +208,8 @@ def stale_sets(m, kp, dest_pool, lp, lsl, tb, tpm, state, ridx, cidx, lidx,
 
 
 stale_sets.launches = 0
+#: K16's phase stamps (block 0; tools/time_kernels.py builds a stamped copy)
+STALE_SETS_PHASES = ("count", "grid_sync", "decision", "compaction")
 
 
 # ---------------------------------------------------------------------------------
@@ -187,8 +223,8 @@ def _total_order(x: torch.Tensor) -> torch.Tensor:
     return torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
 
 
-def grid_patch_plain(m, cfg, ca, kp, ks, dest_pool, packed, cidx, tb, dt,
-                     bd, state) -> None:
+def grid_patch_plain(m, cfg, ca, kp, ks, dest_pool, packed, cidx, n_cols,
+                     tb, dt, bd, state) -> None:
     """Plain twin of K17, the patch's part (a) (:1096-1127): unless the
     carry ``state`` says the step is inactive or rescores in full, each
     row's grid over the stale columns ``cidx`` (pool indices, -1 = none:
@@ -198,7 +234,10 @@ def grid_patch_plain(m, cfg, ca, kp, ks, dest_pool, packed, cidx, tb, dt,
     concatenation in ``lax.top_k(-merged)``'s order: the floats' total
     order (-0.0 before +0.0), ties to the lower position, stored entries
     first; written back into ``dt`` / ``bd``.  ``packed`` is K2's output
-    (:func:`ops.grid.grid_terms`; on the CPU it holds the terms)."""
+    (:func:`ops.grid.grid_terms`; on the CPU it holds the terms).
+    ``n_cols`` (K16's count of the stale columns, which the kernel reads to
+    score only ``cidx[:n]``) is ignored: the twin scores every column,
+    and a -1 column's +inf entry is the one the kernel enters for it."""
     if not (int(state[SS.ACTIVE]) and int(state[SS.FRESH]) == 0):
         return
     R = dt.shape[1]
@@ -221,11 +260,11 @@ def grid_patch_plain(m, cfg, ca, kp, ks, dest_pool, packed, cidx, tb, dt,
 
 def _k17_library():
     lib = kernels.bind("grid_patch", "grid_patch_launch",
-                       [_P] * 8 + [_I] * 8 + [_P] * 4)
+                       [_P] * 9 + [_I] * 8 + [_P] * 4)
     if not getattr(lib, "_cc_checked", False):
         lib.grid_patch_layout.argtypes = [ctypes.POINTER(ctypes.c_int)]
         lib.grid_patch_layout.restype = None
-        lib.grid_patch_attrs.argtypes = [_I, _I, _I,
+        lib.grid_patch_attrs.argtypes = [_I, _I, _I, _I,
                                          ctypes.POINTER(ctypes.c_int)]
         lib.grid_patch_attrs.restype = ctypes.c_int
         layout = (ctypes.c_int * 6)()
@@ -239,27 +278,30 @@ def _k17_library():
     return lib
 
 
-def grid_patch_attrs(S: int, has_cap: int, CB: int) -> dict:
+def grid_patch_attrs(S: int, has_cap: int, CB: int, D: int) -> dict:
     """The built K17 instance for S slots, capacity loads on or off, over
-    CB columns, as the card reports it (:func:`ops.kernels.attrs`: its
-    registers, spills, shared memory and resident blocks an SM).  Cached by
-    (instance, has_cap, CB); needs the card."""
+    CB columns of a pool of D, as the card reports it
+    (:func:`ops.kernels.attrs`: its registers, spills, shared memory and
+    resident blocks an SM).  Cached by (instance, has_cap, CB, D); needs
+    the card."""
     lib = _k17_library()
-    key = (slot_instance(S), int(has_cap), CB)
+    key = (slot_instance(S), int(has_cap), CB, D)
     if key not in lib._cc_attrs:
         lib._cc_attrs[key] = kernels.attrs("grid_patch", lib.grid_patch_attrs,
-                                           S, int(has_cap), CB)
+                                           S, int(has_cap), CB, D)
     return lib._cc_attrs[key]
 
 
 def grid_patch_work(K: int, D: int, B: int, S: int, R: int, CB: int,
                     n_stale=None, n_feasible=None):
     """K17's work → (bytes, operations): K2's source rows, the list and
-    the destination rows of its ``n_stale`` stale columns (CB where not
-    counted), the constants, the stored (dt, bd) and the pool entries and
-    marks they index; (dt, bd) out.  K1's count over the K · n_stale
-    cells of the stale columns (``n_feasible`` feasible, all where not
-    counted), one test a -1 column, and a compare per merged entry."""
+    the destination rows of its ``n_stale`` stale columns, the constants,
+    the stored (dt, bd) and the pool entries and marks they index; (dt,
+    bd) out.  K1's count over the K · n_stale cells of the stale columns
+    (``n_feasible`` feasible, all where not counted), one test a -1
+    column, and a compare per merged entry.  Where ``n_stale`` is not
+    counted it is CB: an upper bound, as the wrapper notes at capture (it
+    cannot read K16's count without a sync)."""
     n_stale = CB if n_stale is None else n_stale
     n_feasible = K * n_stale if n_feasible is None else n_feasible
     nbytes = (K * 4 * (_SF + 3 * S + 2) + CB * 4
@@ -269,17 +311,20 @@ def grid_patch_work(K: int, D: int, B: int, S: int, R: int, CB: int,
                     + (CB - n_stale) + 2 * K * (R + n_stale))
 
 
-def grid_patch(m, cfg, ca, kp, ks, dest_pool, packed, cidx, tb, dt, bd,
-               state, checked: bool = False) -> None:
+def grid_patch(m, cfg, ca, kp, ks, dest_pool, packed, cidx, n_cols, tb, dt,
+               bd, state, checked: bool = False) -> None:
     """K17: the patch's part (a) of the plain twin :func:`grid_patch_plain`
     (same arguments), written into ``dt`` / ``bd`` in place on the card:
-    one launch, gated on the carry (it returns at once on a step that
-    rescores in full), reading K2's packed tables (``packed``) for the
-    sources and its destination rows gathered by ``cidx``.
-    ``checked=True`` skips the input checks."""
+    one launch of one wave of the blocks the card holds at once, gated on
+    the carry (it returns at once on a step that rescores in full),
+    reading K2's packed tables (``packed``) for the sources and its
+    destination rows gathered by ``cidx``.  ``cidx`` is as K16 writes it:
+    its ``n_cols[0]`` stale columns first, then -1 (``n_cols`` an int32
+    [1] on the card, K16's count, read there).  ``checked=True`` skips the
+    input checks."""
     if kernels.on_cpu(dest_pool):
         return grid_patch_plain(m, cfg, ca, kp, ks, dest_pool, packed, cidx,
-                                tb, dt, bd, state)
+                                n_cols, tb, dt, bd, state)
     dev = dest_pool.device
     K, D, S = packed["K"], packed["D"], packed["S"]
     CB = cidx.shape[0]
@@ -298,21 +343,25 @@ def grid_patch(m, cfg, ca, kp, ks, dest_pool, packed, cidx, tb, dt, bd,
             ("dst_f", packed["dst_f"], f32, (D, _DF)),
             ("dst_i", packed["dst_i"], i32, (D, _DI)),
             ("consts", packed["consts"], f32, (_NC,)),
-            ("cidx", cidx, i32, (CB,)), ("dest_pool", dest_pool, i32, (D,)),
+            ("cidx", cidx, i32, (CB,)), ("n_cols", n_cols, i32, (1,)),
+            ("dest_pool", dest_pool, i32, (D,)),
             ("tb", tb, b8, (B,)), ("dt", dt, f32, (K, R)),
             ("bd", bd, i32, (K, R)), ("state", state, i32, (SS.NSTATE,)),
         ):
             chk(name, x, dt_, shape)
     lib = _k17_library()
-    # a block per _K17_WARPS rows, in as many waves as the card needs
+    # one wave of the blocks the card holds at once, rows strided over it
     # (csrc/grid_patch.cu says why)
-    grid = -(-K // _K17_WARPS)
+    blocks = min(-(-K // (2 * _K17_WARPS)), kernels.sm_count(dev)
+                 * grid_patch_attrs(S, packed["has_cap"], CB, D)[
+                     "blocks_per_sm"])
     err = lib.grid_patch_launch(
         packed["src_f"].data_ptr(), packed["src_i"].data_ptr(),
         packed["dst_f"].data_ptr(), packed["dst_i"].data_ptr(),
-        packed["consts"].data_ptr(), cidx.data_ptr(), dest_pool.data_ptr(),
-        tb.data_ptr(), K, D, CB, S, R, packed["has_cap"], B, grid,
-        dt.data_ptr(), bd.data_ptr(), state.data_ptr(), kernels.stream(dev))
+        packed["consts"].data_ptr(), cidx.data_ptr(), n_cols.data_ptr(),
+        dest_pool.data_ptr(), tb.data_ptr(), K, D, CB, S, R,
+        packed["has_cap"], B, blocks, dt.data_ptr(), bd.data_ptr(),
+        state.data_ptr(), kernels.stream(dev))
     kernels.launched("grid_patch", err)
     grid_patch.launches += 1
     kernels.note_work("grid_patch", lambda: grid_patch_work(
@@ -320,3 +369,5 @@ def grid_patch(m, cfg, ca, kp, ks, dest_pool, packed, cidx, tb, dt, bd,
 
 
 grid_patch.launches = 0
+#: K17's phase stamps: block 0's first rows on its warp 0
+GRID_PATCH_PHASES = ("staging", "seeding", "cells", "merge")

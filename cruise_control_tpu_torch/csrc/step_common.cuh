@@ -65,7 +65,7 @@ __device__ __forceinline__ long long fixed_q(float v, float scf, double sc) {
 // and the chunk's total in `*total`.  Every thread of the block calls it;
 // `warp_tot` is a shared scratch of blockDim.x / 32 ints.  It ends on a
 // barrier, so the next call may reuse the scratch.  K7 gathers its kept
-// rows and K16 compacts its index lists in stable order with it.
+// rows in stable order with it.
 __device__ __forceinline__ int block_count_before(bool flag, int* warp_tot,
                                                   int* total) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;

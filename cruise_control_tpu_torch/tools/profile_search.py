@@ -5,13 +5,14 @@
 ``--incremental`` profiles the search with ``incremental_rescore=True``
 (the default path otherwise).  Builds the seeded 1 000-broker / 20 000-partition fixture (seed 12, 20 racks,
 mean utilization 0.35), runs one warm-up
-plan, then one plan under a ``torch.profiler`` session (CPU + CUDA
+plan, then one plan un-profiled and one under a ``torch.profiler`` session (CPU + CUDA
 activities) opened through the kernel observatory's one entry point
 (``telemetry/kernel_budget.py: profiler_session``), whose Chrome trace
 that module's parser reads, and prints one JSON line: the plan's
 wall-clock, steps, device-busy time (the kernels' time on the card), the
-idle share, kernel launches
-per step, the device time and launches of each hand-written kernel
+idle share, the un-profiled plan's actions (count and sha256 of
+their fields), violation score, repools, overflows and patch steps,
+kernel launches per step, the device time and launches of each hand-written kernel
 (``csrc/*.cu``), the step loop's device-to-host reads and captured-chunk
 replays (CUDA graph launches) per plan, the kernels that take the most
 device time and the host ops that take the most CPU time.  The profiler's own cost inflates the host side,
@@ -23,6 +24,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import hashlib
 import json
 import tempfile
 import time
@@ -48,6 +50,8 @@ def main(argv=None) -> int:
         CudaGoalOptimizer,
         CudaSearchConfig,
     )
+    from cruise_control_tpu_torch.analyzer.goal_optimizer import make_goals
+    from cruise_control_tpu_torch.analyzer.verifier import violation_score
     from cruise_control_tpu_torch.models.generators import random_cluster
     from cruise_control_tpu_torch.telemetry import kernel_budget as KB
 
@@ -97,10 +101,15 @@ def main(argv=None) -> int:
                 for n, (us, c) in rows]
 
     summ = plain.goal_summaries[0]
+    moves = [(int(a.action_type), a.partition, a.slot, a.source_broker,
+              a.dest_broker, a.dest_slot) for a in plain.actions]
     print(json.dumps({
         "phase": "profile_search", "device": torch.cuda.get_device_name(0),
         "fixture": FIXTURE, "incremental_rescore": args.incremental,
         "steps": steps,
+        "actions": len(moves),
+        "actions_sha256": hashlib.sha256(repr(moves).encode()).hexdigest(),
+        "violation_score": violation_score(plain.final_state, make_goals()),
         "plain_wallclock_s": plain_s,
         "plain_timing_s": summ["timing_s"],
         # the step loop's reads of the card (carry reads and prefix

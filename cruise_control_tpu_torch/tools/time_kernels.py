@@ -1,5 +1,6 @@
-"""Time fifteen kernels — K1 ``grid_top_r``, K11 ``top_select``, K17
-``grid_patch``, K9 ``recompute_aggregates``, K12 ``whatif_verdict``, K4
+"""Time sixteen kernels — K1 ``grid_top_r``, K11 ``top_select``, K17
+``grid_patch``, K16 ``stale_sets``, K9 ``recompute_aggregates``, K12
+``whatif_verdict``, K4
 ``budget_accept``, K7 ``compact_rows``, K3 ``per_src_top``, K13 (a)
 ``round_keys``, K8 ``commit_batch``, K5 ``match_batch``, K2
 ``grid_terms``, K6 ``score_candidates``, K10 ``pool_tables`` and K15
@@ -14,7 +15,7 @@ checkout whose ``chip_smoke.py`` and package are imported, for example an
 older commit unpacked with ``git archive``, so that two versions of the
 kernels can be timed in turns within one run on one card.  Run it by its
 path, not with ``-m``: the package must come from that checkout.
-``--only`` keeps the named kernels (default: all fifteen).
+``--only`` keeps the named kernels (default: all sixteen).
 
 Each kernel is held bit for bit to its plain twin and timed by
 ``chip_smoke.py`` itself (its records print as it emits them: wrapper ms
@@ -27,7 +28,16 @@ cases: K11 on chip_smoke's tie-rich priority at 60 000 → 8 192 / 2 048 /
 launched on the selecting blocks alone); K1 over the 1 000-broker /
 20 000-partition and 50-broker / 1 000-partition fixtures' first-step
 grids and at replication factors 1, 2, 4 and 8; K1's row-list and carry
-forms and K17 on the first patching step of an incremental search; K9 on
+forms on the first patching step of an incremental search; K16 and K17 on
+the first patching step at 1 000 / 20 000 (mean and percentile loads),
+the ragged cluster, 50 / 1 000, 10 000 brokers and the north star's
+10 000 brokers / 1 000 000 partitions (this checkout's
+``patch_step_calls``, ``RESCORE_B10K`` and ``RESCORE_WIDE_KW``), each
+bit for bit against its twin (recorded, not raised), acting and idle —
+K16 on an inactive step, K17 gated (FRESH = 1) — with ``device_ms_runs``,
+``graph_ms`` (16 launches in a captured graph), the plain twin, the
+bound from the case's stale counts, ``attrs``, the ``ptxas`` report and
+the phases (``STALE_SETS_PHASES``, ``GRID_PATCH_PHASES``); K9 on
 the 1 000 / 20 000 uploaded model (mean and percentile loads), at the
 north star's 3 M slots and on the skewed placement (one broker hosting a
 quarter of the slots) at 1 000 and at 10 000 brokers; K12 at 50 / 1 000
@@ -120,8 +130,11 @@ KEYS = ("K", "D", "S", "N", "k", "P", "B", "L", "Q", "blocks",
         "M_step", "commits", "touched_brokers", "A", "cohort_rows",
         "dest_cap", "rounds_to_fixed_outputs", "phases_run", "error",
         "W", "device_ms_runs", "ptxas", "bcost", "graph_ms", "rows_budget",
-        "touched", "repool", "full", "qualified", "accepted", "stack_tol")
-ALL = ("top_select", "grid_top_r", "grid_patch", "recompute_aggregates",
+        "touched", "repool", "full", "qualified", "accepted", "stack_tol",
+        "form", "config", "budgets", "stale", "R", "CB", "has_cap",
+        "stale_columns", "feasible_cells")
+ALL = ("top_select", "grid_top_r", "grid_patch", "stale_sets",
+       "recompute_aggregates",
        "whatif_verdict", "budget_accept", "compact_rows", "per_src_top",
        "round_keys", "commit_batch", "match_batch", "grid_terms",
        "score_candidates", "pool_tables", "corrected_accept")
@@ -786,27 +799,170 @@ def time_top_select(cs, summary, PK, kernels, dev):
         del a, kw
 
 
-def time_grid(cs, summary, G, random_cluster, dev, only):
+def time_grid(cs, summary, G, random_cluster, dev):
     fixtures = [("midscale", cs.MIDSCALE),
                 ("50b_1k", dict(cs.SMALL, seed=42))]
     fixtures += [(f"rf{S}", dict(seed=5, num_brokers=200, num_racks=20,
                                  num_partitions=4000, replication_factor=S))
                  for S in (1, 2, 4, 8)]
-    if "grid_top_r" in only:
-        for case, fixture in fixtures:
-            args_, consts = cs.grid_inputs(random_cluster(**fixture), {}, dev)
-            rec = cs.check_grid_top_r(case, args_, consts)
-            packed = G.grid_terms(*args_[:6], consts)
-            rec["device_ms"] = cs.device_ms(
-                lambda: G.launch_grid_top_r(packed, args_[7]),
-                "grid_top_r_kernel")
-            summary("grid_top_r", rec)
-            del args_, packed
+    for case, fixture in fixtures:
+        args_, consts = cs.grid_inputs(random_cluster(**fixture), {}, dev)
+        rec = cs.check_grid_top_r(case, args_, consts)
+        packed = G.grid_terms(*args_[:6], consts)
+        rec["device_ms"] = cs.device_ms(
+            lambda: G.launch_grid_top_r(packed, args_[7]),
+            "grid_top_r_kernel")
+        summary("grid_top_r", rec)
+        del args_, packed
     recs = cs.check_incremental_kernels(
         "midscale", random_cluster(**cs.MIDSCALE), {}, dev, True)
-    for name in ("grid_top_r[rows]", "grid_top_r[carry_full]", "grid_patch"):
-        if name.split("[")[0] in only:
-            summary(name, recs[name])
+    for name in ("grid_top_r[rows]", "grid_top_r[carry_full]"):
+        summary(name, recs[name])
+
+
+def rescore_fixtures(cs, own, random_cluster):
+    """K16's and K17's fixtures → [(case, make state, config)]: 1 000 /
+    20 000 (mean and percentile loads), the ragged cluster, 50 / 1 000
+    (8 commits a step: at its default batch no step of the first 16
+    patches), 10 000 brokers and the north star's 10 000 brokers /
+    1 000 000 partitions (both at this checkout's ``RESCORE_WIDE_KW``)."""
+    ragged = dict(seed=5, num_brokers=77, num_racks=7, num_partitions=3001,
+                  dead_brokers=3)
+    return [
+        ("midscale", lambda: random_cluster(**cs.MIDSCALE), {}),
+        ("midscale_percentile",
+         lambda: cs.with_percentile(random_cluster(**cs.MIDSCALE)), {}),
+        ("ragged", lambda: random_cluster(**ragged),
+         {"max_source_replicas": 1999, "device_batch_per_step": 8}),
+        ("50b_1k", lambda: random_cluster(seed=42, **cs.SMALL),
+         {"device_batch_per_step": 8}),
+        ("b10k", lambda: random_cluster(**own.RESCORE_B10K),
+         own.RESCORE_WIDE_KW),
+        ("north_star", own.north_star_state, own.RESCORE_WIDE_KW)]
+
+
+def _outputs(fn, idx):
+    """``fn`` run on its arguments → those at ``idx`` (it writes them in
+    place)."""
+    def run(*a, **kw):
+        fn(*a, **kw)
+        return [a[i] for i in idx]
+    return run
+
+
+def time_stale_sets_case(cs, summary, RK, case, a, kw, cfg_kw, first):
+    """K16 on one case's first patching step, acting and inactive."""
+    from cruise_control_tpu_torch.analyzer import step_state as SS
+
+    m, kp, dp, lp = a[0], a[1], a[2], a[3]
+    P, S = m.assignment.shape
+    B = a[5].shape[0]
+    K, D, L = kp.shape[0], dp.shape[0], lp.shape[0]
+    RB, CB, LB = (a[i].shape[0] for i in (8, 9, 10))
+    for form in ("acting", "inactive"):
+        args = copy.deepcopy(a)
+        if form == "inactive":
+            args[7][SS.ACTIVE] = 0
+        out = (7, 8, 9, 10, 11)
+        got = _outputs(RK.stale_sets, out)(*copy.deepcopy(args), **kw)
+        torch.cuda.synchronize()
+        want = _outputs(RK.stale_sets_plain, out)(*copy.deepcopy(args))
+        counts = [int(x) for x in want[4].cpu()]
+        targs, pargs = copy.deepcopy(args), copy.deepcopy(args)
+        run = lambda: RK.stale_sets(*targs, **kw)  # noqa: E731
+        rec = {"case": case, "form": form, "config": cfg_kw, "K": K, "D": D,
+               "L": L, "B": B, "P": P, "budgets": [RB, CB, LB],
+               "stale": counts if form == "acting" else None,
+               "bit_equal": _bit_equal(cs, None, f"{case} stale_sets", got,
+                                       want),
+               "ms": cs.cuda_ms(run),
+               "device_ms_runs": device_ms_runs(run, "stale_sets_kernel"),
+               "graph_ms": graph_ms(cs, run),
+               "plain_ms": cs.cuda_ms(
+                   lambda: RK.stale_sets_plain(*pargs), reps=15),
+               "attrs": lib_attrs(RK.kernels, "stale_sets", K, D, L)}
+        if form == "acting":
+            rec.update(cs.bound(*RK.stale_sets_work(K, D, L, B, P, RB, CB,
+                                                    LB)))
+            rec.update(phase_split(RK.kernels, "stale_sets",
+                                   RK.STALE_SETS_PHASES, run))
+            if first:
+                rec["ptxas"] = ptxas_report(RK.kernels, "stale_sets")
+        summary("stale_sets", rec)
+
+
+def time_grid_patch_case(cs, summary, RK, G, case, a, kw, has_cap, cfg_kw,
+                         first):
+    """K17 on one case's first patching step and gated (the carry's FRESH
+    flag set)."""
+    from cruise_control_tpu_torch.analyzer import step_state as SS
+
+    m, cfg, ca, kp, ks, dp, packed, cidx, _, tb, dt, bd, st = a
+    K, D, S = packed["K"], packed["D"], packed["S"]
+    CB, R, B = cidx.shape[0], dt.shape[1], tb.shape[0]
+    dp_c = torch.where(cidx >= 0, dp[cidx.clamp_min(0).long()], -1)
+    feas = int(torch.isfinite(G.move_grid_scores(
+        m, cfg, ca, kp, ks, dp_c.to(torch.int32))).sum())
+    n_stale = int((cidx >= 0).sum())
+    pkw = {k: v for k, v in kw.items() if k != "checked"}
+    for form in ("patch", "gated"):
+        args = copy.deepcopy(a)
+        if form == "gated":
+            args[12][SS.FRESH] = 1
+        got = _outputs(RK.grid_patch, (10, 11))(*copy.deepcopy(args), **kw)
+        torch.cuda.synchronize()
+        want = _outputs(RK.grid_patch_plain, (10, 11))(*copy.deepcopy(args),
+                                                       **pkw)
+        targs, pargs = copy.deepcopy(args), copy.deepcopy(args)
+        run = lambda: RK.grid_patch(*targs, **kw)  # noqa: E731
+        rec = {"case": case, "form": form, "config": cfg_kw, "K": K, "D": D,
+               "S": S, "B": B, "CB": CB, "R": R, "has_cap": has_cap,
+               "stale_columns": n_stale, "feasible_cells": feas,
+               "bit_equal": _bit_equal(cs, None, f"{case} grid_patch", got,
+                                       want),
+               "ms": cs.cuda_ms(run),
+               "device_ms_runs": device_ms_runs(run, "grid_patch_kernel"),
+               "graph_ms": graph_ms(cs, run),
+               "attrs": RK.grid_patch_attrs(S, has_cap, CB, D)}
+        if form == "patch":
+            rec.update(cs.bound(*RK.grid_patch_work(K, D, B, S, R, CB,
+                                                    n_stale, feas)))
+            rec["plain_ms"] = cs.cuda_ms(
+                lambda: RK.grid_patch_plain(*pargs, **pkw), reps=15)
+            rec.update(phase_split(RK.kernels, "grid_patch",
+                                   RK.GRID_PATCH_PHASES, run))
+            if first:
+                rec["ptxas"] = ptxas_report(RK.kernels, "grid_patch")
+        summary("grid_patch", rec)
+
+
+def time_rescore(cs, summary, random_cluster, dev, here, only):
+    """K16 and K17 on the first patching step of an incremental search on
+    each of :func:`rescore_fixtures` (this checkout's ``patch_step_calls``
+    on the ``--root`` checkout's package), each bit for bit against its
+    twin on the card (recorded, not raised)."""
+    from cruise_control_tpu_torch.analyzer import rescore_kernels as RK
+    from cruise_control_tpu_torch.ops import grid as G
+
+    own = own_smoke(here)
+    first = True
+    for case, make, cfg_kw in rescore_fixtures(cs, own, random_cluster):
+        try:
+            calls, has_cap, _ = own.patch_step_calls(make(), cfg_kw, dev)
+        except AssertionError as e:
+            summary("stale_sets", {"case": case, "config": cfg_kw,
+                                   "error": str(e)})
+            continue
+        if "stale_sets" in only:
+            (a, kw), = calls["stale_sets"]
+            time_stale_sets_case(cs, summary, RK, case, a, kw, cfg_kw, first)
+        if "grid_patch" in only:
+            (a, kw), = calls["grid_patch"]
+            time_grid_patch_case(cs, summary, RK, G, case, a, kw, has_cap,
+                                 cfg_kw, first)
+        first = False
+        del calls
+        torch.cuda.empty_cache()
 
 
 def time_recompute_aggregates(cs, summary, random_cluster, dev, here):
@@ -972,8 +1128,10 @@ def main(argv=None) -> int:
     kernels.build(list(cs.KERNELS))
     if "top_select" in only:
         time_top_select(cs, summary, PK, kernels, dev)
-    if {"grid_top_r", "grid_patch"} & only:
-        time_grid(cs, summary, G, random_cluster, dev, only)
+    if "grid_top_r" in only:
+        time_grid(cs, summary, G, random_cluster, dev)
+    if {"stale_sets", "grid_patch"} & only:
+        time_rescore(cs, summary, random_cluster, dev, here, only)
     if "recompute_aggregates" in only:
         time_recompute_aggregates(cs, summary, random_cluster, dev, here)
     if "whatif_verdict" in only:

@@ -192,7 +192,7 @@ def test_patch_matches_reference(cload):
     the reference's patched (dt, bd) after (a) and (dt, bd, ls) after all
     three, bit for bit."""
     cfg, ca_r, (sargs, _), (args, kw) = second_step(cload)
-    m, pcfg, ca, kp, ks, dp, packed, cidx, tb, dt, bd, state = args
+    m, pcfg, ca, kp, ks, dp, packed, cidx, n_cols, tb, dt, bd, state = args
     tpm, lp, lsl = sargs[6], sargs[3], sargs[4]
     ls = torch.full((lp.shape[0],), float("inf"))
     ref = ref_patch(to_ref_model(m), REF_CFG, ca_r, j(kp), j(ks), j(dp),
@@ -220,7 +220,7 @@ def test_patch_matches_reference(cload):
     # the gates: a step that rescores in full leaves the patch's carry be
     state[SS.FRESH] = 1
     dt0 = dt.clone()
-    RK.grid_patch(*args[:9], dt, bd, state)
+    RK.grid_patch(*args[:10], dt, bd, state)
     G.grid_rescore_carry(m, pcfg, ca, kp, ks, dp, packed, dt.shape[1], dt, bd,
                          state, 0, rows=ridx, n_rows=nstale[0:1])
     assert torch.equal(dt, dt0)
